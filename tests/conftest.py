@@ -92,6 +92,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running stress tests (quick runs: -m 'not slow')")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device; skips without one (on the card: "
+        "python -m pytest -m gpu tests/test_torch_gpu.py)")
 
 
 @pytest.fixture
