@@ -25,10 +25,31 @@ into ``build/repro_torch``), and then:
   transfer per sync, one payload transfer per sync that changed a byte and
   no per-span transfer, and both kernels must have launched.
 
+* phase 1b holds ``ops.flash_attention`` against its plain version on
+  the card: the sweep of ``tests/test_kernels.py`` (four shapes; causal,
+  full and window 24; causal only where S == T) plus d = 128 and a
+  ``t_actual`` case, float32 at 2e-5 and bfloat16 at 2e-2, and the main
+  path's shape (B 4, H 16, K 8, S 2000, d 128, causal, read through the
+  model layout's strides, q and k drawn wide so the softmax is peaked) in
+  float32 at 2e-5 and in bf16 at rtol 1e-2, atol 1e-4, which must also
+  give the same bits twice.
+* phase 3 drives the serving path, ``Engine`` with a ``SessionStore``, at
+  internlm2-1.8b's full widths and depth (24 layers, 1.89 B parameters
+  made on the card from a seed, cast once to bf16): 4 requests of 2000
+  prompt tokens, 200 greedy steps in a 4096-position cache (the two-tier
+  tail merges into main at 2048).  Run 1 is ``Engine.generate``; run 2
+  saves the session (factor 0.5, under ``build/chip_smoke/``) at token
+  100, drops the engine, opens a fresh one on the same store, loads, and
+  runs on.  Run 2's 200 tokens must equal run 1's, the flash kernel must
+  have launched in each prefill, and decode after prefill(2000) must agree
+  with prefill(2001) to 0.02 relative (``tests/test_models.py``), with
+  finite logits.  The same reading for two parameter seeds and four
+  prompts is printed beside it, to show its spread.
+
 Diagnostics go to earlier lines of standard output: the card's name and
-power limit (``nvidia-smi``), build times, per-sync times, and one JSON line
-``{"kernels": [...]}`` with each kernel's time, launches, bound, plain-
-version and library times.  The last line is
+power limit (``nvidia-smi``), build times, per-sync times, the serving
+times, and one JSON line ``{"kernels": [...]}`` with each kernel's time,
+launches, bound, plain-version and library times.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is not 0 and no such line is printed; the same holds when CUDA is not
 available or the package is missing.
@@ -46,6 +67,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -53,14 +75,28 @@ sys.path.insert(0, str(ROOT / "src"))
 PAGE = 4096
 DIRTY_FRAC = 0.08            # page-spread traffic of benchmarks/selective_sync.py
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores (data sheet)
 SMOKE_LAYERS = 2             # depth cut of internlm2-1.8b (24 layers)
 WORKDIR = ROOT / "build" / "chip_smoke"
+# phase 3 traffic: 4 requests of 2000 prompt tokens, 200 greedy steps in a
+# 4096-position cache, the session saved at token 100 into a combined
+# window that keeps half of it in memory
+SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=200, save_at=100,
+             factor=0.5)
+# the consistency reading is also taken for these parameter and prompt
+# seeds, to show its spread beside the check on seed 0 (0.02, the limit of
+# tests/test_models.py)
+CONSISTENCY_SEEDS = dict(params=(0, 1), prompts=(0, 1, 2, 3))
+# one prefill layer's attention at the SERVE shape: B, H, K, S = T, d
+ATTN_MAIN = (4, 16, 8, 2000, 128)
 
 KERNELS = {
     "dirty_diff": {"source": "src/repro_torch/csrc/dirty_diff.cu",
                    "replaces": "src/repro/kernels/dirty_diff.py:77"},
     "diff_pack": {"source": "src/repro_torch/csrc/pack_diff.cu",
                   "replaces": "src/repro/kernels/pack_diff.py:84"},
+    "flash_attention": {"source": "src/repro_torch/csrc/flash_attention.cu",
+                        "replaces": "src/repro/kernels/flash_attention.py:86"},
 }
 
 
@@ -327,6 +363,306 @@ def _compare(ops, ref, cur, snap, block_elems) -> float:
     return float((got.int() - want.int()).abs().max()) if k else 0.0
 
 
+# -- phase 1b: attention kernel against its plain version ----------------------
+
+ATTN_SWEEP = [  # B, H, K, S, T, d: tests/test_kernels.py's shapes + d = 128
+    (1, 2, 2, 64, 64, 32), (2, 4, 2, 96, 96, 16), (1, 4, 1, 40, 72, 32),
+    (2, 2, 2, 33, 65, 64), (1, 4, 2, 130, 130, 128)]
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the main path's shape: (rtol, atol).  bf16 at one bf16 ulp relative (both
+# sides round the same f32 result once), float32 at the sweep's 2e-5.  q and
+# k are drawn with std ATTN_MAIN_QK_STD so the softmax is peaked and a key
+# tile that is dropped, misplaced or mis-masked moves rows far past these
+# limits (at std 0.4 it is nearly uniform and an error hides below 2e-2)
+ATTN_MAIN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-4)}
+ATTN_MAIN_QK_STD = 1.5
+
+
+def attention_inputs(B, H, K, S, T, d, dtype, gen, dev, qk_std=0.4):
+    """q (B,H,S,d) and k (B,K,T,d), normal * ``qk_std``, and v (B,K,T,d),
+    normal * 0.4, from ``gen``, as the model hands them to the kernel:
+    (B,S,H,d) storage seen through a transpose."""
+    def mk(n, heads, std):
+        x = torch.randn(B, n, heads, d, generator=gen, device=dev) * std
+        return x.to(dtype).transpose(1, 2)
+    return mk(S, H, qk_std), mk(T, K, qk_std), mk(T, K, 0.4)
+
+
+def _attention_err(ops, ref, q, k, v, tol=None, **kw) -> float:
+    """Max abs difference of the kernel from its plain version; fails
+    unless within ``tol`` = (rtol, atol), by default ATTN_TOL's."""
+    got = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    rtol, atol = tol or (ATTN_TOL[q.dtype],) * 2
+    check(got.dtype == q.dtype and got.shape == q.shape,
+          f"flash_attention output {got.dtype} {tuple(got.shape)}")
+    check(bool(torch.allclose(got.float(), want.float(), atol=atol,
+                              rtol=rtol)),
+          f"flash_attention != plain version at rtol {rtol}, atol {atol} "
+          f"({q.dtype}, {tuple(q.shape)}, {tuple(k.shape)}, {kw})")
+    return float((got.float() - want.float()).abs().max())
+
+
+def phase1b(dev, log=print) -> float:
+    """``ops.flash_attention`` against its plain version; returns the
+    largest absolute difference at the main path's shape in bf16."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ncases, worst = 0, {}
+    for dtype in ATTN_TOL:
+        for B, H, K, S, T, d in ATTN_SWEEP:
+            q, k, v = attention_inputs(B, H, K, S, T, d, dtype, gen, dev)
+            for causal, window in ((True, None), (False, None), (True, 24)):
+                if causal and S != T:
+                    continue  # causal assumes aligned q/kv ends
+                err = _attention_err(ops, ref, q, k, v, causal=causal,
+                                     window=window)
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+                ncases += 1
+        q, k, v = attention_inputs(1, 4, 2, 96, 96, 64, dtype, gen, dev)
+        _attention_err(ops, ref, q, k, v, causal=False, t_actual=70)
+        ncases += 1
+    B, H, K, S, d = ATTN_MAIN
+    main_err = {}
+    for dtype, tol in ATTN_MAIN_TOL.items():
+        q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev,
+                                   qk_std=ATTN_MAIN_QK_STD)
+        main_err[dtype] = _attention_err(ops, ref, q, k, v, tol=tol,
+                                         causal=True)
+        ncases += 1
+    again = [ops.flash_attention(q, k, v, causal=True) for _ in range(2)]
+    check(torch.equal(again[0], again[1]),
+          "flash_attention gave different bits on the same inputs")
+    torch.cuda.synchronize(dev)
+    log(f"phase 1b: {ncases} cases, flash_attention within "
+        f"{ATTN_TOL[torch.float32]} (f32, worst {worst[torch.float32]:.3g}) "
+        f"and {ATTN_TOL[torch.bfloat16]} (bf16, worst "
+        f"{worst[torch.bfloat16]:.3g}) of its plain version; main shape "
+        f"{ATTN_MAIN} causal, q and k std {ATTN_MAIN_QK_STD}: max abs err "
+        f"{main_err[torch.float32]:.3g} (f32, rtol = atol = 2e-5), "
+        f"{main_err[torch.bfloat16]:.3g} (bf16, rtol 1e-2, atol 1e-4); "
+        "deterministic")
+    return main_err[torch.bfloat16]
+
+
+def measure_attention(dev) -> dict:
+    """Kernel, plain-version and library times of one prefill layer's
+    attention at the main path's shape, and its bound."""
+    from repro_torch.kernels import ops, ref
+    B, H, K, S, d = ATTN_MAIN
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = attention_inputs(B, H, K, S, S, d, torch.bfloat16, gen, dev)
+    flops = 4 * B * H * d * (S * (S + 1) // 2)  # causal: S(S+1)/2 pairs
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    t_ops = flops / BF16_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return {
+        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
+        "plain_ms": cuda_ms(
+            lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        "flops": flops, "bytes": nbytes,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
+# -- phase 3: the serving path ------------------------------------------------------
+
+def _timed_ms(fn, dev):
+    """(result, wall ms) of ``fn``, the card synchronised on both sides."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def device_profile(fn, nrep: int = 1) -> dict:
+    """Wall time of ``nrep`` calls of ``fn`` against the card's busy time
+    in them (the sum of the kernel and copy times that ``torch.profiler``
+    traces on the device; one stream, so they do not overlap), and the
+    kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(nrep):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / nrep
+    events = [e for e in prof.key_averages()
+              if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / nrep
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:4]
+    return {"wall_ms": wall, "device_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "device_ops_per_call": sum(e.count for e in events) / nrep,
+            "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 / nrep
+                       for e in top}}
+
+
+def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
+    """Decode after prefill(S) against prefill(S + 1) on ``eng`` (S =
+    ``tokens.shape[1] - 1``, ``tokens[:, -1]`` the decoded token): the
+    largest absolute difference of the logits over the largest |logit|.
+    Fails on a non-finite logit."""
+    from repro_torch.models import make_prefill_fn
+    S = tokens.shape[1] - 1
+    eng.prefill({"inputs": tokens[:, :S]})
+    dec = eng.decode_logits(tokens[:, S:])
+    full, _ = make_prefill_fn(cfg)(
+        eng.params, {"inputs": torch.from_numpy(tokens).long().to(eng.device)},
+        eng.cache)
+    a, b = dec.float().cpu().numpy(), full.float().cpu().numpy()
+    check(bool(np.isfinite(a).all() and np.isfinite(b).all()),
+          "non-finite logits")
+    return float(np.abs(a - b).max() / max(1e-6, float(np.abs(b).max())))
+
+
+def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
+                directory: Path, max_len: int, steps: int, save_at: int,
+                factor) -> dict:
+    """Phase 3: greedy serving of ``tokens[:, :-1]`` through ``Engine``.
+
+    Run 1 is ``Engine.generate(steps)``.  Run 2 takes ``save_at`` tokens,
+    saves the session into a ``SessionStore`` under ``directory``, drops
+    the engine, opens a fresh one on the same store, loads the session and
+    takes the rest.  Then decode after prefill(S) is compared with
+    prefill(S + 1) (S = the prompt length, ``tokens[:, -1]`` the extra
+    token).  Checks: run 2's tokens equal run 1's; the flash kernel
+    launched in each prefill on a card; the logits are finite and
+    consistent.  Returns the tokens, the counts and the times."""
+    from repro_torch.core import Communicator
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import init_cache_specs
+    from repro_torch.serve import Engine, SessionStore
+
+    dev = torch.device(device)
+    batch, S = tokens.shape[0], tokens.shape[1] - 1
+    inputs = {"inputs": tokens[:, :S]}
+    on_card = dev.type == "cuda"
+    out = {}
+
+    def engine(**kw):
+        return Engine(cfg, params, batch=batch, max_len=max_len,
+                      device=dev, **kw)
+
+    # the main path: counts at 0 just before it, read just after
+    flash_attention.launches = 0
+    eng = engine()
+    run1, out["generate_ms"] = _timed_ms(
+        lambda: eng.generate(inputs, steps), dev)
+    launches_run1 = flash_attention.launches
+    del eng
+    store = SessionStore(Communicator(1), str(directory / "session.bin"),
+                         init_cache_specs(cfg, batch, max_len),
+                         factor=factor)
+    try:
+        eng = engine(session=store)
+        first, out["prefill_ms"] = _timed_ms(lambda: eng.prefill(inputs), dev)
+        launches_prefill2 = flash_attention.launches - launches_run1
+        seq, step_ms = [first], []
+        for _ in range(save_at - 1):
+            nxt, ms = _timed_ms(lambda: eng.step(seq[-1]), dev)
+            seq.append(nxt)
+            step_ms.append(ms)
+        eng.generated = list(seq)
+        out["session_flushed_bytes"], out["save_ms"] = _timed_ms(
+            eng.save_session, dev)
+        del eng
+        eng, out["engine_open_ms"] = _timed_ms(
+            lambda: engine(session=store), dev)
+        _, out["load_ms"] = _timed_ms(eng.load_session, dev)
+        check(eng.pos == S + save_at - 1,
+              f"loaded position {eng.pos}, saved {S + save_at - 1}")
+        for _ in range(steps - save_at):
+            nxt, ms = _timed_ms(lambda: eng.step(seq[-1]), dev)
+            seq.append(nxt)
+            step_ms.append(ms)
+        out["launches"] = flash_attention.launches
+        run2 = np.stack(seq, axis=1)
+        out["tokens"] = run2
+        check(np.array_equal(run1, run2),
+              "the resumed session's tokens differ from the uninterrupted "
+              f"run's: first at {np.argwhere(run1 != run2)[:1].tolist()}")
+        if on_card:
+            check(launches_run1 > 0 and launches_prefill2 > 0,
+                  f"flash_attention not launched in a prefill: "
+                  f"{launches_run1}, {launches_prefill2}")
+        if on_card:  # where the time goes, after the main path
+            nxt = seq[-1]
+
+            def step():
+                nonlocal nxt
+                nxt = eng.step(nxt)
+            out["decode_profile"] = device_profile(step, nrep=3)
+            out["prefill_profile"] = device_profile(
+                lambda: eng.prefill(inputs))
+        out["consistency_rel_err"] = consistency_rel_err(cfg, eng, tokens)
+        check(out["consistency_rel_err"] < 0.02,
+              f"decode after prefill({S}) vs prefill({S + 1}): relative "
+              f"error {out['consistency_rel_err']}")
+        del eng
+    finally:
+        store.free()
+    out["step_ms"] = step_ms
+    out["decode_ms_per_step"] = float(np.mean(step_ms))
+    out["decode_ms_per_step_median"] = float(np.median(step_ms))
+    out["decode_tokens_per_s"] = batch * 1e3 / out["decode_ms_per_step"]
+    out["prefill_tokens_per_s"] = batch * S * 1e3 / out["prefill_ms"]
+    return out
+
+
+def prompt_tokens(cfg, seed: int) -> np.ndarray:
+    """SERVE's requests: (batch, prompt + 1) token ids from numpy."""
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab, size=(SERVE["batch"], SERVE["prompt"] + 1)).astype(
+            np.int32)
+
+
+def phase3(dev, log=print) -> dict:
+    """The serving path at internlm2-1.8b's full widths and depth, then the
+    consistency reading for other parameter and prompt seeds (reported
+    beside the check, which is made on seed 0 only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.serve import Engine
+    cfg = get_config("internlm2-1.8b")
+    params = init_params(param_specs(cfg), 0, device=dev)
+    nparams = sum(t.numel() for t in params.values())
+    log(f"phase 3: {cfg.name}, {cfg.n_layers} layers, {nparams} parameters "
+        f"made on {dev} in float32; {SERVE}")
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+    WORKDIR.mkdir(parents=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        out = run_serving(cfg, params, prompt_tokens(cfg, 0), device=dev,
+                          directory=WORKDIR,
+                          **{k: SERVE[k] for k in
+                             ("max_len", "steps", "save_at", "factor")})
+    finally:
+        shutil.rmtree(WORKDIR, ignore_errors=True)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["nparams"] = nparams
+    readings = {}
+    for pseed in CONSISTENCY_SEEDS["params"]:
+        if pseed:
+            del params
+            params = init_params(param_specs(cfg), pseed, device=dev)
+        eng = Engine(cfg, params, batch=SERVE["batch"],
+                     max_len=SERVE["max_len"], device=dev)
+        for tseed in CONSISTENCY_SEEDS["prompts"]:
+            readings[f"params {pseed}, prompt {tseed}"] = consistency_rel_err(
+                cfg, eng, prompt_tokens(cfg, tseed))
+        del eng
+    out["consistency_readings"] = readings
+    return out
+
+
 # -- measurements ----------------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -410,7 +746,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.serve import exact_float32
 
+    exact_float32()  # the plain versions' float32 products stay float32
     dev = torch.device("cuda", 0)
     card = gpu_line()
     print(card)
@@ -418,7 +756,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           "device(s)")
     t0 = time.perf_counter()
-    built = _build.build(["dirty_diff", "pack_diff"])
+    built = _build.build(["dirty_diff", "pack_diff", "flash_attention"])
     for name, b in built.items():
         print(f"built {name} in {b['seconds']:.2f} s -> {b['path']}")
         for line in b["log"].splitlines():
@@ -427,6 +765,7 @@ def main() -> int:
     print(f"build wall: {time.perf_counter() - t0:.2f} s")
 
     worst = phase1(dev)
+    attn_err = phase1b(dev)
 
     shutil.rmtree(WORKDIR, ignore_errors=True)
     WORKDIR.mkdir(parents=True)
@@ -457,6 +796,22 @@ def main() -> int:
             "ms": m[f"{name}_ms"], "plain_ms": m[f"{name}_plain_ms"],
             "bound_ms": m[f"{name}_bound_ms"], "bound_by": "bytes",
             "library_ms": m[f"{name}_library_ms"]})
+
+    serve = phase3(dev)
+    check(serve["launches"] > 0, "flash_attention never launched on the "
+          "serving path")
+    print(f"serve ({card}): " + json.dumps(
+        {k: v for k, v in serve.items() if k not in ("tokens", "step_ms")}))
+    print("serve tokens (request 0, first 16): "
+          f"{serve['tokens'][0, :16].tolist()}")
+    a = measure_attention(dev)
+    print(f"attention at {ATTN_MAIN} ({card}): " + json.dumps(a))
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        **KERNELS["flash_attention"], "launches": serve["launches"],
+        "max_abs_err": attn_err, "ms": a["ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "library_ms": a["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,24 @@
 """Architecture registry: the configurations ported so far.
 
-The counterpart of ``repro.configs``; only internlm2-1.8b is ported, and
-``reduce_for_smoke`` waits for the config/data slice (ROADMAP queue A).
+The counterpart of ``repro.configs``; only internlm2-1.8b is ported.
 """
 
 from __future__ import annotations
 
 from ..models.config import ModelConfig
 from . import internlm2_1p8b
+from .base import reduce_for_smoke
 
 ARCHS = {
     "internlm2-1.8b": internlm2_1p8b.config,
 }
 
 
-def get_config(name: str) -> ModelConfig:
+def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; have {sorted(ARCHS)}")
-    return ARCHS[name]()
+    cfg = ARCHS[name]()
+    return reduce_for_smoke(cfg) if smoke else cfg
 
 
-__all__ = ["ARCHS", "get_config", "ModelConfig"]
+__all__ = ["ARCHS", "get_config", "ModelConfig", "reduce_for_smoke"]

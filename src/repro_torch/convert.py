@@ -19,20 +19,26 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["dtype_name", "dtype_matches", "resolve_device", "to_host_f32",
+__all__ = ["dtype_name", "dtype_matches", "params_from_numpy",
+           "resolve_device", "tensor_from_stored", "to_host_f32",
            "tree_from_numpy", "tree_to_numpy"]
 
 
 def dtype_name(dtype: Any) -> str:
-    """``"float32"``, ``"bfloat16"``, ... for a torch or numpy dtype."""
+    """``"float32"``, ``"bfloat16"``, ... for a torch or numpy dtype, or a
+    name (``"bfloat16"`` needs no numpy type)."""
     if isinstance(dtype, torch.dtype):
         return str(dtype).removeprefix("torch.")
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return dtype
     return np.dtype(dtype).name
 
 
 def _itemsize(dtype: Any) -> int:
     if isinstance(dtype, torch.dtype):
         return dtype.itemsize
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return 2
     return np.dtype(dtype).itemsize
 
 
@@ -96,3 +102,37 @@ def to_host_f32(x: torch.Tensor) -> np.ndarray:
     """A tensor on any device as a float32 numpy array on the host (bf16
     widens exactly)."""
     return x.detach().to("cpu", torch.float32).numpy()
+
+
+def tensor_from_stored(a: np.ndarray, dtype: Any,
+                       device: str | torch.device = "cuda") -> torch.Tensor:
+    """An array read back from a window slot of ``dtype`` -- a bfloat16
+    slot stores its bits as ``uint16`` -- as a tensor of that dtype on
+    ``device`` (copies)."""
+    a = np.array(a, order="C")
+    if dtype_name(dtype) == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(resolve_device(device))
+
+
+def params_from_numpy(cfg, tree: Mapping[str, Any],
+                      device: str | torch.device = "cuda") -> dict:
+    """A JAX parameter tree (``{name: ndarray}``, bf16 as ``ml_dtypes``
+    arrays) as tensors on ``device``, after checking it against
+    ``param_specs(cfg)``: the same names, and for each the shape and dtype
+    of its spec.  Raises ``ValueError`` on any mismatch."""
+    from .models import param_specs  # models imports this module
+    specs = param_specs(cfg)
+    missing, extra = sorted(set(specs) - set(tree)), sorted(set(tree) - set(specs))
+    if missing or extra:
+        raise ValueError(f"parameter names differ from param_specs: missing "
+                         f"{missing}, unexpected {extra}")
+    for name, spec in specs.items():
+        a = np.asarray(tree[name])
+        if tuple(a.shape) != tuple(spec.shape) or not dtype_matches(
+                a.dtype, spec.dtype):
+            raise ValueError(f"{name}: {a.shape} {dtype_name(a.dtype)}, but "
+                             f"the spec is {spec.shape} {spec.dtype}")
+    return tree_from_numpy(tree, device)

@@ -21,6 +21,14 @@ Two classes:
     A named tree of arrays packed into one window with an offset table.
     The layout (sorted names, page-aligned slots) is the reference's, so
     both packages write byte-identical window files for the same tree.
+
+bfloat16 has no numpy dtype in this package (the reference stores it
+through ``ml_dtypes``, which this package does not import).  A bfloat16
+slot is carried by name and item size and stores its values' bits as
+``uint16``: offsets, and so the window files, equal the reference's.
+``get`` returns the bits (as :func:`repro_torch.convert.tree_to_numpy`
+does) and ``put`` takes bits (a 2-byte array named ``bfloat16``, or
+``uint16`` / ``int16``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 
+from ..convert import dtype_name
 from .comm import Communicator
 from .window import Request, Window
 
@@ -50,29 +59,55 @@ def _align(n: int, a: int) -> int:
     return -(-n // a) * a
 
 
+_BF16_BITS = ("bfloat16", "uint16", "int16")
+
+
+def _stored_dtype(name: str) -> np.dtype:
+    """The numpy dtype a slot of dtype ``name`` stores (bfloat16: its
+    uint16 bits)."""
+    return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
+
+
+def _as_stored(value, name: str, stored: np.dtype) -> np.ndarray:
+    """``value`` as a contiguous array of the slot's stored dtype."""
+    if name != "bfloat16":
+        return np.ascontiguousarray(value, dtype=stored)
+    arr = np.asarray(value)
+    if arr.dtype.itemsize != 2 or arr.dtype.name not in _BF16_BITS:
+        raise TypeError("a bfloat16 slot takes bfloat16 bits (a 2-byte "
+                        "array named bfloat16, uint16 or int16), got "
+                        f"{arr.dtype}")
+    return np.ascontiguousarray(arr).view(stored)
+
+
 @dataclasses.dataclass(frozen=True)
 class _Slot:
     """Placement of one named array inside the window byte space."""
 
     name: str
     shape: tuple[int, ...]
-    dtype: np.dtype
+    dtype: str  # dtype name ("float32", "bfloat16", ...)
     offset: int  # bytes, within the rank's segment
 
     @property
     def nbytes(self) -> int:
-        return int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
+        return (int(np.prod(self.shape, dtype=np.int64))
+                * _stored_dtype(self.dtype).itemsize)
 
 
 class WindowedArray:
-    """A logical ndarray living inside a window segment."""
+    """A logical ndarray living inside a window segment.
+
+    ``dtype`` is the numpy dtype stored (``uint16`` bits for a bfloat16
+    array) and ``dtype_name`` the logical type's name."""
 
     def __init__(self, win: Window, rank: int, shape, dtype, *, offset: int = 0,
                  block_bytes: int = 1 << 22):
         self.win = win
         self.rank = rank
         self.shape = tuple(int(s) for s in shape)
-        self.dtype = np.dtype(dtype)
+        self.dtype_name = dtype_name(dtype)
+        self.dtype = _stored_dtype(self.dtype_name)
         self.offset = offset
         self.nbytes = int(np.prod(self.shape, dtype=np.int64)) * self.dtype.itemsize
         self.block_bytes = _align(block_bytes, self.dtype.itemsize)
@@ -83,7 +118,7 @@ class WindowedArray:
         return raw.view(self.dtype).reshape(self.shape)
 
     def put(self, value) -> None:
-        arr = np.ascontiguousarray(value, dtype=self.dtype)
+        arr = _as_stored(value, self.dtype_name, self.dtype)
         if int(np.prod(arr.shape, dtype=np.int64)) != int(
                 np.prod(self.shape, dtype=np.int64)):
             raise ValueError(f"shape mismatch: window holds {self.shape}, got {arr.shape}")
@@ -125,7 +160,7 @@ class WindowedArray:
 
     def write_block(self, i: int, flat) -> None:
         lo, hi = self._block_span(i)
-        arr = np.ascontiguousarray(flat, dtype=self.dtype)
+        arr = _as_stored(flat, self.dtype_name, self.dtype)
         if arr.nbytes != hi - lo:
             raise ValueError(f"block {i}: expected {hi - lo} bytes, got {arr.nbytes}")
         self.win.put(arr.view(np.uint8).ravel(), self.rank, self.offset + lo)
@@ -133,7 +168,7 @@ class WindowedArray:
     def write_block_async(self, i: int, flat) -> Request:
         """Nonblocking block write-behind (rput); data snapshotted eagerly."""
         lo, hi = self._block_span(i)
-        arr = np.ascontiguousarray(flat, dtype=self.dtype)
+        arr = _as_stored(flat, self.dtype_name, self.dtype)
         if arr.nbytes != hi - lo:
             raise ValueError(f"block {i}: expected {hi - lo} bytes, got {arr.nbytes}")
         return self.win.rput(arr.view(np.uint8).ravel(), self.rank,
@@ -181,9 +216,9 @@ class WindowedPyTree:
         off = 0
         for name in sorted(specs):
             shape, dtype = specs[name]
-            dt = np.dtype(dtype)
             off = _align(off, WindowedPyTree.PAGE)
-            slot = _Slot(name, tuple(int(s) for s in shape), dt, off)
+            slot = _Slot(name, tuple(int(s) for s in shape),
+                         dtype_name(dtype), off)
             slots[name] = slot
             off += slot.nbytes
         return slots, _align(off, WindowedPyTree.PAGE)
@@ -261,7 +296,7 @@ class WindowedPyTree:
         """Serializable layout description (used by the checkpoint manager)."""
         return {
             "slots": {
-                k: {"shape": list(s.shape), "dtype": s.dtype.str, "offset": s.offset}
+                k: {"shape": list(s.shape), "dtype": s.dtype, "offset": s.offset}
                 for k, s in self.slots.items()
             },
         }
@@ -269,7 +304,8 @@ class WindowedPyTree:
     @staticmethod
     def slots_from_manifest(m: Mapping[str, Any]) -> dict[str, _Slot]:
         return {
-            k: _Slot(k, tuple(v["shape"]), np.dtype(v["dtype"]), int(v["offset"]))
+            k: _Slot(k, tuple(v["shape"]), dtype_name(v["dtype"]),
+                     int(v["offset"]))
             for k, v in m["slots"].items()
         }
 

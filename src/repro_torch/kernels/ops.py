@@ -1,7 +1,7 @@
 """Public kernel wrappers: layout normalization and dispatch by device.
 
 The counterpart of ``repro.kernels.ops`` for the two kernels of device-side
-selective sync.  A CUDA tensor goes to the CUDA kernel, and a failing build
+selective sync and for attention.  A CUDA tensor goes to the CUDA kernel, and a failing build
 or launch raises; a CPU tensor goes to the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Nothing else chooses between the two.
 
@@ -9,7 +9,8 @@ The CUDA kernels take flat byte views and mask the short last block
 themselves, so nothing is padded or copied on the card.  The plain versions
 see the reference's layout: a bit view, flattened and zero-padded to whole
 blocks of ``block_elems``.  Both give the same flags, and the same bytes in
-``packed[:count]``.
+``packed[:count]``.  The attention kernel masks ragged lengths itself too:
+the reference's padding to block multiples has no counterpart here.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ import torch
 
 from . import ref
 from .dirty_diff import dirty_diff_cuda
+from .flash_attention import flash_attention_cuda
 from .pack_diff import diff_pack_cuda
 
-__all__ = ["dirty_blocks", "dirty_pack", "padded_rows"]
+__all__ = ["dirty_blocks", "dirty_pack", "flash_attention", "padded_rows"]
 
 
 def _check_pair(cur: torch.Tensor, snap: torch.Tensor,
@@ -89,3 +91,42 @@ def dirty_pack(cur: torch.Tensor, snap: torch.Tensor, *,
         return flags, packed.view(cur.dtype), count
     return ref.diff_pack_ref(padded_rows(cur, block_elems),
                              padded_rows(snap, block_elems))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
+                    t_actual: int | None = None) -> torch.Tensor:
+    """q: (B,H,S,d); k/v: (B,K,T,d) with H = K*G.  Returns (B,H,S,d) in
+    q.dtype.  Keys at or past ``t_actual`` (default T) are masked;
+    ``window`` keeps keys with ``q_pos - k_pos < window``.  Queries and
+    keys both count positions from 0."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("q must be (B,H,S,d) and k, v one (B,K,T,d) shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, d = q.shape
+    Bk, K, T, dk = k.shape
+    if Bk != B or dk != d or K == 0 or H % K:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do "
+                         "not pair: batch and head dimension must agree and "
+                         "the kv heads divide the heads")
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k, v must share a dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v on different devices: {q.device}, "
+                         f"{k.device}, {v.device}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {q.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    t_actual = T if t_actual is None else t_actual
+    if not 1 <= t_actual <= T:
+        raise ValueError(f"t_actual must be in [1, {T}], got {t_actual}")
+    scale = d ** -0.5 if scale is None else scale
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    scale=scale, t_actual=t_actual)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale, t_actual=t_actual)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels: the ground truth they are held to.
 
-``dirty_diff_ref`` mirrors ``repro.kernels.ref.dirty_diff_ref`` and
-``diff_pack_ref`` mirrors ``repro.kernels.pack_diff.diff_pack_ref``.  The
+``dirty_diff_ref`` mirrors ``repro.kernels.ref.dirty_diff_ref``,
+``diff_pack_ref`` mirrors ``repro.kernels.pack_diff.diff_pack_ref`` and
+``flash_attention_ref`` mirrors ``repro.kernels.ref.flash_attention_ref``.  The
 wrappers in :mod:`repro_torch.kernels.ops` run them for CPU tensors;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -10,7 +11,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dirty_diff_ref", "diff_pack_ref"]
+__all__ = ["dirty_diff_ref", "diff_pack_ref", "flash_attention_ref"]
+
+_NEG = -1e30
 
 _INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32,
                  8: torch.int64}
@@ -43,3 +46,30 @@ def diff_pack_ref(cur: torch.Tensor, snap: torch.Tensor):
         packed[:k] = cur[f]
     return flags, packed, torch.tensor([k], dtype=torch.int32,
                                        device=cur.device)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None,
+                        t_actual: int | None = None) -> torch.Tensor:
+    """q: (B,H,S,d); k/v: (B,K,T,d) with H = K*G.  Naive full-matrix
+    softmax attention in float32 (the query cast, then scaled), masked
+    scores -1e30; returns (B,H,S,d) in q.dtype."""
+    B, H, S, d = q.shape
+    _, K, T, _ = k.shape
+    G = H // K
+    scale = d ** -0.5 if scale is None else scale
+    t_actual = T if t_actual is None else t_actual
+    kk = k.repeat_interleave(G, dim=1).float()
+    vv = v.repeat_interleave(G, dim=1).float()
+    s = torch.einsum("bhsd,bhtd->bhst", q.float() * scale, kk)
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = k_pos < t_actual
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window is not None:
+        mask = mask & (q_pos - k_pos < window)
+    s = torch.where(mask, s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vv).to(q.dtype)

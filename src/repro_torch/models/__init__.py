@@ -1,12 +1,15 @@
-"""Model configuration and parameter specs.
+"""Model configuration, parameter specs and the dense language model.
 
-Only what the storage-window slice needs: ``ModelConfig`` and the dense
-family's ``param_specs``, which give the optimizer a real parameter tree.
-The model code itself is a later slice of this package.
+The dense family (GQA ``attn`` blocks, e.g. internlm2-1.8b): parameter
+and cache specs, initialization, and the prefill and decode forwards.
+Training and the other families are later slices (ROADMAP queue A).
 """
 
 from .config import ModelConfig
-from .lm import param_specs
-from .spec import ParamSpec
+from .lm import (cast_params, init_cache_specs, make_decode_fn,
+                 make_prefill_fn, param_specs)
+from .spec import ParamSpec, add_prefix, init_params, sub
 
-__all__ = ["ModelConfig", "ParamSpec", "param_specs"]
+__all__ = ["ModelConfig", "ParamSpec", "param_specs", "init_cache_specs",
+           "init_params", "cast_params", "make_prefill_fn", "make_decode_fn",
+           "sub", "add_prefix"]

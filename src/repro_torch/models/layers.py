@@ -1,0 +1,75 @@
+"""Shared primitive layers: norms, RoPE, gated MLPs.
+
+The counterpart of ``repro.models.layers`` for the dense family, with the
+reference's cast points: norms and RoPE compute in float32 and return the
+input's dtype.  The reference's ``mxu_einsum`` (bf16 operands, f32
+accumulation on the TPU) becomes :func:`f32_einsum`, its runnable form:
+both operands upcast to float32.  ``layer_norm``, ``causal_conv1d`` and
+``sinusoidal_positions`` belong to the families still to port (ROADMAP
+queue A).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["rms_norm", "rope", "apply_act", "mlp", "f32_einsum"]
+
+
+def f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product with float32 operands and result (the reference's
+    ``mxu_einsum`` as it runs off the TPU)."""
+    return torch.einsum(spec, a.float(), b.float())
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding on the last axis.
+
+    x: (..., S, H, d) with d even; positions: (S,) or (B, S).
+    """
+    d = x.shape[-1]
+    dt = x.dtype
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)          # (d/2,)
+    angles = positions.float()[..., None] * freqs                  # (..., S, d/2)
+    angles = angles[..., None, :]  # broadcast over the head axis
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(dt)
+
+
+def apply_act(h: torch.Tensor, g: torch.Tensor | None,
+              act: str) -> torch.Tensor:
+    if act == "silu":
+        return F.silu(g) * h if g is not None else F.silu(h)
+    if act == "geglu":
+        return (F.gelu(g, approximate="tanh") * h if g is not None
+                else F.gelu(h, approximate="tanh"))
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
+    """(Gated) feed-forward block; params: wi, wo [, wg] [, bi, bo]."""
+    h = x @ params["wi"]
+    if "bi" in params:
+        h = h + params["bi"]
+    g = (x @ params["wg"]) if "wg" in params else None
+    h = apply_act(h, g, act)
+    o = h @ params["wo"]
+    if "bo" in params:
+        o = o + params["bo"]
+    return o

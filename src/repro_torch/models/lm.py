@@ -1,22 +1,90 @@
-"""Parameter specs of the language models (dense family).
+"""Language model assembly for the dense family: specs, prefill, decode.
 
-The counterpart of ``repro.models.lm``, trimmed to ``param_specs`` and the
-helpers the dense family uses (``lm.py:64-111, 166-211`` of the reference):
-names, shapes, dtypes, logical axes and init kinds are the reference's.
-The forward, loss, prefill and decode functions, and the MoE, MLA, SSM,
-RG-LRU, encoder-decoder and VLM specs, wait for later slices (ROADMAP queue
-A); asking for one of those families raises ``NotImplementedError``.
+The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks:
+``param_specs``, ``init_cache_specs``, the prefill and decode forwards and
+their factories; names, shapes, dtypes, logical axes and init kinds are the
+reference's.  The loss (training), and the MoE, MLA, SSM, RG-LRU,
+local-attention, encoder-decoder and VLM blocks wait for later slices
+(ROADMAP queue A); asking for one raises ``NotImplementedError`` naming
+its item.
 
-Conventions: params are flat dicts ``g{gi}/p{pj}/<name>`` with a leading
-"layers" axis of length ``reps`` (scanned).
+Conventions: params and caches are flat dicts ``g{gi}/p{pj}/<name>`` with
+a leading "layers" axis of length ``reps``; the reference's scan over that
+axis is a Python loop here.  Activations run in ``cfg.dtype`` (bf16),
+norms, RoPE and softmax in float32.  Unlike the reference's pure
+functions, prefill and decode write the cache they are given in place (a
+KV cache is the largest tensor of a serving run; copying it per step would
+double it).
+
+Two-tier KV cache: ``k``/``v`` (main, length ``cache_len``) and
+``tk``/``tv`` (tail, ``decode_tail`` slots; position p at slot p % Tt).
+Decode writes the tail; the engine merges a full tail into main before
+the step at a multiple of Tt.  Prefill leaves the state that decoding the
+prompt one token at a time would leave: the tail holds the prompt's last
+``(S - 1) % Tt + 1`` positions, so a prompt whose length is a multiple of
+Tt ends with a full tail, which the first step's merge writes exactly.
+(The reference puts all S positions in main in that case, and its first
+merge then writes the empty tail over them: ROADMAP queue C.)
 """
 
 from __future__ import annotations
 
-from .config import ModelConfig
-from .spec import ParamSpec
+import torch
 
-__all__ = ["param_specs"]
+from .attention import decode_attention_two_tier, prefill_attention
+from .config import ModelConfig
+from .layers import mlp, rms_norm, rope
+from .spec import ParamSpec, sub
+
+__all__ = ["param_specs", "init_cache_specs", "cast_params",
+           "make_prefill_fn", "make_decode_fn"]
+
+# parameters kept in f32 inside the (bf16) forward pass
+_KEEP_F32 = {"A_log", "dt_bias", "D", "lam", "b_i", "b_r", "router"}
+
+# where each block kind that is not ported yet is planned
+_UNPORTED = {
+    "moe": "item 12 (MoE, MLA)", "ssm": "item 10 (Mamba-2)",
+    "rglru": "item 11 (RecurrentGemma)",
+    "local_attn": "item 11 (RecurrentGemma)",
+    "xattn": "item 12 (frontends)", "enc_attn": "item 12 (frontends)",
+}
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet: "
+                               f"see ROADMAP.md queue A {item}")
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    """Raise for what the forward does not cover: only dense GQA ``attn``
+    blocks without a frontend are ported."""
+    if cfg.frontend != "none" or cfg.is_encdec:
+        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder",
+                        "item 12 (frontends)")
+    for _, pattern in cfg.groups():
+        for kind in pattern:
+            if kind != "attn":
+                raise _unported(f"the {kind!r} block",
+                                _UNPORTED.get(kind, ""))
+    if cfg.attn_kind != "gqa":
+        raise _unported(f"{cfg.attn_kind} attention", "item 12 (MoE, MLA)")
+
+
+def cast_params(cfg: ModelConfig, params):
+    """Cast matmul weights to the compute dtype (norms/gates stay f32); the
+    reference's ``_cast_params``.  The factories below take parameters
+    cast by this, once, by their caller (``Engine`` does it at
+    construction)."""
+    dt = getattr(torch, cfg.dtype)
+
+    def cast(name, a):
+        leaf = name.split("/")[-1]
+        if leaf in _KEEP_F32 or "norm" in leaf:
+            return a
+        return a.to(dt)
+
+    return {k: cast(k, v) for k, v in params.items()}
 
 
 def _norm(d: int) -> ParamSpec:
@@ -55,9 +123,8 @@ def _mlp_specs(cfg: ModelConfig, d_ff: int | None = None,
 
 def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
     if kind not in ("attn", "local_attn") or cfg.attn_kind != "gqa":
-        raise NotImplementedError(
-            f"{kind!r} blocks ({cfg.attn_kind} attention) are not ported to "
-            "repro_torch yet: see ROADMAP.md queue A")
+        raise _unported(f"{kind!r} blocks ({cfg.attn_kind} attention)",
+                        _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
     D = cfg.d_model
     s: dict[str, ParamSpec] = {"norm1": _norm(D)}
     s.update(_attn_specs(cfg))
@@ -69,9 +136,8 @@ def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
 def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     """Full parameter spec dict for a dense (GQA) architecture."""
     if cfg.frontend != "none" or cfg.is_encdec:
-        raise NotImplementedError(
-            f"the {cfg.frontend!r} frontend / encoder-decoder specs are not "
-            "ported to repro_torch yet: see ROADMAP.md queue A")
+        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder "
+                        "specs", "item 12 (frontends)")
     D, V = cfg.d_model, cfg.vocab
     out: dict[str, ParamSpec] = {
         "embed/tok": ParamSpec((V, D), cfg.param_dtype, ("vocab", "fsdp"),
@@ -85,3 +151,176 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
             for name, spec in _block_specs(cfg, kind).items():
                 out[f"g{gi}/p{pj}/{name}"] = spec.stack(reps)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+
+def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
+                       T: int) -> dict[str, ParamSpec]:
+    if kind != "attn" or cfg.attn_kind != "gqa":
+        raise _unported(f"the cache of {kind!r} blocks",
+                        _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
+    K, hd = cfg.n_kv_heads, cfg.hd
+    Tt = min(cfg.decode_tail, max(1, T))
+    return {
+        "k": ParamSpec((B, T, K, hd), "bfloat16",
+                       ("batch", "cache_seq", "kv_heads", None)),
+        "v": ParamSpec((B, T, K, hd), "bfloat16",
+                       ("batch", "cache_seq", "kv_heads", None)),
+        "tk": ParamSpec((B, Tt, K, hd), "bfloat16",
+                        ("batch", None, None, None)),
+        "tv": ParamSpec((B, Tt, K, hd), "bfloat16",
+                        ("batch", None, None, None)),
+    }
+
+
+def init_cache_specs(cfg: ModelConfig, batch: int,
+                     cache_len: int) -> dict[str, ParamSpec]:
+    out: dict[str, ParamSpec] = {}
+    for gi, (reps, pattern) in enumerate(cfg.groups()):
+        for pj, kind in enumerate(pattern):
+            for name, spec in _block_cache_specs(cfg, kind, batch,
+                                                 cache_len).items():
+                out[f"g{gi}/p{pj}/{name}"] = spec.stack(reps)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Block forwards (one layer; ``p`` and ``cache`` without the layers axis)
+# ---------------------------------------------------------------------------
+
+def _qkv(cfg, p, h, positions):
+    B, S, _ = h.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = h @ p["wq"]
+    k = h @ p["wk"]
+    v = h @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
+    v = v.reshape(B, S, K, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_block(cfg, p, x, positions):
+    """Causal self-attention of a whole prompt; returns (x, (k, v))."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, positions)
+    B, S = x.shape[:2]
+    o = prefill_attention(q, k, v, causal=True)
+    return x + o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def _mlp_res(cfg, p, x):
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    pp = {k[4:]: v for k, v in p.items() if k.startswith("mlp_")}
+    return x + mlp(pp, h, cfg.act)
+
+
+def _block_prefill(cfg, p, x, positions, cache):
+    """The prompt through one ``attn`` block; fills ``cache`` in place."""
+    x, (k, v) = _attn_block(cfg, p, x, positions)
+    Tt = cache["tk"].shape[1]
+    S = k.shape[1]
+    base = S - ((S - 1) % Tt + 1)  # the tail keeps 1..Tt positions
+    cache["k"][:, :base] = k[:, :base]
+    cache["v"][:, :base] = v[:, :base]
+    cache["tk"][:, :S - base] = k[:, base:]
+    cache["tv"][:, :S - base] = v[:, base:]
+    return _mlp_res(cfg, p, x)
+
+
+def _block_decode(cfg, p, x, pos: int, positions, cache):
+    """One token (x: (B,1,D)) at absolute position ``pos`` through one
+    ``attn`` block: an O(1) write into the tail; main is read only."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, positions)
+    slot = pos % cache["tk"].shape[1]
+    cache["tk"][:, slot] = k[:, 0]
+    cache["tv"][:, slot] = v[:, 0]
+    o = decode_attention_two_tier(q, cache["k"], cache["v"], cache["tk"],
+                                  cache["tv"], pos)
+    x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
+    return _mlp_res(cfg, p, x)
+
+
+def _layers(cfg, params, cache):
+    """(layer params, layer cache) of every block, in stack order: the
+    reference's scan over the stacked "layers" axis as a loop of views."""
+    for gi, (reps, pattern) in enumerate(cfg.groups()):
+        gp = {k: t.unbind(0) for k, t in sub(params, f"g{gi}").items()}
+        gc = {k: t.unbind(0) for k, t in sub(cache, f"g{gi}").items()}
+        for layer in range(reps):
+            for pj in range(len(pattern)):
+                yield ({k: t[layer] for k, t in sub(gp, f"p{pj}").items()},
+                       {k: t[layer] for k, t in sub(gc, f"p{pj}").items()})
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def _embed(cfg, params, tokens):
+    x = params["embed/tok"][tokens].to(getattr(torch, cfg.dtype))
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _logits(cfg, params, x):
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = (params["embed/tok"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    logits = x @ head.to(x.dtype)
+    if cfg.logit_softcap > 0:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# Public factories
+# ---------------------------------------------------------------------------
+
+def make_prefill_fn(cfg: ModelConfig):
+    """Returns prefill(params, batch, cache0) -> (last_logits, cache0).
+
+    ``params`` are cast by :func:`cast_params`.  ``batch["inputs"]``: (B, S) token ids on the parameters' device.
+    ``cache0`` (zeros, sized by :func:`init_cache_specs`) is filled in
+    place and returned.
+    """
+    _check_dense(cfg)
+
+    @torch.no_grad()
+    def prefill_fn(params, batch, cache0):
+        x = _embed(cfg, params, batch["inputs"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        for p, c in _layers(cfg, params, cache0):
+            x = _block_prefill(cfg, p, x, positions, c)
+        return _logits(cfg, params, x[:, -1:]), cache0
+
+    return prefill_fn
+
+
+def make_decode_fn(cfg: ModelConfig):
+    """Returns decode(params, cache, tokens (B,1), pos) -> (logits, cache).
+
+    ``params`` are cast by :func:`cast_params`; ``pos`` is the absolute position of ``tokens`` (a Python int); the
+    cache is written in place and returned.
+    """
+    _check_dense(cfg)
+
+    @torch.no_grad()
+    def decode_fn(params, cache, tokens, pos: int):
+        x = _embed(cfg, params, tokens)
+        positions = torch.full((1,), pos, device=x.device)
+        for p, c in _layers(cfg, params, cache):
+            x = _block_decode(cfg, p, x, pos, positions, c)
+        return _logits(cfg, params, x), cache
+
+    return decode_fn

@@ -9,7 +9,10 @@ there as
 Inputs are numpy arrays from a seed (bfloat16 as uint16 bit patterns).
 Flags, ``count`` and ``packed[:count]`` must be bit-identical, for
 aligned and unaligned (offset by one element) views, and for the window's
-packed route end to end.
+packed route end to end.  The attention kernel is held to its plain
+version at 2e-5 (float32) and 2e-2 (bfloat16), over the sweep of
+``tests/test_kernels.py`` plus d = 128, in both layouts, and must give
+the same bits twice.
 """
 
 import numpy as np
@@ -17,7 +20,8 @@ import pytest
 import torch
 
 from repro_torch.core import Communicator, Window
-from repro_torch.kernels import dirty_diff, ops, pack_diff, ref
+from repro_torch.kernels import dirty_diff, flash_attention, ops, pack_diff, ref
+from repro_torch.models.attention import prefill_attention
 
 PAGE = 4096
 
@@ -94,3 +98,53 @@ def test_window_packed_route_on_the_card(cuda, tmp_path):
     disk = np.fromfile(tmp_path / "w.bin", np.float32)
     assert (disk[:cur.numel()] == cur.numpy()).all()
     win.free()
+
+
+ATTN_SHAPES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 96, 96, 16),
+               (1, 4, 1, 40, 72, 32), (2, 2, 2, 33, 65, 64),
+               (1, 4, 2, 130, 130, 128)]
+ATTN_SWEEP = [(shape, mask) for shape in ATTN_SHAPES
+              for mask in [(True, None), (False, None), (True, 24)]
+              if not (mask[0] and shape[3] != shape[4])]
+
+
+def _normal(shape, seed, dtype, device):
+    a = np.random.default_rng(seed).standard_normal(shape) * 0.4
+    return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mask", ATTN_SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_version(cuda, shape, mask,
+                                                      dtype):
+    B, H, K, S, T, d = shape
+    causal, window = mask
+    q = _normal((B, H, S, d), 0, dtype, cuda)
+    k = _normal((B, K, T, d), 1, dtype, cuda)
+    v = _normal((B, K, T, d), 2, dtype, cuda)
+    n0 = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_model_layout_reads_in_place(cuda):
+    """(B,S,H,d) tensors go to the kernel as strided views, and the output
+    comes back contiguous in that layout."""
+    q = _normal((2, 70, 4, 64), 3, torch.bfloat16, cuda)
+    k = _normal((2, 70, 2, 64), 4, torch.bfloat16, cuda)
+    v = _normal((2, 70, 2, 64), 5, torch.bfloat16, cuda)
+    got = prefill_attention(q, k, v, causal=True)
+    assert got.is_contiguous()
+    want = ref.flash_attention_ref(q.transpose(1, 2).contiguous(),
+                                   k.transpose(1, 2).contiguous(),
+                                   v.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
+                               atol=2e-2, rtol=2e-2)

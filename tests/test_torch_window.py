@@ -451,3 +451,47 @@ def test_unknown_impl_raises(tmp_path):
 def test_wire_stats_schema_matches_reference():
     want = jcore.Communicator(1).transport.wire_stats_snapshot()
     assert tcore.Communicator(1).transport.wire_stats_snapshot() == want
+
+
+# -- bfloat16 slots in windowed trees -----------------------------------------
+
+def _tree_specs(bf16):
+    return {"k": ((3, 5, 7), bf16), "a": ((11,), "float32"),
+            "pos": ((), "int32")}
+
+
+@pytest.mark.parametrize("bf16", ["bfloat16", torch.bfloat16])
+def test_windowed_tree_bf16_slots_match_reference(tmp_path, bf16):
+    """A bfloat16 slot is carried by name and item size: the layout (offsets,
+    total) and the window file equal the reference's, which stores bf16
+    through ml_dtypes; ``get`` returns the bits as uint16."""
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 1 << 15, size=(3, 5, 7), dtype=np.uint16)
+    a = rng.standard_normal(11).astype(np.float32)
+    want_slots, want_total = jcore.WindowedPyTree.layout(
+        _tree_specs(ml_dtypes.bfloat16))
+    slots, total = tcore.WindowedPyTree.layout(_tree_specs(bf16))
+    assert total == want_total
+    assert {k: (s.offset, s.nbytes) for k, s in slots.items()} == \
+        {k: (s.offset, s.nbytes) for k, s in want_slots.items()}
+    files = []
+    for name, core, spec, kbits in (
+            ("ref.bin", jcore, ml_dtypes.bfloat16, bits.view(ml_dtypes.bfloat16)),
+            ("port.bin", tcore, bf16, bits)):
+        wt = core.WindowedPyTree.allocate(
+            core.Communicator(1), _tree_specs(spec), info(tmp_path, name))
+        wt.put("k", kbits)
+        wt.put("a", a)
+        wt.put("pos", np.asarray(7, np.int32))
+        flushed = wt.sync()
+        if core is tcore:
+            got = wt.get("k")
+            assert got.dtype == np.uint16 and (got == bits).all()
+            assert wt.manifest()["slots"]["k"]["dtype"] == "bfloat16"
+            assert tcore.WindowedPyTree.slots_from_manifest(
+                wt.manifest()) == wt.slots
+            with pytest.raises(TypeError, match="bfloat16"):
+                wt.put("k", bits.astype(np.float32))
+        wt.free()
+        files.append((flushed, (tmp_path / name).read_bytes()))
+    assert files[0] == files[1]
