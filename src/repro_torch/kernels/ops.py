@@ -1,7 +1,7 @@
 """Public kernel wrappers: layout normalization and dispatch by device.
 
 The counterpart of ``repro.kernels.ops`` for the two kernels of device-side
-selective sync and for attention.  A CUDA tensor goes to the CUDA kernel, and a failing build
+selective sync, for attention and for the SSD scan.  A CUDA tensor goes to the CUDA kernel, and a failing build
 or launch raises; a CPU tensor goes to the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Nothing else chooses between the two.
 
@@ -10,7 +10,8 @@ themselves, so nothing is padded or copied on the card.  The plain versions
 see the reference's layout: a bit view, flattened and zero-padded to whole
 blocks of ``block_elems``.  Both give the same flags, and the same bytes in
 ``packed[:count]``.  The attention kernel masks ragged lengths itself too:
-the reference's padding to block multiples has no counterpart here.
+the reference's padding to block multiples has no counterpart here, and
+neither has its padding of the SSD scan to whole chunks.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from . import ref
 from .dirty_diff import dirty_diff_cuda
 from .flash_attention import flash_attention_cuda
 from .pack_diff import diff_pack_cuda
+from .ssd_scan import ssd_scan_cuda
 
-__all__ = ["dirty_blocks", "dirty_pack", "flash_attention", "padded_rows"]
+__all__ = ["dirty_blocks", "dirty_pack", "flash_attention", "padded_rows",
+           "ssd_scan"]
 
 
 def _check_pair(cur: torch.Tensor, snap: torch.Tensor,
@@ -130,3 +133,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     scale=scale, t_actual=t_actual)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, t_actual=t_actual)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, C: torch.Tensor, *, return_state: bool = False):
+    """x: (B,H,S,P); dt: (B,H,S); A: (H,); Bm/C: (B,H,S,N) -> y (B,H,S,P)
+    float32, and with ``return_state`` also the final state (B,H,N,P)
+    float32.  x, Bm and C share a dtype; the arithmetic is float32."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 4 \
+            or Bm.shape != C.shape:
+        raise ValueError("x must be (B,H,S,P), dt (B,H,S), A (H,) and Bm, C "
+                         f"one (B,H,S,N) shape, got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(Bm.shape)}, {tuple(C.shape)}")
+    B, H, S, _ = x.shape
+    if tuple(dt.shape) != (B, H, S) or tuple(A.shape) != (H,) \
+            or tuple(Bm.shape[:3]) != (B, H, S):
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)} and Bm/C {tuple(Bm.shape)} do not "
+                         "pair: batch, heads and positions must agree")
+    if not x.dtype == Bm.dtype == C.dtype:
+        raise ValueError(f"x, Bm, C must share a dtype, got {x.dtype}, "
+                         f"{Bm.dtype}, {C.dtype}")
+    if not x.device == dt.device == A.device == Bm.device == C.device:
+        raise ValueError("x, dt, A, Bm, C on different devices: "
+                         f"{x.device}, {dt.device}, {A.device}, {Bm.device}, "
+                         f"{C.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.is_cuda:
+        y, h = ssd_scan_cuda(x, dt.float(), A.float(), Bm, C)
+        return (y, h) if return_state else y
+    return ref.ssd_scan_ref(x, dt, A, Bm, C, return_state=return_state)

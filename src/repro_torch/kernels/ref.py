@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels: the ground truth they are held to.
 
 ``dirty_diff_ref`` mirrors ``repro.kernels.ref.dirty_diff_ref``,
-``diff_pack_ref`` mirrors ``repro.kernels.pack_diff.diff_pack_ref`` and
-``flash_attention_ref`` mirrors ``repro.kernels.ref.flash_attention_ref``.  The
+``diff_pack_ref`` mirrors ``repro.kernels.pack_diff.diff_pack_ref``,
+``flash_attention_ref`` mirrors ``repro.kernels.ref.flash_attention_ref`` and
+``ssd_scan_ref`` mirrors ``repro.kernels.ref.ssd_scan_ref``.  The
 wrappers in :mod:`repro_torch.kernels.ops` run them for CPU tensors;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -11,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["dirty_diff_ref", "diff_pack_ref", "flash_attention_ref"]
+__all__ = ["dirty_diff_ref", "diff_pack_ref", "flash_attention_ref",
+           "ssd_scan_ref"]
 
 _NEG = -1e30
 
@@ -73,3 +75,26 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask, s, _NEG)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, vv).to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, C: torch.Tensor, *,
+                 return_state: bool = False):
+    """Sequential SSD recurrence in float32.  x: (B,H,S,P); dt: (B,H,S);
+    A: (H,); Bm/C: (B,H,S,N) -> y (B,H,S,P) float32, and with
+    ``return_state`` also the final state (B,H,N,P) float32."""
+    B, H, S, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    bf, cf = Bm.float(), C.float()
+    h = torch.zeros((B, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dt_t = dtf[:, :, t]
+        da = torch.exp(dt_t * Af[None, :])
+        h = h * da[..., None, None] + torch.einsum(
+            "bhn,bhp->bhnp", bf[:, :, t], xf[:, :, t] * dt_t[..., None])
+        ys.append(torch.einsum("bhn,bhnp->bhp", cf[:, :, t], h))
+    y = (torch.stack(ys, dim=2) if ys
+         else torch.zeros((B, H, 0, P), dtype=torch.float32, device=x.device))
+    return (y, h) if return_state else y

@@ -4,9 +4,9 @@ The counterpart of ``repro.models.layers`` for the dense family, with the
 reference's cast points: norms and RoPE compute in float32 and return the
 input's dtype.  The reference's ``mxu_einsum`` (bf16 operands, f32
 accumulation on the TPU) becomes :func:`f32_einsum`, its runnable form:
-both operands upcast to float32.  ``layer_norm``, ``causal_conv1d`` and
-``sinusoidal_positions`` belong to the families still to port (ROADMAP
-queue A).
+both operands upcast to float32.  :func:`causal_conv1d` serves the SSM
+family; ``layer_norm`` and ``sinusoidal_positions`` belong to the families
+still to port (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "apply_act", "mlp", "f32_einsum"]
+__all__ = ["rms_norm", "rope", "apply_act", "mlp", "f32_einsum",
+           "causal_conv1d"]
 
 
 def f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -73,3 +74,26 @@ def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
     if "bo" in params:
         o = o + params["bo"]
     return o
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor | None = None):
+    """Depthwise causal 1-D conv.
+
+    x: (B, S, C); w: (K, C).  Returns (y, new_state) where state is the last
+    (K-1) inputs -- the decode carry.  When ``state`` is given, x is the new
+    chunk (decode: S == 1) and the conv sees [state, x].  The window sum is
+    float32; y and the state come back in x's dtype.
+    """
+    k = w.shape[0]
+    if state is not None:
+        xx = torch.cat([state.to(x.dtype), x], dim=1)
+    else:
+        xx = F.pad(x, (0, 0, k - 1, 0))
+    # windowed sum: y[t] = sum_j w[j] * xx[t + j]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for j in range(k):
+        y = y + xx[:, j:j + x.shape[1], :].float() * w[j].float()
+    new_state = (xx[:, -(k - 1):, :] if k > 1
+                 else x.new_zeros((x.shape[0], 0, x.shape[2])))
+    return y.to(x.dtype), new_state.to(x.dtype)

@@ -1,12 +1,13 @@
-"""Language model assembly for the dense family: specs, prefill, decode.
+"""Language model assembly for the dense and SSM families: specs, prefill,
+decode.
 
-The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks:
-``param_specs``, ``init_cache_specs``, the prefill and decode forwards and
-their factories; names, shapes, dtypes, logical axes and init kinds are the
-reference's.  The loss (training), and the MoE, MLA, SSM, RG-LRU,
-local-attention, encoder-decoder and VLM blocks wait for later slices
-(ROADMAP queue A); asking for one raises ``NotImplementedError`` naming
-its item.
+The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks and
+Mamba-2 ``ssm`` blocks: ``param_specs``, ``init_cache_specs``, the prefill
+and decode forwards and their factories; names, shapes, dtypes, logical
+axes and init kinds are the reference's.  The loss (training), and the
+MoE, MLA, RG-LRU, local-attention, encoder-decoder and VLM blocks wait for
+later slices (ROADMAP queue A); asking for one raises
+``NotImplementedError`` naming its item.
 
 Conventions: params and caches are flat dicts ``g{gi}/p{pj}/<name>`` with
 a leading "layers" axis of length ``reps``; the reference's scan over that
@@ -25,6 +26,11 @@ prompt one token at a time would leave: the tail holds the prompt's last
 Tt ends with a full tail, which the first step's merge writes exactly.
 (The reference puts all S positions in main in that case, and its first
 merge then writes the empty tail over them: ROADMAP queue C.)
+
+SSM cache: ``h`` (B,H,N,P) float32, the SSD state after the last position,
+and ``conv`` (B,K-1,conv_dim) bf16, the last K-1 conv inputs.  Prefill
+writes both from the scan kernel's final state and the conv's carry;
+decode overwrites both every step.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from .attention import decode_attention_two_tier, prefill_attention
 from .config import ModelConfig
 from .layers import mlp, rms_norm, rope
 from .spec import ParamSpec, sub
+from .ssm import mamba2_decode_step, mamba2_forward
 
 __all__ = ["param_specs", "init_cache_specs", "cast_params",
            "make_prefill_fn", "make_decode_fn"]
@@ -44,7 +51,7 @@ _KEEP_F32 = {"A_log", "dt_bias", "D", "lam", "b_i", "b_r", "router"}
 
 # where each block kind that is not ported yet is planned
 _UNPORTED = {
-    "moe": "item 12 (MoE, MLA)", "ssm": "item 10 (Mamba-2)",
+    "moe": "item 12 (MoE, MLA)",
     "rglru": "item 11 (RecurrentGemma)",
     "local_attn": "item 11 (RecurrentGemma)",
     "xattn": "item 12 (frontends)", "enc_attn": "item 12 (frontends)",
@@ -56,18 +63,19 @@ def _unported(what: str, item: str) -> NotImplementedError:
                                f"see ROADMAP.md queue A {item}")
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """Raise for what the forward does not cover: only dense GQA ``attn``
-    blocks without a frontend are ported."""
+def _check_ported(cfg: ModelConfig) -> None:
+    """Raise for what the forward does not cover: the ported kinds are
+    dense GQA ``attn`` blocks and Mamba-2 ``ssm`` blocks, without a
+    frontend."""
     if cfg.frontend != "none" or cfg.is_encdec:
         raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder",
                         "item 12 (frontends)")
-    for _, pattern in cfg.groups():
-        for kind in pattern:
-            if kind != "attn":
-                raise _unported(f"the {kind!r} block",
-                                _UNPORTED.get(kind, ""))
-    if cfg.attn_kind != "gqa":
+    kinds = {kind for _, pattern in cfg.groups() for kind in pattern}
+    unported = sorted(kinds - {"attn", "ssm"})
+    if unported:
+        raise _unported(f"the {unported[0]!r} block",
+                        _UNPORTED.get(unported[0], ""))
+    if "attn" in kinds and cfg.attn_kind != "gqa":
         raise _unported(f"{cfg.attn_kind} attention", "item 12 (MoE, MLA)")
 
 
@@ -121,7 +129,26 @@ def _mlp_specs(cfg: ModelConfig, d_ff: int | None = None,
     return s
 
 
+def _ssm_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    D = cfg.d_model
+    d_in, N, Gr, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
+    conv_dim = d_in + 2 * Gr * N
+    zxbcdt = 2 * d_in + 2 * Gr * N + H
+    dt = cfg.param_dtype
+    return {
+        "in_proj": ParamSpec((D, zxbcdt), dt, ("fsdp", "ff")),
+        "conv_w": ParamSpec((cfg.ssm_conv, conv_dim), dt, ("conv", None)),
+        "A_log": ParamSpec((H,), "float32", (None,), init="zeros"),
+        "D": ParamSpec((H,), "float32", (None,), init="ones"),
+        "dt_bias": ParamSpec((H,), "float32", (None,), init="zeros"),
+        "norm": _norm(d_in),
+        "out_proj": ParamSpec((d_in, D), dt, ("ff", "fsdp")),
+    }
+
+
 def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
+    if kind == "ssm":
+        return {"norm1": _norm(cfg.d_model), **_ssm_specs(cfg)}
     if kind not in ("attn", "local_attn") or cfg.attn_kind != "gqa":
         raise _unported(f"{kind!r} blocks ({cfg.attn_kind} attention)",
                         _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
@@ -134,7 +161,7 @@ def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
 
 
 def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    """Full parameter spec dict for a dense (GQA) architecture."""
+    """Full parameter spec dict for a dense (GQA) or SSM architecture."""
     if cfg.frontend != "none" or cfg.is_encdec:
         raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder "
                         "specs", "item 12 (frontends)")
@@ -159,6 +186,14 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
 
 def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
                        T: int) -> dict[str, ParamSpec]:
+    if kind == "ssm":
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        return {
+            "h": ParamSpec((B, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                           "float32", ("batch", "heads", None, None)),
+            "conv": ParamSpec((B, cfg.ssm_conv - 1, conv_dim), "bfloat16",
+                              ("batch", "conv", None)),
+        }
     if kind != "attn" or cfg.attn_kind != "gqa":
         raise _unported(f"the cache of {kind!r} blocks",
                         _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
@@ -222,8 +257,14 @@ def _mlp_res(cfg, p, x):
     return x + mlp(pp, h, cfg.act)
 
 
-def _block_prefill(cfg, p, x, positions, cache):
-    """The prompt through one ``attn`` block; fills ``cache`` in place."""
+def _block_prefill(cfg, kind, p, x, positions, cache):
+    """The prompt through one block; fills ``cache`` in place."""
+    if kind == "ssm":
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        o, (hs, conv) = mamba2_forward(cfg, p, h, return_state=True)
+        cache["h"].copy_(hs)
+        cache["conv"].copy_(conv)
+        return x + o
     x, (k, v) = _attn_block(cfg, p, x, positions)
     Tt = cache["tk"].shape[1]
     S = k.shape[1]
@@ -235,10 +276,16 @@ def _block_prefill(cfg, p, x, positions, cache):
     return _mlp_res(cfg, p, x)
 
 
-def _block_decode(cfg, p, x, pos: int, positions, cache):
+def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
     """One token (x: (B,1,D)) at absolute position ``pos`` through one
-    ``attn`` block: an O(1) write into the tail; main is read only."""
+    block.  ``attn``: an O(1) write into the tail; main is read only.
+    ``ssm``: the state and the conv carry are overwritten."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "ssm":
+        o, hs, conv = mamba2_decode_step(cfg, p, h, cache["h"], cache["conv"])
+        cache["h"].copy_(hs)
+        cache["conv"].copy_(conv)
+        return x + o
     q, k, v = _qkv(cfg, p, h, positions)
     slot = pos % cache["tk"].shape[1]
     cache["tk"][:, slot] = k[:, 0]
@@ -250,14 +297,15 @@ def _block_decode(cfg, p, x, pos: int, positions, cache):
 
 
 def _layers(cfg, params, cache):
-    """(layer params, layer cache) of every block, in stack order: the
+    """(kind, layer params, layer cache) of every block, in stack order: the
     reference's scan over the stacked "layers" axis as a loop of views."""
     for gi, (reps, pattern) in enumerate(cfg.groups()):
         gp = {k: t.unbind(0) for k, t in sub(params, f"g{gi}").items()}
         gc = {k: t.unbind(0) for k, t in sub(cache, f"g{gi}").items()}
         for layer in range(reps):
-            for pj in range(len(pattern)):
-                yield ({k: t[layer] for k, t in sub(gp, f"p{pj}").items()},
+            for pj, kind in enumerate(pattern):
+                yield (kind,
+                       {k: t[layer] for k, t in sub(gp, f"p{pj}").items()},
                        {k: t[layer] for k, t in sub(gc, f"p{pj}").items()})
 
 
@@ -294,14 +342,14 @@ def make_prefill_fn(cfg: ModelConfig):
     ``cache0`` (zeros, sized by :func:`init_cache_specs`) is filled in
     place and returned.
     """
-    _check_dense(cfg)
+    _check_ported(cfg)
 
     @torch.no_grad()
     def prefill_fn(params, batch, cache0):
         x = _embed(cfg, params, batch["inputs"])
         positions = torch.arange(x.shape[1], device=x.device)
-        for p, c in _layers(cfg, params, cache0):
-            x = _block_prefill(cfg, p, x, positions, c)
+        for kind, p, c in _layers(cfg, params, cache0):
+            x = _block_prefill(cfg, kind, p, x, positions, c)
         return _logits(cfg, params, x[:, -1:]), cache0
 
     return prefill_fn
@@ -313,14 +361,14 @@ def make_decode_fn(cfg: ModelConfig):
     ``params`` are cast by :func:`cast_params`; ``pos`` is the absolute position of ``tokens`` (a Python int); the
     cache is written in place and returned.
     """
-    _check_dense(cfg)
+    _check_ported(cfg)
 
     @torch.no_grad()
     def decode_fn(params, cache, tokens, pos: int):
         x = _embed(cfg, params, tokens)
         positions = torch.full((1,), pos, device=x.device)
-        for p, c in _layers(cfg, params, cache):
-            x = _block_decode(cfg, p, x, pos, positions, c)
+        for kind, p, c in _layers(cfg, params, cache):
+            x = _block_decode(cfg, kind, p, x, pos, positions, c)
         return _logits(cfg, params, x), cache
 
     return decode_fn

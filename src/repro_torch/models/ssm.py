@@ -1,0 +1,189 @@
+"""Mamba-2 block: state-space duality (SSD).
+
+The counterpart of ``repro.models.ssm``, cast for cast.  The reference's
+model path runs :func:`ssd_chunked` (XLA); here the prefill's scan is the
+``ssd_scan`` kernel (:func:`repro_torch.kernels.ops.ssd_scan`: the CUDA
+kernel for CUDA tensors, its plain sequential version for CPU tensors),
+which also returns the final state for the decode cache.  One intended
+difference follows: :func:`ssd_chunked` rounds ``xdt`` and the scores to
+the input dtype (bf16 on the model path) before its products, as the
+reference does; the kernel, like the TPU kernel, computes in float32.
+:func:`ssd_chunked` stays as the oracle of the chunked form and as the
+time to compare the kernel with.
+
+Block structure (Mamba-2):
+    in_proj -> [z | xBC | dt]; causal depthwise conv on xBC; SSD(x, dt, A, B, C)
+    -> gated RMSNorm(y * silu(z)) -> out_proj; +D*x skip per head.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .layers import causal_conv1d, f32_einsum, rms_norm
+
+__all__ = ["ssd_chunked", "ssd_step", "mamba2_forward", "mamba2_decode_step"]
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular segment sums: out[..., i, j] = sum_{j<m<=i} a[..., m].
+
+    a: (..., L) -> (..., L, L); entries above the diagonal are -1e30.
+    """
+    L = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]  # (..., i, j) = cs_i - cs_j
+    mask = torch.ones((L, L), dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, diff, -1e30)
+
+
+def ssd_chunked(x, dt, A, Bm, C, *, chunk: int, h0=None):
+    """Chunked SSD in plain torch.
+
+    x:  (B, S, H, P)   inputs per head
+    dt: (B, S, H)      positive step sizes (already softplus'ed)
+    A:  (H,)           negative decay rates
+    Bm: (B, S, H, N)   input->state projection (already head-broadcast)
+    C:  (B, S, H, N)   state->output projection
+    h0: optional initial state (B, H, N, P)
+    Returns (y (B,S,H,P) f32, h_final (B,H,N,P) f32).
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    L = min(chunk, S)
+    nc = -(-S // L)
+    pad = nc * L - S
+
+    def padc(t):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+
+    # matmul operands stay in the input dtype (bf16 on the model path);
+    # decay/cumsum math and the carried state are f32.
+    xf = padc(x).reshape(Bsz, nc, L, H, P)
+    dtf = padc(dt).float().reshape(Bsz, nc, L, H)
+    Bf = padc(Bm).reshape(Bsz, nc, L, H, N)
+    Cf = padc(C).reshape(Bsz, nc, L, H, N)
+
+    a = dtf * A.float()[None, None, None, :]               # (B,nc,L,H) log-decay
+    a_t = a.permute(0, 1, 3, 2)                            # (B,nc,H,L)
+    cum = torch.cumsum(a_t, dim=-1)                        # inclusive
+    xdt = (xf.float() * dtf[..., None]).to(x.dtype)
+
+    # -- intra-chunk (quadratic within L, matmul-friendly) ---------------------
+    Lmat = torch.exp(_segsum(a_t))                          # (B,nc,H,L,L)
+    scores = f32_einsum("bclhn,bcmhn->bchlm", Cf, Bf) * Lmat
+    y_intra = f32_einsum("bchlm,bcmhp->bclhp", scores.to(x.dtype), xdt)
+
+    # -- chunk states -----------------------------------------------------------
+    decay_to_end = torch.exp(cum[..., -1:] - cum)           # (B,nc,H,L)
+    states = torch.einsum("bclhn,bchl,bclhp->bchnp", Bf.float(),
+                          decay_to_end, xdt.float())
+
+    # -- inter-chunk recurrence over nc (tiny sequential scan) -------------------
+    chunk_decay = torch.exp(cum[..., -1])                   # (B,nc,H)
+    h = (torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)                                      # state entering chunk
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                         # (B,nc,H,N,P)
+
+    # -- contribution of the incoming state -----------------------------------------
+    decay_from_start = torch.exp(cum)                       # (B,nc,H,L)
+    y_inter = torch.einsum("bclhn,bchl,bchnp->bclhp", Cf.float(),
+                           decay_from_start, h_in)
+
+    y = (y_intra + y_inter).reshape(Bsz, nc * L, H, P)[:, :S]
+    return y, h
+
+
+def ssd_step(h, x_t, dt_t, A, B_t, C_t):
+    """Single decode step.  h: (B,H,N,P); x_t: (B,H,P); dt_t: (B,H);
+    B_t/C_t: (B,H,N).  Returns (y_t (B,H,P), h')."""
+    da = torch.exp(dt_t.float() * A.float()[None, :])
+    h = h * da[..., None, None] + torch.einsum(
+        "bhn,bhp->bhnp", B_t.float(), (x_t * dt_t[..., None]).float())
+    y = torch.einsum("bhn,bhnp->bhp", C_t.float(), h)
+    return y, h
+
+
+def _split_zxbcdt(cfg, zxbcdt):
+    d_in, N, G, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups, cfg.ssm_heads
+    z = zxbcdt[..., :d_in]
+    xBC = zxbcdt[..., d_in: 2 * d_in + 2 * G * N]
+    dt = zxbcdt[..., 2 * d_in + 2 * G * N:]
+    assert dt.shape[-1] == H
+    return z, xBC, dt
+
+
+def _split_xbc(cfg, xBC):
+    d_in, N, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_groups
+    x = xBC[..., :d_in]
+    Bm = xBC[..., d_in: d_in + G * N]
+    C = xBC[..., d_in + G * N:]
+    return x, Bm, C
+
+
+def _broadcast_groups(cfg, t):
+    """(B,S,G*N) -> (B,S,H,N) by repeating each group over its heads: a
+    view with a head stride of 0 when there is one group."""
+    B, S, _ = t.shape
+    G, N, H = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads
+    t = t.reshape(B, S, G, 1, N)
+    t = t.expand(B, S, G, H // G, N)
+    return t.reshape(B, S, H, N)
+
+
+def mamba2_forward(cfg, p, x, *, return_state=False):
+    """Full-sequence Mamba-2 block.  x: (B,S,D) -> (B,S,D); with
+    ``return_state`` also ``(h_last (B,H,N,P) f32, conv_state)``, the
+    decode carry.  The scan is the ``ssd_scan`` kernel, which reads x, Bm
+    and C as views of the conv output (no copies) and writes y in the
+    (B,S,H,P) layout."""
+    B, S, D = x.shape
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
+    xBC, new_conv = causal_conv1d(xBC, p["conv_w"])
+    xBC = F.silu(xBC)
+    xs, Bm, C = _split_xbc(cfg, xBC)
+    xs = xs.reshape(B, S, H, P)
+    Bm = _broadcast_groups(cfg, Bm)
+    C = _broadcast_groups(cfg, C)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+    y, h_last = ops.ssd_scan(xs.transpose(1, 2), dt.transpose(1, 2), A,
+                             Bm.transpose(1, 2), C.transpose(1, 2),
+                             return_state=True)
+    y = y.transpose(1, 2)                                   # (B,S,H,P)
+    y = y + xs.float() * p["D"].float()[None, None, :, None]
+    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)  # gated norm
+    out = y @ p["out_proj"]
+    if return_state:
+        return out, (h_last, new_conv)
+    return out
+
+
+def mamba2_decode_step(cfg, p, x, h, conv_state):
+    """One-token step.  x: (B,1,D); h: (B,H,N,P); conv_state: (B,K-1,convdim)."""
+    B = x.shape[0]
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    zxbcdt = x @ p["in_proj"]
+    z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
+    xBC, conv_state = causal_conv1d(xBC, p["conv_w"], conv_state)
+    xBC = F.silu(xBC)
+    xs, Bm, C = _split_xbc(cfg, xBC)
+    xs = xs.reshape(B, H, P)
+    Bm = _broadcast_groups(cfg, Bm)[:, 0]
+    C = _broadcast_groups(cfg, C)[:, 0]
+    dt = F.softplus(dt.float() + p["dt_bias"].float())[:, 0]
+    A = -torch.exp(p["A_log"].float())
+    y, h = ssd_step(h, xs, dt, A, Bm, C)
+    y = y + xs.float() * p["D"].float()[None, :, None]
+    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"], h, conv_state

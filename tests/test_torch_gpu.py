@@ -12,7 +12,11 @@ aligned and unaligned (offset by one element) views, and for the window's
 packed route end to end.  The attention kernel is held to its plain
 version at 2e-5 (float32) and 2e-2 (bfloat16), over the sweep of
 ``tests/test_kernels.py`` plus d = 128, in both layouts, and must give
-the same bits twice.
+the same bits twice.  The SSD scan kernel is held to its plain version at
+1e-4 (float32) and 3e-2 (bfloat16) relative to the largest |y| over the
+sweep of ``tests/test_kernels.py``, y and the final state, and at 1e-4
+through the model's strides (x a view of (B,S,H,P) storage, Bm and C
+broadcast over heads with a head stride of 0).
 """
 
 import numpy as np
@@ -20,7 +24,8 @@ import pytest
 import torch
 
 from repro_torch.core import Communicator, Window
-from repro_torch.kernels import dirty_diff, flash_attention, ops, pack_diff, ref
+from repro_torch.kernels import (dirty_diff, flash_attention, ops, pack_diff,
+                                 ref, ssd_scan)
 from repro_torch.models.attention import prefill_attention
 
 PAGE = 4096
@@ -148,3 +153,78 @@ def test_flash_attention_model_layout_reads_in_place(cuda):
                                    v.transpose(1, 2).contiguous())
     torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+SSD_SHAPES = [(1, 2, 64, 16, 8), (2, 3, 50, 8, 16), (1, 1, 128, 32, 4),
+              (2, 4, 300, 64, 128)]
+
+
+def _ssd_inputs(B, H, S, P, N, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape, scale=0.4):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+    return (mk(B, H, S, P).to(dtype), torch.nn.functional.softplus(mk(B, H, S)),
+            -torch.exp(mk(H, scale=0.12)), mk(B, H, S, N).to(dtype),
+            mk(B, H, S, N).to(dtype))
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain_version(cuda, shape, dtype):
+    args = _ssd_inputs(*shape, dtype, cuda)
+    n0 = ssd_scan.launches
+    y, h = ops.ssd_scan(*args, return_state=True)
+    y2, h2 = ops.ssd_scan(*args, return_state=True)
+    want, want_h = ref.ssd_scan_ref(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 2
+    assert y.dtype == h.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _rel(y, want) < tol and _rel(h, want_h) < tol
+
+
+@pytest.mark.gpu
+def test_ssd_scan_model_layout_and_head_broadcast(cuda):
+    """x a view of (B,S,H,P) storage, Bm and C one group broadcast over
+    the heads, dt a view of (B,S,H), ragged S: read in place, y written in
+    x's layout, equal to the plain version on contiguous copies."""
+    B, H, S, P, N = 2, 6, 203, 64, 128
+    rng = np.random.default_rng(7)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (B, S, H * P + 2 * N)).astype(np.float32)).to(cuda, torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+    bm = xbc[..., H * P:H * P + N, None].transpose(2, 3).expand(
+        B, S, H, N).transpose(1, 2)
+    c = xbc[..., H * P + N:, None].transpose(2, 3).expand(
+        B, S, H, N).transpose(1, 2)
+    dt = torch.from_numpy(rng.uniform(1e-3, 1e-1, (B, S, H)).astype(
+        np.float32)).to(cuda).transpose(1, 2)
+    A = -torch.from_numpy(rng.uniform(1, 16, H).astype(np.float32)).to(cuda)
+    assert bm.stride(1) == 0 and x.stride(1) == P
+    y, h = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
+    assert y.transpose(1, 2).is_contiguous()
+    want, want_h = ref.ssd_scan_ref(x.contiguous(), dt.contiguous(), A,
+                                    bm.contiguous(), c.contiguous(),
+                                    return_state=True)
+    torch.cuda.synchronize()
+    assert _rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_limits(cuda):
+    args = list(_ssd_inputs(1, 2, 8, 4, ssd_scan.N_MAX + 1, torch.float32,
+                            cuda))
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.ssd_scan(*args)
+    args = list(_ssd_inputs(1, 2, 8, ssd_scan.P_MAX + 1, 4, torch.float32,
+                            cuda))
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.ssd_scan(*args)

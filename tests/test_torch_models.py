@@ -256,11 +256,15 @@ def test_reference_engine_inconsistent_at_multiple_of_decode_tail():
 
 
 def test_unported_blocks_raise():
+    """A block kind still to port names its ROADMAP item: the RecurrentGemma
+    pattern (``rglru`` and ``local_attn`` blocks, item 11); ``ssm`` blocks
+    are ported."""
     from repro_torch.models import ModelConfig
-    ssm = ModelConfig(name="m", family="ssm", n_layers=2, d_model=64,
-                      n_heads=4, n_kv_heads=4, d_ff=0, vocab=64,
-                      attn_kind="none", ssm_state=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 10"):
-        make_prefill_fn(ssm)
+    griffin = ModelConfig(name="m", family="hybrid", n_layers=3, d_model=64,
+                          n_heads=4, n_kv_heads=1, d_ff=128, vocab=64,
+                          pattern=("rglru", "rglru", "local_attn"),
+                          lru_width=64, window=32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 11"):
+        make_prefill_fn(griffin)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache_specs(ssm, 1, 8)
+        init_cache_specs(griffin, 1, 8)

@@ -8,6 +8,8 @@ tokens exactly, session window files byte for byte, flushed byte counts.
 """
 
 import dataclasses
+import functools
+import importlib.util
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +37,16 @@ from repro_torch.serve import Engine, SessionStore
 ARCH = "internlm2-1.8b"
 ROOT = Path(__file__).resolve().parents[1]
 B, PROMPT, MAX_LEN = 2, 6, 32
+
+
+@functools.cache
+def _chip_smoke():
+    """``chip_smoke.py`` (the repo root's script) as a module."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def configs(dtype="float32"):
@@ -210,11 +222,7 @@ def test_serving_slice_matches_reference(tmp_path):
     engine's greedy tokens for the same parameters and prompt.  The prompt
     (13) is not a multiple of decode_tail (8); 12 steps cross merges at 16
     and 24, and the session is saved at token 5."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
+    chip_smoke = _chip_smoke()
     jcfg, cfg = configs()
     params = numpy_params(jcfg, seed=4)
     tokens = prompt(cfg.vocab, n=14, seed=8)
@@ -244,3 +252,123 @@ def test_serving_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, init_params(param_specs(cfg), 0, device="cpu"), batch=B,
                max_len=8)
+
+
+# -- Mamba-2 (ssm blocks: float32 state, bf16 conv carry, no two-tier tail) ---
+
+SSM_ARCH = "mamba2-2.7b"
+
+
+def ssm_configs(dtype="float32"):
+    return (dataclasses.replace(j_get_config(SSM_ARCH, smoke=True), dtype=dtype),
+            dataclasses.replace(get_config(SSM_ARCH, smoke=True), dtype=dtype))
+
+
+def ssm_numpy_params(chip_smoke, jcfg, seed=0):
+    """The reference's init with ``A_log`` and ``dt_bias`` in Mamba-2's
+    published ranges, so the state carries across the session."""
+    out = numpy_params(jcfg, seed)
+    out.update(chip_smoke.ssm_dynamics(get_config(SSM_ARCH, smoke=True), seed))
+    return out
+
+
+def test_mamba2_engine_kill_and_resume_is_exact(tmp_path):
+    """tests/test_train_serve.py::test_engine_greedy_generation_and_session
+    on the port's Mamba-2: generate; then prefill, steps, save at a mid
+    step, drop the engine, load into a fresh one, continue."""
+    cs = _chip_smoke()
+    cfg = get_config(SSM_ARCH, smoke=True)
+    params = cs.model_params(cfg, 0, "cpu")
+    steps, save_at = 9, 4
+    toks = prompt(cfg.vocab, n=19)
+    specs = init_cache_specs(cfg, B, MAX_LEN)
+    store = SessionStore(tcore.Communicator(1), str(tmp_path / "sess.bin"),
+                         specs, factor="0.5")
+    eng = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
+                 device="cpu")
+    assert eng._tail_len() is None
+    out_full = eng.generate({"inputs": toks}, steps)
+
+    eng2 = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
+                  device="cpu")
+    seq = [eng2.prefill({"inputs": toks})]
+    for _ in range(save_at - 1):
+        seq.append(eng2.step(seq[-1]))
+    eng2.generated = list(seq)
+    h_saved = eng2.cache["g0/p0/h"].clone()
+    assert eng2.save_session() > 0
+    del eng2
+    eng3 = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
+                  device="cpu")
+    eng3.load_session()
+    assert eng3.pos == toks.shape[1] + save_at - 1
+    assert eng3.cache["g0/p0/h"].dtype == torch.float32
+    assert eng3.cache["g0/p0/conv"].dtype == torch.bfloat16
+    assert torch.equal(eng3.cache["g0/p0/h"], h_saved)
+    for _ in range(steps - save_at):
+        seq.append(eng3.step(seq[-1]))
+    np.testing.assert_array_equal(np.stack(seq, axis=1), out_full)
+    store.free()
+
+
+@pytest.mark.parametrize("factor", [None, "0.5"])
+def test_mamba2_session_files_byte_identical(tmp_path, factor):
+    """The same Mamba-2 cache (float32 ``h``, bf16 ``conv`` bits), pos and
+    tokens saved by both packages' stores: the same flushed byte count and
+    the same window file."""
+    jcfg, cfg = ssm_configs("bfloat16")
+    rng = np.random.default_rng(11)
+    jspecs = j_cache_specs(jcfg, B, MAX_LEN)
+    specs = init_cache_specs(cfg, B, MAX_LEN)
+    cache = {}
+    for k, s in specs.items():
+        if s.dtype == "bfloat16":
+            cache[k] = rng.integers(0, 1 << 15, size=s.shape,
+                                    dtype=np.uint16).view(ml_dtypes.bfloat16)
+        else:
+            cache[k] = rng.standard_normal(s.shape).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, size=B * 5).astype(np.int32)
+    out = []
+    for name, store_cls, comm, spec, tree in (
+            ("ref.bin", JSessionStore, jcore.Communicator(1), jspecs,
+             {k: jnp.asarray(v) for k, v in cache.items()}),
+            ("port.bin", SessionStore, tcore.Communicator(1), specs,
+             tree_from_numpy(cache, device="cpu"))):
+        store = store_cls(comm, str(tmp_path / name), spec, factor=factor)
+        flushed = store.save(tree, PROMPT + 5, toks)
+        store.free()
+        out.append((flushed, (tmp_path / name).read_bytes()))
+    assert out[0][0] > 0
+    assert out[0] == out[1]
+
+
+def test_mamba2_serving_slice_matches_reference(tmp_path):
+    """The Mamba-2 slice as a whole: ``chip_smoke.run_serving`` (phase 4's
+    routine) on the CPU at the float32 smoke config, against the JAX
+    engine's greedy tokens for the same parameters and prompt.  The
+    prompt (37) spans three of the smoke config's 16-position chunks."""
+    cs = _chip_smoke()
+    jcfg, cfg = ssm_configs()
+    params = ssm_numpy_params(cs, jcfg, seed=4)
+    tokens = prompt(cfg.vocab, n=38, seed=8)
+    want = JEngine(jcfg, params, batch=B, max_len=64).generate(
+        {"inputs": jnp.asarray(tokens[:, :37])}, 10)
+    out = cs.run_serving(
+        cfg, params_from_numpy(cfg, params, device="cpu"), tokens,
+        device="cpu", directory=tmp_path, max_len=64, steps=10, save_at=4,
+        factor="0.5")
+    np.testing.assert_array_equal(out["tokens"], np.asarray(want))
+    assert out["session_flushed_bytes"] > 0
+    assert out["consistency_rel_err"] < 0.02
+    assert len(out["step_ms"]) == 9
+
+
+def test_serve_launcher_runs_mamba2_on_the_cpu(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", SSM_ARCH,
+         "--smoke", "--device", "cpu", "--steps", "4", "--session",
+         str(tmp_path / "s.bin")],
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "generated token ids" in r.stdout and "session flushed" in r.stdout
