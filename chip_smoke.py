@@ -27,12 +27,14 @@ into ``build/repro_torch``), and then:
 
 * phase 1b holds ``ops.flash_attention`` against its plain version on
   the card: the sweep of ``tests/test_kernels.py`` (four shapes; causal,
-  full and window 24; causal only where S == T) plus d = 128 and a
-  ``t_actual`` case, float32 at 2e-5 and bfloat16 at 2e-2, and the main
-  path's shape (B 4, H 16, K 8, S 2000, d 128, causal, read through the
-  model layout's strides, q and k drawn wide so the softmax is peaked) in
-  float32 at 2e-5 and in bf16 at rtol 1e-2, atol 1e-4, which must also
-  give the same bits twice.
+  full and window 24; causal only where S == T) plus d = 128, d = 256 and
+  a ``t_actual`` case, float32 at 2e-5 and bfloat16 at 2e-2, and the main
+  paths' shapes (internlm2-1.8b's B 4, H 16, K 8, S 2000, d 128, causal;
+  recurrentgemma-2b's B 4, H 10, K 1, S 2000, d 256, causal, window 2048;
+  and B 1, S 4096 with that window, where it binds; read through the model
+  layout's strides, q and k drawn wide so the softmax is peaked) in
+  float32 at 2e-5 and in bf16 at rtol 1e-2, atol 1e-4; both prefill
+  shapes must also give the same bits twice.
 * phase 3 drives the serving path, ``Engine`` with a ``SessionStore``, at
   internlm2-1.8b's full widths and depth (24 layers, 1.89 B parameters
   made on the card from a seed, cast once to bf16): 4 requests of 2000
@@ -60,6 +62,14 @@ into ``build/repro_torch``), and then:
   chunk (relative to the chunk's largest |y|), the final state within
   1e-4, a plain version that zeroes the incoming state at each chunk
   boundary outside that limit, and the same bits twice.
+* phase 1d holds ``ops.rg_lru_scan`` against its plain version on the
+  card, bit for bit: the sweep of ``tests/test_kernels.py`` (ragged S
+  included) in float32 and bf16, and one recurrentgemma-2b prefill layer
+  (B 4, S 2000, W 2560) with a in Griffin's published range (per channel
+  u ~ U[0.9, 0.999], a = u^r, r ~ U(0, 1)), under which the state carries
+  across hundreds of positions; a plain version that zeroes the state at
+  each 256-position block start must fail 1e-5 there, and two runs must
+  give the same bits.
 * phase 4 drives Mamba-2 serving, ``Engine`` with a ``SessionStore``, at
   mamba2-2.7b's full widths and depth (64 layers, 2.70 B parameters made
   on the card from a seed, ``A_log`` and ``dt_bias`` set in the published
@@ -69,6 +79,22 @@ into ``build/repro_torch``), and then:
   bf16 full-depth readings for phase 3's seeds are printed beside it, not
   held: at 64 layers on an H100 all eight read above phase 3's 0.02, while
   the float32 gate reads about 3e-6 (PERF.md).
+* phase 5 drives RecurrentGemma serving the same way at
+  recurrentgemma-2b's full widths and depth (26 layers: 18 ``rglru`` and
+  8 ``local_attn`` blocks, 2.89 B parameters made on the card from a seed,
+  every ``lam`` set in Griffin's published range, cast once to bf16), with
+  phase 3's traffic: the local-attention ring of 2048 slots wraps during
+  decode, before the session is saved at token 100.  Run 2's tokens must
+  equal run 1's, ``flash_attention`` must launch 8 times and ``rg_lru`` 18
+  times in each prefill, and the float32 gate (4 layers: rglru, rglru,
+  local_attn, rglru) with a prompt of 2100 + 1, so that the window binds
+  in the prefill and the ring has wrapped before the decode step, must
+  hold at 1e-4.  As in phase 3, the bf16 full-depth reading on seed 0 must
+  be under 0.02, with the readings for phase 3's seeds printed beside it
+  (on an H100 all eight read 0.011-0.015; PERF.md).  In phases 3 to 5 the
+  resumed run's final decode state must also equal the uninterrupted
+  run's, bit for bit: a random recurrentgemma-2b repeats one token id,
+  which would hide a wrong resume from the tokens alone.
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
@@ -100,6 +126,7 @@ PAGE = 4096
 DIRTY_FRAC = 0.08            # page-spread traffic of benchmarks/selective_sync.py
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores (data sheet)
+F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 SMOKE_LAYERS = 2             # depth cut of internlm2-1.8b (24 layers)
 WORKDIR = ROOT / "build" / "chip_smoke"
 # phase 3 traffic: 4 requests of 2000 prompt tokens, 200 greedy steps in a
@@ -113,6 +140,11 @@ SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=200, save_at=100,
 CONSISTENCY_SEEDS = dict(params=(0, 1), prompts=(0, 1, 2, 3))
 # one prefill layer's attention at the SERVE shape: B, H, K, S = T, d
 ATTN_MAIN = (4, 16, 8, 2000, 128)
+# recurrentgemma-2b's local attention at the SERVE shape (its window of 2048
+# does not bind at S 2000), and a shape where the window binds
+RG_WINDOW = 2048
+ATTN_RG = (4, 10, 1, 2000, 256)
+ATTN_RG_WRAP = (1, 10, 1, 4096, 256)
 # the float32 consistency gate: depth cut, limit (the float32 limit of
 # tests/test_torch_models.py), far above float32 rounding and far below a
 # wrong cache
@@ -128,6 +160,8 @@ KERNELS = {
                         "replaces": "src/repro/kernels/flash_attention.py:86"},
     "ssd_scan": {"source": "src/repro_torch/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:70"},
+    "rg_lru": {"source": "src/repro_torch/csrc/rg_lru.cu",
+               "replaces": "src/repro/kernels/rg_lru.py:47"},
 }
 
 
@@ -398,7 +432,8 @@ def _compare(ops, ref, cur, snap, block_elems) -> float:
 
 ATTN_SWEEP = [  # B, H, K, S, T, d: tests/test_kernels.py's shapes + d = 128
     (1, 2, 2, 64, 64, 32), (2, 4, 2, 96, 96, 16), (1, 4, 1, 40, 72, 32),
-    (2, 2, 2, 33, 65, 64), (1, 4, 2, 130, 130, 128)]
+    (2, 2, 2, 33, 65, 64), (1, 4, 2, 130, 130, 128),
+    (1, 4, 2, 130, 130, 256), (2, 10, 1, 70, 70, 256)]  # + d = 256
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the main path's shape: (rtol, atol).  bf16 at one bf16 ulp relative (both
 # sides round the same f32 result once), float32 at the sweep's 2e-5.  q and
@@ -436,7 +471,7 @@ def _attention_err(ops, ref, q, k, v, tol=None, **kw) -> float:
 
 def phase1b(dev, log=print) -> float:
     """``ops.flash_attention`` against its plain version; returns the
-    largest absolute difference at the main path's shape in bf16."""
+    largest absolute difference at the main paths' shapes in bf16."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(2)
     ncases, worst = 0, {}
@@ -453,34 +488,45 @@ def phase1b(dev, log=print) -> float:
         q, k, v = attention_inputs(1, 4, 2, 96, 96, 64, dtype, gen, dev)
         _attention_err(ops, ref, q, k, v, causal=False, t_actual=70)
         ncases += 1
-    B, H, K, S, d = ATTN_MAIN
     main_err = {}
-    for dtype, tol in ATTN_MAIN_TOL.items():
-        q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev,
-                                   qk_std=ATTN_MAIN_QK_STD)
-        main_err[dtype] = _attention_err(ops, ref, q, k, v, tol=tol,
-                                         causal=True)
-        ncases += 1
-    again = [ops.flash_attention(q, k, v, causal=True) for _ in range(2)]
-    check(torch.equal(again[0], again[1]),
-          "flash_attention gave different bits on the same inputs")
+    for name, shape, window, twice in (
+            ("internlm2", ATTN_MAIN, None, True),
+            ("recurrentgemma", ATTN_RG, RG_WINDOW, True),
+            ("window binds", ATTN_RG_WRAP, RG_WINDOW, False)):
+        B, H, K, S, d = shape
+        for dtype, tol in ATTN_MAIN_TOL.items():
+            q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev,
+                                       qk_std=ATTN_MAIN_QK_STD)
+            main_err[f"{name} {shape} window {window}, "
+                     f"{str(dtype).removeprefix('torch.')}"] = _attention_err(
+                ops, ref, q, k, v, tol=tol, causal=True, window=window)
+            ncases += 1
+        if twice:
+            again = [ops.flash_attention(q, k, v, causal=True, window=window)
+                     for _ in range(2)]
+            check(torch.equal(again[0], again[1]),
+                  f"flash_attention gave different bits on the same inputs "
+                  f"at {shape}")
     torch.cuda.synchronize(dev)
     log(f"phase 1b: {ncases} cases, flash_attention within "
         f"{ATTN_TOL[torch.float32]} (f32, worst {worst[torch.float32]:.3g}) "
         f"and {ATTN_TOL[torch.bfloat16]} (bf16, worst "
-        f"{worst[torch.bfloat16]:.3g}) of its plain version; main shape "
-        f"{ATTN_MAIN} causal, q and k std {ATTN_MAIN_QK_STD}: max abs err "
-        f"{main_err[torch.float32]:.3g} (f32, rtol = atol = 2e-5), "
-        f"{main_err[torch.bfloat16]:.3g} (bf16, rtol 1e-2, atol 1e-4); "
-        "deterministic")
-    return main_err[torch.bfloat16]
+        f"{worst[torch.bfloat16]:.3g}) of its plain version; main shapes, "
+        f"causal, q and k std {ATTN_MAIN_QK_STD}, f32 at rtol = atol = 2e-5 "
+        "and bf16 at rtol 1e-2, atol 1e-4, max abs err: "
+        + json.dumps(main_err) + "; deterministic")
+    return max(v for k, v in main_err.items() if k.endswith("bfloat16"))
 
 
-def measure_attention(dev) -> dict:
+def measure_attention(dev, shape=ATTN_MAIN, window=None) -> dict:
     """Kernel, plain-version and library times of one prefill layer's
-    attention at the main path's shape, and its bound."""
+    attention at a main path's shape (bf16, causal, ``window``), and its
+    bound.  The library call is causal attention without a window: the
+    same function wherever the window does not bind (S <= window)."""
     from repro_torch.kernels import ops, ref
-    B, H, K, S, d = ATTN_MAIN
+    B, H, K, S, d = shape
+    check(window is None or S <= window,
+          f"the library call has no window, which binds at S {S}")
     gen = torch.Generator(device=dev).manual_seed(3)
     q, k, v = attention_inputs(B, H, K, S, S, d, torch.bfloat16, gen, dev)
     flops = 4 * B * H * d * (S * (S + 1) // 2)  # causal: S(S+1)/2 pairs
@@ -488,9 +534,10 @@ def measure_attention(dev) -> dict:
     t_ops = flops / BF16_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {
-        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-        "plain_ms": cuda_ms(
-            lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                  window=window)),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window)),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
         "flops": flops, "bytes": nbytes,
@@ -542,13 +589,15 @@ def ssd_main_inputs(dtype, gen, dev, shape=SSD_MAIN):
     return x, dt, A, bm, c
 
 
-def chunk_errors(y, want, chunk: int = SSD_CHECK_CHUNK) -> list[float]:
-    """Per ``chunk`` positions of (B,H,S,P): the largest |y - want| over the
-    chunk's largest |want|."""
+def chunk_errors(y, want, chunk: int = SSD_CHECK_CHUNK,
+                 dim: int = 2) -> list[float]:
+    """Per ``chunk`` positions along ``dim`` (S of (B,H,S,P) by default):
+    the largest |y - want| over the chunk's largest |want|."""
     errs = []
-    for s0 in range(0, want.shape[2], chunk):
-        w = want[:, :, s0:s0 + chunk]
-        d = (y[:, :, s0:s0 + chunk] - w).abs().max()
+    for s0 in range(0, want.shape[dim], chunk):
+        n = min(chunk, want.shape[dim] - s0)
+        w = want.narrow(dim, s0, n)
+        d = (y.narrow(dim, s0, n) - w).abs().max()
         errs.append(float(d / w.abs().max().clamp_min(1e-30)))
     return errs
 
@@ -643,6 +692,98 @@ def measure_ssd(dev) -> dict:
     }
 
 
+# -- phase 1d: RG-LRU kernel against its plain version -------------------------
+
+RG_SWEEP = [(1, 64, 16), (2, 70, 32), (1, 256, 8)]  # tests/test_kernels.py
+# one recurrentgemma-2b prefill layer at the SERVE shape: B, S, W.  y must
+# equal the plain version's bit for bit (both round the product and the sum
+# one at a time); a plain version that drops the carried state at every
+# RG_CHECK_BLOCK positions (the TPU kernel's block) must fail RG_TOL there,
+# relative to the block's largest |y| (RG_TOL: tests/test_kernels.py)
+RG_MAIN = (4, 2000, 2560)
+RG_CHECK_BLOCK = 256
+RG_TOL = 1e-5
+# Griffin's published range for a (arXiv:2402.19427, section 2.4: a^c
+# uniform in [0.9, 0.999])
+RG_A_RANGE = (0.9, 0.999)
+
+
+def rg_lru_main_inputs(gen, dev, shape=RG_MAIN):
+    """One prefill layer's recurrence inputs: per channel u ~ U(RG_A_RANGE)
+    and a = u^r with r ~ U(0, 1) per position (the gate r_t of
+    ``_gates``), gx = sqrt(1 - a^2) * normal, all float32."""
+    B, S, W = shape
+    lo, hi = RG_A_RANGE
+    u = lo + (hi - lo) * torch.rand(W, generator=gen, device=dev)
+    a = u ** torch.rand(B, S, W, generator=gen, device=dev)
+    gx = torch.sqrt(1 - a * a) * torch.randn(B, S, W, generator=gen,
+                                             device=dev)
+    return a, gx
+
+
+def phase1d(dev, log=print) -> float:
+    """``ops.rg_lru_scan`` against its plain version, bit for bit; returns
+    the largest absolute difference (0 when they agree)."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+    ncases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, W in RG_SWEEP:
+            a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device=dev)
+                              * 0.4).to(dtype)
+            gx = (torch.randn(B, S, W, generator=gen, device=dev)
+                  * 0.4).to(dtype)
+            y = ops.rg_lru_scan(a, gx)
+            check(y.dtype == torch.float32 and y.shape == (B, S, W),
+                  f"rg_lru_scan output {y.dtype} {tuple(y.shape)}")
+            check(torch.equal(y, ref.rg_lru_ref(a, gx)),
+                  f"rg_lru_scan != plain version ({dtype}, {(B, S, W)})")
+            ncases += 1
+    a, gx = rg_lru_main_inputs(gen, dev)
+    y = ops.rg_lru_scan(a, gx)
+    want = ref.rg_lru_ref(a, gx)
+    max_abs = float((y - want).abs().max())
+    check(torch.equal(y, want),
+          f"rg_lru_scan at {RG_MAIN} != plain version: max abs {max_abs}")
+    # the check can fail: the carried state dropped at each block start
+    k = RG_CHECK_BLOCK
+    mutant = torch.cat([ref.rg_lru_ref(a[:, s0:s0 + k], gx[:, s0:s0 + k])
+                        for s0 in range(0, a.shape[1], k)], dim=1)
+    mutant_err = max(chunk_errors(mutant, want, k, dim=1))
+    check(mutant_err > RG_TOL,
+          f"a recurrence that drops the carried state passes: {mutant_err}")
+    check(torch.equal(y, ops.rg_lru_scan(a, gx)),
+          "rg_lru_scan gave different bits on the same inputs")
+    ncases += 1
+    torch.cuda.synchronize(dev)
+    log(f"phase 1d: {ncases} cases, rg_lru_scan bit-identical to its plain "
+        f"version (f32 and bf16 sweep; main shape {RG_MAIN} with a in "
+        f"Griffin's range {RG_A_RANGE}); the state zeroed every "
+        f"{RG_CHECK_BLOCK} positions: {mutant_err:.3g} per block, limit "
+        f"{RG_TOL}; deterministic")
+    return max_abs
+
+
+def measure_rg_lru(dev) -> dict:
+    """Kernel and plain-version times of one prefill layer's recurrence at
+    the main path's shape (float32, as the model hands it over), and its
+    bound.  No PyTorch call computes the recurrence."""
+    from repro_torch.kernels import ops, ref
+    B, S, W = RG_MAIN
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a, gx = rg_lru_main_inputs(gen, dev)
+    flops = 2 * B * S * W  # a product and a sum per element
+    nbytes = 4 * 3 * B * S * W  # a and gx read, y written, float32
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {
+        "ms": cuda_ms(lambda: ops.rg_lru_scan(a, gx)),
+        "plain_ms": cuda_ms(lambda: ref.rg_lru_ref(a, gx)),
+        "flops": flops, "bytes": nbytes,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    }
+
+
 # -- phase 3: the serving path ------------------------------------------------------
 
 def _timed_ms(fn, dev):
@@ -698,10 +839,21 @@ def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
     return float(np.abs(a - b).max() / max(1e-6, float(np.abs(b).max())))
 
 
-def prefill_kernel(cfg):
-    """The kernel module that runs in every layer of ``cfg``'s prefill."""
-    from repro_torch.kernels import flash_attention, ssd_scan
-    return ssd_scan if cfg.family == "ssm" else flash_attention
+def prefill_kernels(cfg) -> dict:
+    """``{kernel module: launches in one prefill of cfg}``: each layer's
+    prefill launches its kind's kernel once."""
+    from repro_torch.kernels import flash_attention, rg_lru, ssd_scan
+    of_kind = {"attn": flash_attention, "local_attn": flash_attention,
+               "ssm": ssd_scan, "rglru": rg_lru}
+    out: dict = {}
+    for reps, pattern in cfg.groups():
+        for kind in pattern:
+            out[of_kind[kind]] = out.get(of_kind[kind], 0) + reps
+    return out
+
+
+def _kernel_name(module) -> str:
+    return module.__name__.rsplit(".", 1)[-1]
 
 
 def float32_consistency(cfg, params: dict, tokens: np.ndarray, *,
@@ -748,11 +900,14 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
     the engine, opens a fresh one on the same store, loads the session and
     takes the rest.  Then decode after prefill(S) is compared with
     prefill(S + 1) (S = the prompt length, ``tokens[:, -1]`` the extra
-    token).  Checks: run 2's tokens equal run 1's; on a card, the prefill
-    kernel (:func:`prefill_kernel`) launched once per layer in each
-    prefill; the logits are finite and, unless ``consistency_limit`` is
-    None, consistent within it.  Returns the tokens, the counts and the
-    times."""
+    token).  Checks: run 2's tokens equal run 1's, and so does its decode
+    state after the last step, bit for bit (a token stream that repeats one
+    id, as a random model's may, would hide a resume that went wrong); on a
+    card, each prefill
+    kernel launched as often in each prefill as :func:`prefill_kernels`
+    says; the logits are finite and, unless ``consistency_limit`` is None,
+    consistent within it.  Returns the tokens, the counts (``launches``:
+    per kernel, over both prefills) and the times."""
     from repro_torch.core import Communicator
     from repro_torch.models import init_cache_specs
     from repro_torch.serve import Engine, SessionStore
@@ -768,12 +923,14 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
                       device=dev, **kw)
 
     # the main path: counts at 0 just before it, read just after
-    kernel = prefill_kernel(cfg)
-    kernel.launches = 0
+    kernels = prefill_kernels(cfg)
+    for mod in kernels:
+        mod.launches = 0
     eng = engine()
     run1, out["generate_ms"] = _timed_ms(
         lambda: eng.generate(inputs, steps), dev)
-    launches_run1 = kernel.launches
+    launches_run1 = {mod: mod.launches for mod in kernels}
+    final1 = {k: v.cpu() for k, v in eng.cache.items()}  # host: no peak
     del eng
     store = SessionStore(Communicator(1), str(directory / "session.bin"),
                          init_cache_specs(cfg, batch, max_len),
@@ -781,7 +938,8 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
     try:
         eng = engine(session=store)
         first, out["prefill_ms"] = _timed_ms(lambda: eng.prefill(inputs), dev)
-        launches_prefill2 = kernel.launches - launches_run1
+        launches_prefill2 = {mod: mod.launches - launches_run1[mod]
+                             for mod in kernels}
         seq, step_ms = [first], []
         for _ in range(save_at - 1):
             nxt, ms = _timed_ms(lambda: eng.step(seq[-1]), dev)
@@ -800,17 +958,23 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
             nxt, ms = _timed_ms(lambda: eng.step(seq[-1]), dev)
             seq.append(nxt)
             step_ms.append(ms)
-        out["launches"] = kernel.launches
+        out["launches"] = {_kernel_name(mod): mod.launches for mod in kernels}
         run2 = np.stack(seq, axis=1)
         out["tokens"] = run2
         check(np.array_equal(run1, run2),
               "the resumed session's tokens differ from the uninterrupted "
               f"run's: first at {np.argwhere(run1 != run2)[:1].tolist()}")
+        differ = [k for k, v in final1.items()
+                  if not torch.equal(v, eng.cache[k].cpu())]
+        check(not differ, "the resumed session's final decode state differs "
+              f"from the uninterrupted run's in {differ[:3]}")
+        out["distinct_tokens"] = int(np.unique(run2).size)
         if on_card:
-            check(launches_run1 == launches_prefill2 == cfg.n_layers,
-                  f"{kernel.__name__} launched {launches_run1} and "
-                  f"{launches_prefill2} times in the prefills of "
-                  f"{cfg.n_layers} layers")
+            for mod, want in kernels.items():
+                check(launches_run1[mod] == launches_prefill2[mod] == want,
+                      f"{_kernel_name(mod)} launched {launches_run1[mod]} "
+                      f"and {launches_prefill2[mod]} times in the prefills, "
+                      f"not {want} ({cfg.n_layers} layers)")
         if on_card:  # where the time goes, after the main path
             nxt = seq[-1]
 
@@ -836,19 +1000,37 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
     return out
 
 
-def prompt_tokens(cfg, seed: int) -> np.ndarray:
-    """SERVE's requests: (batch, prompt + 1) token ids from numpy."""
+def rglru_dynamics(cfg, seed: int) -> dict[str, np.ndarray]:
+    """``lam`` of every RG-LRU layer in Griffin's published range, from
+    numpy: per channel u ~ U(RG_A_RANGE) and ``softplus(lam) = -ln(u)/8``,
+    so that a_t = u^(r_t) (arXiv:2402.19427, section 2.4).  Under the
+    reference's ones a is about e^-5 a position at r ~ 0.5, and the state
+    is forgotten within a token or two, which would hide a fault in the
+    carried state."""
+    from repro_torch.models import param_specs
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, spec in sorted(param_specs(cfg).items()):
+        if name.split("/")[-1] == "lam":
+            sp = -np.log(rng.uniform(*RG_A_RANGE, spec.shape)) / 8
+            out[name] = np.log(np.expm1(sp)).astype(np.float32)
+    return out
+
+
+def prompt_tokens(cfg, seed: int, length: int = SERVE["prompt"]) -> np.ndarray:
+    """SERVE's requests: (batch, length + 1) token ids from numpy."""
     return np.random.default_rng(seed).integers(
-        0, cfg.vocab, size=(SERVE["batch"], SERVE["prompt"] + 1)).astype(
-            np.int32)
+        0, cfg.vocab, size=(SERVE["batch"], length + 1)).astype(np.int32)
 
 
 def model_params(cfg, seed: int, device) -> dict[str, torch.Tensor]:
     """Random float32 parameters of ``cfg`` from ``seed``, made on
-    ``device``; SSM layers take :func:`ssm_dynamics`."""
+    ``device``; SSM layers take :func:`ssm_dynamics`, RG-LRU layers
+    :func:`rglru_dynamics`."""
     from repro_torch.models import init_params, param_specs
     params = init_params(param_specs(cfg), seed, device=device)
-    for k, a in ssm_dynamics(cfg, seed).items():
+    for k, a in {**ssm_dynamics(cfg, seed),
+                 **rglru_dynamics(cfg, seed)}.items():
         params[k].copy_(torch.from_numpy(a))
     return params
 
@@ -870,13 +1052,15 @@ def bf16_readings(cfg, dev) -> dict[str, float]:
 
 
 def serving_phase(arch: str, dev, *, consistency_limit: float | None,
-                  depths: tuple[int, ...] = (), log=print) -> dict:
+                  depths: tuple[int, ...] = (),
+                  f32_prompt: int = SERVE["prompt"], log=print) -> dict:
     """``arch`` served at full widths and depth (:func:`run_serving` with
     SERVE's traffic); then the bf16 consistency reading for other parameter
     and prompt seeds (reported beside the check, which is made on seed 0
     only, where ``consistency_limit`` is given), and the same readings
     with the depth cut to each of ``depths``; then the float32 gate at
-    F32_LAYERS layers, held to F32_LIMIT."""
+    F32_LAYERS layers with a prompt of ``f32_prompt`` + 1, held to
+    F32_LIMIT."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     params = model_params(cfg, 0, dev)
@@ -903,10 +1087,11 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
         for n in depths}
     cut = dataclasses.replace(cfg, n_layers=F32_LAYERS)
     out["float32_rel_err"] = float32_consistency(
-        cut, model_params(cut, 0, dev), prompt_tokens(cut, 0), device=dev)
+        cut, model_params(cut, 0, dev), prompt_tokens(cut, 0, f32_prompt),
+        device=dev)
     check(out["float32_rel_err"] < F32_LIMIT,
           f"{cfg.name}, {F32_LAYERS} layers in float32: decode after "
-          f"prefill({SERVE['prompt']}) vs prefill({SERVE['prompt'] + 1}): "
+          f"prefill({f32_prompt}) vs prefill({f32_prompt + 1}): "
           f"relative error {out['float32_rel_err']}")
     return out
 
@@ -1005,7 +1190,7 @@ def main() -> int:
           "device(s)")
     t0 = time.perf_counter()
     built = _build.build(["dirty_diff", "pack_diff", "flash_attention",
-                          "ssd_scan"])
+                          "ssd_scan", "rg_lru"])
     for name, b in built.items():
         print(f"built {name} in {b['seconds']:.2f} s -> {b['path']}")
         for line in b["log"].splitlines():
@@ -1017,6 +1202,7 @@ def main() -> int:
     worst = phase1(dev)
     attn_err = phase1b(dev)
     ssd_err = phase1c(dev)
+    rg_err = phase1d(dev)
     marks.append(time.perf_counter())
 
     shutil.rmtree(WORKDIR, ignore_errors=True)
@@ -1057,12 +1243,6 @@ def main() -> int:
           f"{serve['tokens'][0, :16].tolist()}")
     a = measure_attention(dev)
     print(f"attention at {ATTN_MAIN} ({card}): " + json.dumps(a))
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        **KERNELS["flash_attention"], "launches": serve["launches"],
-        "max_abs_err": attn_err, "ms": a["ms"], "plain_ms": a["plain_ms"],
-        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-        "library_ms": a["library_ms"]})
 
     marks.append(time.perf_counter())
     # phase 4: Mamba-2 serving.  Its bf16 readings are printed, not held:
@@ -1081,15 +1261,53 @@ def main() -> int:
     print(f"ssd_scan at {SSD_MAIN} ({card}): " + json.dumps(m))
     kernels.append({
         "name": "ssd_scan", "route": "cuda", **KERNELS["ssd_scan"],
-        "launches": ssm["launches"], "max_abs_err": ssd_err, "ms": m["ms"],
+        "launches": ssm["launches"]["ssd_scan"], "max_abs_err": ssd_err,
+        "ms": m["ms"],
         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": None,
         "chunked_torch_ms": m["chunked_torch_ms"]})
     marks.append(time.perf_counter())
+
+    # phase 5: RecurrentGemma serving.  Its bf16 readings fell under 0.02
+    # on every seed of CONSISTENCY_SEEDS on an H100 (0.011-0.015, PERF.md),
+    # so seed 0 is held there as in phase 3; the float32 gate, with a prompt
+    # past the window, holds the ring cache and the carried state
+    rg = serving_phase("recurrentgemma-2b", dev, consistency_limit=0.02,
+                       f32_prompt=2100)
+    print(f"serve recurrentgemma ({card}): " + json.dumps(
+        {k: v for k, v in rg.items() if k not in ("tokens", "step_ms")}))
+    print("serve recurrentgemma tokens (request 0, first 16): "
+          f"{rg['tokens'][0, :16].tolist()}")
+    a_rg = measure_attention(dev, ATTN_RG, RG_WINDOW)
+    print(f"attention at {ATTN_RG}, window {RG_WINDOW} ({card}): "
+          + json.dumps(a_rg))
+    m = measure_rg_lru(dev)
+    print(f"rg_lru at {RG_MAIN} ({card}): " + json.dumps(m))
+    # flash_attention runs in phases 3 and 5: its launches are both paths',
+    # its times phase 3's shape, with phase 5's beside them
+    kernels.insert(2, {
+        "name": "flash_attention", "route": "cuda",
+        **KERNELS["flash_attention"],
+        "launches": (serve["launches"]["flash_attention"]
+                     + rg["launches"]["flash_attention"]),
+        "max_abs_err": attn_err, "ms": a["ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+        "library_ms": a["library_ms"],
+        "recurrentgemma": {
+            "shape": list(ATTN_RG), "window": RG_WINDOW,
+            "launches": rg["launches"]["flash_attention"],
+            **{k: a_rg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}}})
+    kernels.append({
+        "name": "rg_lru", "route": "cuda", **KERNELS["rg_lru"],
+        "launches": rg["launches"]["rg_lru"], "max_abs_err": rg_err,
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"], "library_ms": None})
+    marks.append(time.perf_counter())
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(
-            ("phases 1, 1b, 1c", "phase 2", "phase 3", "phase 4"), marks,
-            marks[1:])}))
+            ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
+             "phase 5"), marks, marks[1:])}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,18 +1,20 @@
 """Architecture registry: the configurations ported so far.
 
-The counterpart of ``repro.configs``; internlm2-1.8b (dense) and
-mamba2-2.7b (SSM) are ported.
+The counterpart of ``repro.configs``; internlm2-1.8b (dense),
+mamba2-2.7b (SSM) and recurrentgemma-2b (RG-LRU + local attention) are
+ported.
 """
 
 from __future__ import annotations
 
 from ..models.config import ModelConfig
-from . import internlm2_1p8b, mamba2_2p7b
+from . import internlm2_1p8b, mamba2_2p7b, recurrentgemma_2b
 from .base import reduce_for_smoke
 
 ARCHS = {
     "internlm2-1.8b": internlm2_1p8b.config,
     "mamba2-2.7b": mamba2_2p7b.config,
+    "recurrentgemma-2b": recurrentgemma_2b.config,
 }
 
 

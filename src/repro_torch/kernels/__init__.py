@@ -1,10 +1,11 @@
 """CUDA kernels for Hopper (sm_90a) with their plain PyTorch versions.
 
 ``dirty_diff`` (``csrc/dirty_diff.cu``), ``diff_pack``
-(``csrc/pack_diff.cu``), ``flash_attention`` (``csrc/flash_attention.cu``)
-and ``ssd_scan`` (``csrc/ssd_scan.cu``) replace the JAX package's Pallas
-kernels ``dirty_diff_tpu``, ``diff_pack_tpu``, ``flash_attention_tpu`` and
-``ssd_scan_tpu``.  :mod:`.ops` dispatches by the tensors' device, :mod:`.ref`
-holds the plain versions, and :mod:`._build` compiles the sources with nvcc
-at first use.  Importing this package builds and loads nothing.
+(``csrc/pack_diff.cu``), ``flash_attention`` (``csrc/flash_attention.cu``),
+``ssd_scan`` (``csrc/ssd_scan.cu``) and ``rg_lru`` (``csrc/rg_lru.cu``)
+replace the JAX package's Pallas kernels ``dirty_diff_tpu``,
+``diff_pack_tpu``, ``flash_attention_tpu``, ``ssd_scan_tpu`` and
+``rg_lru_tpu``: all five.  :mod:`.ops` dispatches by the tensors' device,
+:mod:`.ref` holds the plain versions, and :mod:`._build` compiles the
+sources with nvcc at first use.  Importing this package builds and loads nothing.
 """

@@ -26,7 +26,7 @@ __all__ = ["D_MAX", "flash_attention_cuda", "launches"]
 launches = 0
 
 #: the largest head dimension the kernel takes
-D_MAX = 128
+D_MAX = 256
 
 _SIGNATURES = {
     "flash_attention_launch": (

@@ -1,7 +1,8 @@
 """Public kernel wrappers: layout normalization and dispatch by device.
 
 The counterpart of ``repro.kernels.ops`` for the two kernels of device-side
-selective sync, for attention and for the SSD scan.  A CUDA tensor goes to the CUDA kernel, and a failing build
+selective sync, for attention, for the SSD scan and for the RG-LRU
+recurrence.  A CUDA tensor goes to the CUDA kernel, and a failing build
 or launch raises; a CPU tensor goes to the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Nothing else chooses between the two.
 
@@ -11,7 +12,8 @@ see the reference's layout: a bit view, flattened and zero-padded to whole
 blocks of ``block_elems``.  Both give the same flags, and the same bytes in
 ``packed[:count]``.  The attention kernel masks ragged lengths itself too:
 the reference's padding to block multiples has no counterpart here, and
-neither has its padding of the SSD scan to whole chunks.
+neither has its padding of the SSD scan to whole chunks or of the RG-LRU
+recurrence to whole blocks (a = 1, gx = 0).
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ from . import ref
 from .dirty_diff import dirty_diff_cuda
 from .flash_attention import flash_attention_cuda
 from .pack_diff import diff_pack_cuda
+from .rg_lru import rg_lru_cuda
 from .ssd_scan import ssd_scan_cuda
 
 __all__ = ["dirty_blocks", "dirty_pack", "flash_attention", "padded_rows",
-           "ssd_scan"]
+           "rg_lru_scan", "ssd_scan"]
 
 
 def _check_pair(cur: torch.Tensor, snap: torch.Tensor,
@@ -165,3 +168,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         y, h = ssd_scan_cuda(x, dt.float(), A.float(), Bm, C)
         return (y, h) if return_state else y
     return ref.ssd_scan_ref(x, dt, A, Bm, C, return_state=return_state)
+
+
+def rg_lru_scan(a: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
+    """a, gx: (B,S,W) of one floating dtype -> y (B,S,W) float32, the
+    recurrence ``h_t = a_t * h_{t-1} + gx_t`` from h = 0."""
+    if a.dim() != 3 or a.shape != gx.shape:
+        raise ValueError("a and gx must be one (B,S,W) shape, got "
+                         f"{tuple(a.shape)}, {tuple(gx.shape)}")
+    if a.dtype != gx.dtype or not a.is_floating_point():
+        raise ValueError("a and gx must share a floating dtype, got "
+                         f"{a.dtype}, {gx.dtype}")
+    if a.device != gx.device:
+        raise ValueError(f"a and gx on different devices: {a.device}, "
+                         f"{gx.device}")
+    if a.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {a.device}")
+    if a.is_cuda:
+        return rg_lru_cuda(a, gx)
+    return ref.rg_lru_ref(a, gx)

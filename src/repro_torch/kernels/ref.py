@@ -2,8 +2,9 @@
 
 ``dirty_diff_ref`` mirrors ``repro.kernels.ref.dirty_diff_ref``,
 ``diff_pack_ref`` mirrors ``repro.kernels.pack_diff.diff_pack_ref``,
-``flash_attention_ref`` mirrors ``repro.kernels.ref.flash_attention_ref`` and
-``ssd_scan_ref`` mirrors ``repro.kernels.ref.ssd_scan_ref``.  The
+``flash_attention_ref`` mirrors ``repro.kernels.ref.flash_attention_ref``,
+``ssd_scan_ref`` mirrors ``repro.kernels.ref.ssd_scan_ref`` and
+``rg_lru_ref`` mirrors ``repro.kernels.ref.rg_lru_ref``.  The
 wrappers in :mod:`repro_torch.kernels.ops` run them for CPU tensors;
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["dirty_diff_ref", "diff_pack_ref", "flash_attention_ref",
-           "ssd_scan_ref"]
+           "rg_lru_ref", "ssd_scan_ref"]
 
 _NEG = -1e30
 
@@ -98,3 +99,17 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = (torch.stack(ys, dim=2) if ys
          else torch.zeros((B, H, 0, P), dtype=torch.float32, device=x.device))
     return (y, h) if return_state else y
+
+
+def rg_lru_ref(a: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
+    """Sequential gated recurrence in float32, from h = 0: ``h = a_t * h +
+    g_t`` as two operations (a product, then a sum, each rounded), which is
+    how the CUDA kernel rounds too.  a, gx: (B,S,W) -> y (B,S,W) float32."""
+    af, gf = a.float(), gx.float()
+    h = torch.zeros((a.shape[0], a.shape[2]), dtype=torch.float32,
+                    device=a.device)
+    y = torch.empty(af.shape, dtype=torch.float32, device=a.device)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + gf[:, t]
+        y[:, t] = h
+    return y

@@ -1,8 +1,9 @@
 """Model configuration, parameter specs and the language model.
 
-The dense family (GQA ``attn`` blocks, e.g. internlm2-1.8b) and the SSM
-family (Mamba-2 ``ssm`` blocks, mamba2-2.7b): parameter and cache specs,
-initialization, and the prefill and decode forwards.  Training and the
+The dense family (GQA ``attn`` blocks, e.g. internlm2-1.8b), the SSM
+family (Mamba-2 ``ssm`` blocks, mamba2-2.7b) and the RG-LRU hybrid
+(``rglru`` and ``local_attn`` blocks, recurrentgemma-2b): parameter and
+cache specs, initialization, and the prefill and decode forwards.  Training and the
 other families are later slices (ROADMAP queue A).
 """
 

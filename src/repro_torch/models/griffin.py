@@ -1,0 +1,85 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin).
+
+The counterpart of ``repro.models.griffin``, cast for cast.  The gated
+linear recurrence h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t) is
+elementwise, so the gates (which depend only on x_t) come from two float32
+matrix products (TF32 off: :func:`repro_torch.serve.exact_float32`), and
+the recurrence itself is the ``rg_lru`` kernel
+(:func:`repro_torch.kernels.ops.rg_lru_scan`: the CUDA kernel for CUDA
+tensors, its plain sequential version for CPU tensors).  The reference's
+model path runs an associative scan in XLA instead and never calls its
+kernel; both compute the same recurrence.
+
+Block structure (Griffin recurrent block):
+    norm -> { y = gelu(x @ wy) ; r = rglru(conv1d(x @ wx)) } -> (y * r) @ wo
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .layers import causal_conv1d, gelu_tanh
+
+__all__ = ["rg_lru", "rg_lru_step", "griffin_forward", "griffin_decode_step"]
+
+_C = 8.0  # Griffin's fixed gate sharpness
+
+
+def _gates(p, x):
+    """i_t, log_a_t from x (B,S,W); all float32.  ``w_i`` and ``w_r`` are
+    upcast on every call, as in the reference."""
+    xf = x.float()
+    i_t = torch.sigmoid(xf @ p["w_i"].float() + p["b_i"].float())
+    r_t = torch.sigmoid(xf @ p["w_r"].float() + p["b_r"].float())
+    # a_t = exp(-c * softplus(Lambda) * r_t)  -> log_a in (-inf, 0)
+    log_a = -_C * F.softplus(p["lam"].float()) * r_t
+    return i_t, log_a
+
+
+def rg_lru(p, x, h0=None):
+    """x: (B,S,W) -> (y (B,S,W) f32, h_last (B,W) f32) through the
+    ``rg_lru`` kernel; a given ``h0`` is folded into the first step's
+    additive term, as the reference does."""
+    i_t, log_a = _gates(p, x)
+    a = torch.exp(log_a)
+    gate = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    b = gate * i_t * x.float()
+    if h0 is not None:
+        b[:, 0] = b[:, 0] + a[:, 0] * h0.float()
+    h = ops.rg_lru_scan(a, b)
+    return h, h[:, -1]
+
+
+def rg_lru_step(p, x_t, h):
+    """One step.  x_t: (B,1,W); h: (B,W)."""
+    i_t, log_a = _gates(p, x_t)
+    a = torch.exp(log_a[:, 0])
+    gate = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    h = a * h.float() + gate * (i_t[:, 0] * x_t[:, 0].float())
+    return h[:, None, :], h
+
+
+def griffin_forward(cfg, p, x, *, return_state=False):
+    """Full-sequence recurrent block.  x: (B,S,D) -> (B,S,D); with
+    ``return_state`` also ``(h_last (B,W) f32, conv_state)``, the decode
+    carry."""
+    y_branch = gelu_tanh(x @ p["wy"])
+    r = x @ p["wx"]
+    r, new_conv = causal_conv1d(r, p["conv_w"])
+    r_out, h_last = rg_lru(p, r)
+    out = (y_branch.float() * r_out).to(x.dtype) @ p["wo"]
+    if return_state:
+        return out, (h_last, new_conv)
+    return out
+
+
+def griffin_decode_step(cfg, p, x, h, conv_state):
+    """One-token step.  x: (B,1,D); h: (B,W); conv_state: (B,K-1,W)."""
+    y_branch = gelu_tanh(x @ p["wy"])
+    r = x @ p["wx"]
+    r, conv_state = causal_conv1d(r, p["conv_w"], conv_state)
+    r_out, h = rg_lru_step(p, r, h)
+    out = (y_branch.float() * r_out).to(x.dtype) @ p["wo"]
+    return out, h, conv_state

@@ -4,17 +4,21 @@ The counterpart of ``repro.models.layers`` for the dense family, with the
 reference's cast points: norms and RoPE compute in float32 and return the
 input's dtype.  The reference's ``mxu_einsum`` (bf16 operands, f32
 accumulation on the TPU) becomes :func:`f32_einsum`, its runnable form:
-both operands upcast to float32.  :func:`causal_conv1d` serves the SSM
-family; ``layer_norm`` and ``sinusoidal_positions`` belong to the families
-still to port (ROADMAP queue A).
+both operands upcast to float32.  :func:`gelu_tanh` is
+``jax.nn.gelu(approximate=True)`` as the reference runs it: operation by
+operation in the input's dtype.  :func:`causal_conv1d` serves the SSM and
+RG-LRU families; ``layer_norm`` and ``sinusoidal_positions`` belong to the
+families still to port (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "apply_act", "mlp", "f32_einsum",
+__all__ = ["rms_norm", "rope", "gelu_tanh", "apply_act", "mlp", "f32_einsum",
            "causal_conv1d"]
 
 
@@ -51,15 +55,27 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(dt)
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU with the reference's rounding: each
+    operation in x's dtype, the constants rounded to it first (what
+    ``jax.nn.gelu(approximate=True)`` does; ``F.gelu(approximate="tanh")``
+    rounds once from float32 and differs by a bf16 ulp).  The constants
+    are 0-dim CPU tensors, so a CUDA ``x`` takes them as scalars with no
+    host-to-device copy."""
+    def k(v: float) -> torch.Tensor:
+        return torch.tensor(v, dtype=x.dtype)
+    inner = k(math.sqrt(2 / math.pi)) * (x + k(0.044715) * x ** 3)
+    return x * (k(0.5) * (k(1.0) + torch.tanh(inner)))
+
+
 def apply_act(h: torch.Tensor, g: torch.Tensor | None,
               act: str) -> torch.Tensor:
     if act == "silu":
         return F.silu(g) * h if g is not None else F.silu(h)
     if act == "geglu":
-        return (F.gelu(g, approximate="tanh") * h if g is not None
-                else F.gelu(h, approximate="tanh"))
+        return gelu_tanh(g) * h if g is not None else gelu_tanh(h)
     if act == "gelu":
-        return F.gelu(h, approximate="tanh")
+        return gelu_tanh(h)
     raise ValueError(f"unknown activation {act!r}")
 
 

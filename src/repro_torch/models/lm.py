@@ -1,13 +1,13 @@
-"""Language model assembly for the dense and SSM families: specs, prefill,
-decode.
+"""Language model assembly for the dense, SSM and hybrid families: specs,
+prefill, decode.
 
-The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks and
-Mamba-2 ``ssm`` blocks: ``param_specs``, ``init_cache_specs``, the prefill
-and decode forwards and their factories; names, shapes, dtypes, logical
-axes and init kinds are the reference's.  The loss (training), and the
-MoE, MLA, RG-LRU, local-attention, encoder-decoder and VLM blocks wait for
-later slices (ROADMAP queue A); asking for one raises
-``NotImplementedError`` naming its item.
+The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks,
+Mamba-2 ``ssm`` blocks and RecurrentGemma's ``rglru`` and ``local_attn``
+blocks: ``param_specs``, ``init_cache_specs``, the prefill and decode
+forwards and their factories; names, shapes, dtypes, logical axes and init
+kinds are the reference's.  The loss (training), and the MoE, MLA,
+encoder-decoder and VLM blocks wait for later slices (ROADMAP queue A);
+asking for one raises ``NotImplementedError`` naming its item.
 
 Conventions: params and caches are flat dicts ``g{gi}/p{pj}/<name>`` with
 a leading "layers" axis of length ``reps``; the reference's scan over that
@@ -30,15 +30,25 @@ merge then writes the empty tail over them: ROADMAP queue C.)
 SSM cache: ``h`` (B,H,N,P) float32, the SSD state after the last position,
 and ``conv`` (B,K-1,conv_dim) bf16, the last K-1 conv inputs.  Prefill
 writes both from the scan kernel's final state and the conv's carry;
-decode overwrites both every step.
+decode overwrites both every step.  An ``rglru`` block's cache is the same
+pair for the RG-LRU: ``h`` (B,W) float32 and ``conv`` (B,K-1,W) bf16.
+
+Ring cache (``local_attn``): ``k``/``v`` of W = min(cache_len, window)
+slots, position p at slot p % W.  Prefill keeps the prompt's last W
+positions; decode writes slot pos % W and attends to the min(pos + 1, W)
+slots that are filled, every one of them inside the window by
+construction.  Keys carry RoPE at their absolute positions, so the slot
+order does not matter to the softmax.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .attention import decode_attention_two_tier, prefill_attention
+from .attention import (decode_attention, decode_attention_two_tier,
+                        prefill_attention)
 from .config import ModelConfig
+from .griffin import griffin_decode_step, griffin_forward
 from .layers import mlp, rms_norm, rope
 from .spec import ParamSpec, sub
 from .ssm import mamba2_decode_step, mamba2_forward
@@ -52,10 +62,9 @@ _KEEP_F32 = {"A_log", "dt_bias", "D", "lam", "b_i", "b_r", "router"}
 # where each block kind that is not ported yet is planned
 _UNPORTED = {
     "moe": "item 12 (MoE, MLA)",
-    "rglru": "item 11 (RecurrentGemma)",
-    "local_attn": "item 11 (RecurrentGemma)",
     "xattn": "item 12 (frontends)", "enc_attn": "item 12 (frontends)",
 }
+_PORTED = {"attn", "ssm", "rglru", "local_attn"}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -65,17 +74,17 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for what the forward does not cover: the ported kinds are
-    dense GQA ``attn`` blocks and Mamba-2 ``ssm`` blocks, without a
-    frontend."""
+    GQA ``attn`` and ``local_attn`` blocks, Mamba-2 ``ssm`` blocks and
+    ``rglru`` blocks, without a frontend."""
     if cfg.frontend != "none" or cfg.is_encdec:
         raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder",
                         "item 12 (frontends)")
     kinds = {kind for _, pattern in cfg.groups() for kind in pattern}
-    unported = sorted(kinds - {"attn", "ssm"})
+    unported = sorted(kinds - _PORTED)
     if unported:
         raise _unported(f"the {unported[0]!r} block",
                         _UNPORTED.get(unported[0], ""))
-    if "attn" in kinds and cfg.attn_kind != "gqa":
+    if kinds & {"attn", "local_attn"} and cfg.attn_kind != "gqa":
         raise _unported(f"{cfg.attn_kind} attention", "item 12 (MoE, MLA)")
 
 
@@ -146,13 +155,32 @@ def _ssm_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     }
 
 
+def _rglru_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    D, W = cfg.d_model, cfg.lru
+    dt = cfg.param_dtype
+    return {
+        "wx": ParamSpec((D, W), dt, ("fsdp", "state")),
+        "wy": ParamSpec((D, W), dt, ("fsdp", "state")),
+        "conv_w": ParamSpec((cfg.ssm_conv, W), dt, ("conv", None)),
+        "w_i": ParamSpec((W, W), dt, ("fsdp", "state")),
+        "b_i": ParamSpec((W,), "float32", (None,), init="zeros"),
+        "w_r": ParamSpec((W, W), dt, ("fsdp", "state")),
+        "b_r": ParamSpec((W,), "float32", (None,), init="zeros"),
+        "lam": ParamSpec((W,), "float32", (None,), init="ones"),
+        "wo": ParamSpec((W, D), dt, ("state", "fsdp")),
+    }
+
+
 def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
+    D = cfg.d_model
     if kind == "ssm":
-        return {"norm1": _norm(cfg.d_model), **_ssm_specs(cfg)}
+        return {"norm1": _norm(D), **_ssm_specs(cfg)}
+    if kind == "rglru":
+        return {"norm1": _norm(D), **_rglru_specs(cfg), "norm2": _norm(D),
+                **_mlp_specs(cfg)}
     if kind not in ("attn", "local_attn") or cfg.attn_kind != "gqa":
         raise _unported(f"{kind!r} blocks ({cfg.attn_kind} attention)",
                         _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
-    D = cfg.d_model
     s: dict[str, ParamSpec] = {"norm1": _norm(D)}
     s.update(_attn_specs(cfg))
     s["norm2"] = _norm(D)
@@ -161,7 +189,8 @@ def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
 
 
 def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    """Full parameter spec dict for a dense (GQA) or SSM architecture."""
+    """Full parameter spec dict for a dense (GQA), SSM or RG-LRU hybrid
+    architecture."""
     if cfg.frontend != "none" or cfg.is_encdec:
         raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder "
                         "specs", "item 12 (frontends)")
@@ -194,10 +223,24 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
             "conv": ParamSpec((B, cfg.ssm_conv - 1, conv_dim), "bfloat16",
                               ("batch", "conv", None)),
         }
-    if kind != "attn" or cfg.attn_kind != "gqa":
+    if kind == "rglru":
+        return {
+            "h": ParamSpec((B, cfg.lru), "float32", ("batch", "state")),
+            "conv": ParamSpec((B, cfg.ssm_conv - 1, cfg.lru), "bfloat16",
+                              ("batch", "conv", "state")),
+        }
+    if kind not in ("attn", "local_attn") or cfg.attn_kind != "gqa":
         raise _unported(f"the cache of {kind!r} blocks",
                         _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
     K, hd = cfg.n_kv_heads, cfg.hd
+    if kind == "local_attn":
+        W = min(T, cfg.window or T)
+        return {
+            "k": ParamSpec((B, W, K, hd), "bfloat16",
+                           ("batch", "cache_seq", "kv_heads", None)),
+            "v": ParamSpec((B, W, K, hd), "bfloat16",
+                           ("batch", "cache_seq", "kv_heads", None)),
+        }
     Tt = min(cfg.decode_tail, max(1, T))
     return {
         "k": ParamSpec((B, T, K, hd), "bfloat16",
@@ -242,12 +285,13 @@ def _qkv(cfg, p, h, positions):
     return q, k, v
 
 
-def _attn_block(cfg, p, x, positions):
-    """Causal self-attention of a whole prompt; returns (x, (k, v))."""
+def _attn_block(cfg, p, x, positions, window=None):
+    """Causal self-attention of a whole prompt (within ``window``, if
+    given); returns (x, (k, v))."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h, positions)
     B, S = x.shape[:2]
-    o = prefill_attention(q, k, v, causal=True)
+    o = prefill_attention(q, k, v, causal=True, window=window)
     return x + o.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
@@ -265,6 +309,21 @@ def _block_prefill(cfg, kind, p, x, positions, cache):
         cache["h"].copy_(hs)
         cache["conv"].copy_(conv)
         return x + o
+    if kind == "rglru":
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        o, (hs, conv) = griffin_forward(cfg, p, h, return_state=True)
+        cache["h"].copy_(hs)
+        cache["conv"].copy_(conv)
+        return _mlp_res(cfg, p, x + o)
+    if kind == "local_attn":
+        x, (k, v) = _attn_block(cfg, p, x, positions, window=cfg.window)
+        # ring buffer: keep the last W positions, slot = absolute pos % W
+        W = cache["k"].shape[1]
+        S = k.shape[1]
+        take = torch.arange(max(0, S - W), S, device=k.device)
+        cache["k"][:, take % W] = k[:, take].to(cache["k"].dtype)
+        cache["v"][:, take % W] = v[:, take].to(cache["v"].dtype)
+        return _mlp_res(cfg, p, x)
     x, (k, v) = _attn_block(cfg, p, x, positions)
     Tt = cache["tk"].shape[1]
     S = k.shape[1]
@@ -279,14 +338,29 @@ def _block_prefill(cfg, kind, p, x, positions, cache):
 def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
     """One token (x: (B,1,D)) at absolute position ``pos`` through one
     block.  ``attn``: an O(1) write into the tail; main is read only.
-    ``ssm``: the state and the conv carry are overwritten."""
+    ``local_attn``: a write into ring slot pos % W.  ``ssm`` and
+    ``rglru``: the state and the conv carry are overwritten."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         o, hs, conv = mamba2_decode_step(cfg, p, h, cache["h"], cache["conv"])
         cache["h"].copy_(hs)
         cache["conv"].copy_(conv)
         return x + o
+    if kind == "rglru":
+        o, hs, conv = griffin_decode_step(cfg, p, h, cache["h"],
+                                          cache["conv"])
+        cache["h"].copy_(hs)
+        cache["conv"].copy_(conv)
+        return _mlp_res(cfg, p, x + o)
     q, k, v = _qkv(cfg, p, h, positions)
+    if kind == "local_attn":
+        W = cache["k"].shape[1]
+        cache["k"][:, pos % W] = k[:, 0]
+        cache["v"][:, pos % W] = v[:, 0]
+        # every resident slot is within the window by construction
+        o = decode_attention(q, cache["k"], cache["v"], min(pos + 1, W))
+        x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
+        return _mlp_res(cfg, p, x)
     slot = pos % cache["tk"].shape[1]
     cache["tk"][:, slot] = k[:, 0]
     cache["tv"][:, slot] = v[:, 0]

@@ -1,7 +1,7 @@
 """Batched serving engine with window-backed session persistence.
 
 The counterpart of ``repro.serve.engine``: prefill + greedy decode of the
-dense and SSM families on one device.  The paper's technique appears as
+dense, SSM and RG-LRU hybrid families on one device.  The paper's technique appears as
 :class:`SessionStore`: the whole decode state (KV caches, position and the
 generated tokens) maps onto a *combined* storage window -- ``factor`` says
 how much of it stays pinned in host memory and how much spills to storage
@@ -82,7 +82,8 @@ class Engine:
     place."""
 
     # two-tier KV cache: merge the append tail into main every Tt steps
-    # (an SSM cache has no tail: its state is overwritten every step)
+    # (an SSM or RG-LRU state is overwritten every step and a local
+    # attention ring is written in place: neither has a tail)
     _TAIL_TO_MAIN = {"tk": "k", "tv": "v"}
 
     def __init__(self, cfg: ModelConfig, params: dict, *, batch: int,

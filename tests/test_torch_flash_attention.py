@@ -3,8 +3,9 @@
 ``repro_torch.kernels.ops.flash_attention`` runs its plain version for CPU
 tensors; it is held to the JAX ``ops.flash_attention`` with
 ``impl='interpret'`` (the Pallas kernel interpreted on the CPU) and to
-``ref.flash_attention_ref``, over the sweep of ``tests/test_kernels.py``:
-2e-5 in float32 and 2e-2 in bfloat16.  Inputs are numpy arrays from a
+``ref.flash_attention_ref``, over the sweep of ``tests/test_kernels.py``
+plus recurrentgemma-2b's head_dim 256 with 10 query heads over one kv
+head: 2e-5 in float32 and 2e-2 in bfloat16.  Inputs are numpy arrays from a
 seed; bf16 inputs cross as the same bits.  The CUDA kernel itself runs only
 on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 1b).
 """
@@ -28,6 +29,7 @@ SHAPES = [
     (2, 4, 2, 96, 96, 16),     # GQA 2:1
     (1, 4, 1, 40, 72, 32),     # MQA, ragged sizes
     (2, 2, 2, 33, 65, 64),
+    (1, 10, 1, 80, 80, 256),   # recurrentgemma-2b: MQA, d 256; window binds
 ]
 MASKS = [(True, None), (False, None), (True, 24)]
 # causal assumes aligned q/kv ends: the reference skips causal S != T
@@ -120,4 +122,4 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_large_heads():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_cuda(q, q, q, causal=True, window=None, scale=1.0,
                                 t_actual=8)
-    assert fa.D_MAX == 128
+    assert fa.D_MAX == 256  # recurrentgemma-2b's head_dim

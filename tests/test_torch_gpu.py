@@ -11,12 +11,16 @@ Flags, ``count`` and ``packed[:count]`` must be bit-identical, for
 aligned and unaligned (offset by one element) views, and for the window's
 packed route end to end.  The attention kernel is held to its plain
 version at 2e-5 (float32) and 2e-2 (bfloat16), over the sweep of
-``tests/test_kernels.py`` plus d = 128, in both layouts, and must give
-the same bits twice.  The SSD scan kernel is held to its plain version at
+``tests/test_kernels.py`` plus d = 128 and d = 256, in both layouts (at
+d = 256 with recurrentgemma-2b's MQA and a window that binds), and must
+give the same bits twice.  The SSD scan kernel is held to its plain version at
 1e-4 (float32) and 3e-2 (bfloat16) relative to the largest |y| over the
 sweep of ``tests/test_kernels.py``, y and the final state, and at 1e-4
 through the model's strides (x a view of (B,S,H,P) storage, Bm and C
-broadcast over heads with a head stride of 0).
+broadcast over heads with a head stride of 0).  The RG-LRU kernel must
+equal its plain version bit for bit over the sweep of
+``tests/test_kernels.py`` (ragged S included), through strided views, and
+at recurrentgemma-2b's prefill shape with a in Griffin's range.
 """
 
 import numpy as np
@@ -25,7 +29,7 @@ import torch
 
 from repro_torch.core import Communicator, Window
 from repro_torch.kernels import (dirty_diff, flash_attention, ops, pack_diff,
-                                 ref, ssd_scan)
+                                 ref, rg_lru, ssd_scan)
 from repro_torch.models.attention import prefill_attention
 
 PAGE = 4096
@@ -107,7 +111,8 @@ def test_window_packed_route_on_the_card(cuda, tmp_path):
 
 ATTN_SHAPES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 96, 96, 16),
                (1, 4, 1, 40, 72, 32), (2, 2, 2, 33, 65, 64),
-               (1, 4, 2, 130, 130, 128)]
+               (1, 4, 2, 130, 130, 128), (1, 4, 2, 130, 130, 256),
+               (2, 10, 1, 70, 70, 256)]
 ATTN_SWEEP = [(shape, mask) for shape in ATTN_SHAPES
               for mask in [(True, None), (False, None), (True, 24)]
               if not (mask[0] and shape[3] != shape[4])]
@@ -151,6 +156,25 @@ def test_flash_attention_model_layout_reads_in_place(cuda):
     want = ref.flash_attention_ref(q.transpose(1, 2).contiguous(),
                                    k.transpose(1, 2).contiguous(),
                                    v.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 48])
+def test_flash_attention_d256_model_layout(cuda, window):
+    """recurrentgemma-2b's local attention at a small S: d 256, 10 query
+    heads over one kv head, (B,S,H,d) tensors read through their strides,
+    with and without a window that binds (S 150 > 48)."""
+    q = _normal((2, 150, 10, 256), 6, torch.bfloat16, cuda)
+    k = _normal((2, 150, 1, 256), 7, torch.bfloat16, cuda)
+    v = _normal((2, 150, 1, 256), 8, torch.bfloat16, cuda)
+    got = prefill_attention(q, k, v, causal=True, window=window)
+    assert got.is_contiguous()
+    want = ref.flash_attention_ref(q.transpose(1, 2).contiguous(),
+                                   k.transpose(1, 2).contiguous(),
+                                   v.transpose(1, 2).contiguous(),
+                                   window=window)
     torch.testing.assert_close(got.float(), want.transpose(1, 2).float(),
                                atol=2e-2, rtol=2e-2)
 
@@ -228,3 +252,69 @@ def test_ssd_scan_kernel_limits(cuda):
                             cuda))
     with pytest.raises(ValueError, match="exceeds"):
         ops.ssd_scan(*args)
+
+
+RG_SHAPES = [(1, 64, 16), (2, 70, 32), (1, 256, 8), (3, 1000, 300)]
+
+
+def _rg_inputs(B, S, W, dtype, device, seed=0):
+    """a = sigmoid(normal * 0.4), gx = normal * 0.4 (tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    a = 1 / (1 + np.exp(-rng.standard_normal((B, S, W)) * 0.4))
+    gx = rng.standard_normal((B, S, W)) * 0.4
+    return (torch.from_numpy(a.astype(np.float32)).to(device, dtype),
+            torch.from_numpy(gx.astype(np.float32)).to(device, dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RG_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_lru_kernel_matches_plain_version(cuda, shape, dtype):
+    a, gx = _rg_inputs(*shape, dtype, cuda)
+    n0 = rg_lru.launches
+    y = ops.rg_lru_scan(a, gx)
+    y2 = ops.rg_lru_scan(a, gx)
+    want = ref.rg_lru_ref(a, gx)
+    torch.cuda.synchronize()
+    assert rg_lru.launches == n0 + 2
+    assert y.dtype == torch.float32 and y.shape == shape
+    assert torch.equal(y, want) and torch.equal(y, y2)
+
+
+@pytest.mark.gpu
+def test_rg_lru_kernel_reads_strided_views(cuda):
+    """a a column slice of wider storage, gx (S,B,W) storage seen as
+    (B,S,W): the same bits as the plain version on contiguous copies."""
+    a, gx = _rg_inputs(2, 77, 96, torch.float32, cuda, seed=1)
+    wide = torch.cat([a, a], dim=-1)[..., 96:]
+    sbw = gx.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not wide.is_contiguous() and not sbw.is_contiguous()
+    got = ops.rg_lru_scan(wide, sbw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.rg_lru_ref(a, gx))
+
+
+@pytest.mark.gpu
+def test_rg_lru_kernel_at_the_prefill_shape(cuda):
+    """recurrentgemma-2b's prefill (B 4, S 2000, W 2560) with a = u^r, u in
+    Griffin's range [0.9, 0.999]: y bit-identical to the plain version."""
+    B, S, W = 4, 2000, 2560
+    rng = np.random.default_rng(2)
+    a = rng.uniform(0.9, 0.999, W) ** rng.uniform(0, 1, (B, S, W))
+    gx = np.sqrt(1 - a * a) * rng.standard_normal((B, S, W))
+    a = torch.from_numpy(a.astype(np.float32)).to(cuda)
+    gx = torch.from_numpy(gx.astype(np.float32)).to(cuda)
+    got = ops.rg_lru_scan(a, gx)
+    want = ref.rg_lru_ref(a, gx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_rg_lru_kernel_limits(cuda):
+    a = torch.zeros(1, 4, 8, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.rg_lru_scan(a, a)
+    b = torch.zeros(1, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.rg_lru_scan(b.transpose(1, 2), b.transpose(1, 2))

@@ -256,15 +256,17 @@ def test_reference_engine_inconsistent_at_multiple_of_decode_tail():
 
 
 def test_unported_blocks_raise():
-    """A block kind still to port names its ROADMAP item: the RecurrentGemma
-    pattern (``rglru`` and ``local_attn`` blocks, item 11); ``ssm`` blocks
-    are ported."""
+    """A block kind still to port names its ROADMAP item: MoE blocks (item
+    12); ``attn``, ``ssm``, ``rglru`` and ``local_attn`` blocks are
+    ported."""
     from repro_torch.models import ModelConfig
-    griffin = ModelConfig(name="m", family="hybrid", n_layers=3, d_model=64,
-                          n_heads=4, n_kv_heads=1, d_ff=128, vocab=64,
-                          pattern=("rglru", "rglru", "local_attn"),
-                          lru_width=64, window=32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 11"):
-        make_prefill_fn(griffin)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_cache_specs(griffin, 1, 8)
+    moe = ModelConfig(name="m", family="moe", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab=64,
+                      n_experts=8, top_k=2, d_ff_expert=32)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A item 12"):
+        make_prefill_fn(moe)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
+        init_cache_specs(moe, 1, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
+        param_specs(moe)

@@ -372,3 +372,131 @@ def test_serve_launcher_runs_mamba2_on_the_cpu(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "generated token ids" in r.stdout and "session flushed" in r.stdout
+
+
+# -- RecurrentGemma (rglru and local_attn blocks: a float32 state, a bf16
+# conv carry and a ring of min(max_len, window) slots, no two-tier tail) ---
+
+RG_ARCH = "recurrentgemma-2b"
+
+
+def rg_configs(dtype="float32"):
+    return (dataclasses.replace(j_get_config(RG_ARCH, smoke=True), dtype=dtype),
+            dataclasses.replace(get_config(RG_ARCH, smoke=True), dtype=dtype))
+
+
+def rg_numpy_params(chip_smoke, jcfg, seed=0):
+    """The reference's init with ``lam`` in Griffin's published range, so
+    the RG-LRU state carries across the session."""
+    out = numpy_params(jcfg, seed)
+    out.update(chip_smoke.rglru_dynamics(get_config(RG_ARCH, smoke=True),
+                                         seed))
+    return out
+
+
+def test_recurrentgemma_engine_kill_and_resume_is_exact(tmp_path):
+    """Generate; then prefill, steps past the ring's wrap (window 32: a
+    prompt of 29, saved at position 35), save, drop the engine, load into a
+    fresh one, continue: the same tokens and the same final state."""
+    cs = _chip_smoke()
+    cfg = get_config(RG_ARCH, smoke=True)
+    params = cs.model_params(cfg, 0, "cpu")
+    steps, save_at = 12, 7
+    toks = prompt(cfg.vocab, n=29)
+    specs = init_cache_specs(cfg, B, MAX_LEN * 2)
+    store = SessionStore(tcore.Communicator(1), str(tmp_path / "sess.bin"),
+                         specs, factor="0.5")
+    eng = Engine(cfg, params, batch=B, max_len=MAX_LEN * 2, session=store,
+                 device="cpu")
+    assert eng._tail_len() is None
+    assert eng.cache["g0/p2/k"].shape[2] == cfg.window == 32
+    out_full = eng.generate({"inputs": toks}, steps)
+    final = {k: v.clone() for k, v in eng.cache.items()}
+
+    eng2 = Engine(cfg, params, batch=B, max_len=MAX_LEN * 2, session=store,
+                  device="cpu")
+    seq = [eng2.prefill({"inputs": toks})]
+    for _ in range(save_at - 1):
+        seq.append(eng2.step(seq[-1]))
+    eng2.generated = list(seq)
+    assert eng2.pos == 35 > cfg.window
+    ring = eng2.cache["g0/p2/k"].clone()
+    assert eng2.save_session() > 0
+    del eng2
+    eng3 = Engine(cfg, params, batch=B, max_len=MAX_LEN * 2, session=store,
+                  device="cpu")
+    eng3.load_session()
+    assert eng3.pos == 35
+    assert eng3.cache["g0/p0/h"].dtype == torch.float32
+    assert eng3.cache["g0/p2/k"].dtype == torch.bfloat16
+    assert torch.equal(eng3.cache["g0/p2/k"], ring)
+    for _ in range(steps - save_at):
+        seq.append(eng3.step(seq[-1]))
+    np.testing.assert_array_equal(np.stack(seq, axis=1), out_full)
+    assert all(torch.equal(v, eng3.cache[k]) for k, v in final.items())
+    store.free()
+
+
+@pytest.mark.parametrize("factor", [None, "0.5"])
+def test_recurrentgemma_session_files_byte_identical(tmp_path, factor):
+    """The same RecurrentGemma cache (float32 ``h``, bf16 ``conv`` and ring
+    bits), pos and tokens saved by both packages' stores: the same flushed
+    byte count and the same window file."""
+    jcfg, cfg = rg_configs("bfloat16")
+    rng = np.random.default_rng(12)
+    jspecs = j_cache_specs(jcfg, B, MAX_LEN * 2)
+    specs = init_cache_specs(cfg, B, MAX_LEN * 2)
+    assert sorted(jspecs) == sorted(specs)
+    cache = {}
+    for k, s in specs.items():
+        if s.dtype == "bfloat16":
+            cache[k] = rng.integers(0, 1 << 15, size=s.shape,
+                                    dtype=np.uint16).view(ml_dtypes.bfloat16)
+        else:
+            cache[k] = rng.standard_normal(s.shape).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, size=B * 9).astype(np.int32)
+    out = []
+    for name, store_cls, comm, spec, tree in (
+            ("ref.bin", JSessionStore, jcore.Communicator(1), jspecs,
+             {k: jnp.asarray(v) for k, v in cache.items()}),
+            ("port.bin", SessionStore, tcore.Communicator(1), specs,
+             tree_from_numpy(cache, device="cpu"))):
+        store = store_cls(comm, str(tmp_path / name), spec, factor=factor)
+        flushed = store.save(tree, 40, toks)
+        store.free()
+        out.append((flushed, (tmp_path / name).read_bytes()))
+    assert out[0][0] > 0
+    assert out[0] == out[1]
+
+
+def test_recurrentgemma_serving_slice_matches_reference(tmp_path):
+    """The RecurrentGemma slice as a whole: ``chip_smoke.run_serving``
+    (phase 5's routine) on the CPU at the float32 smoke config, against the
+    JAX engine's greedy tokens for the same parameters and prompt.  The
+    prompt (29) fits the window (32); the ring wraps at position 32,
+    before the session is saved at token 5 (position 33)."""
+    cs = _chip_smoke()
+    jcfg, cfg = rg_configs()
+    params = rg_numpy_params(cs, jcfg, seed=4)
+    tokens = prompt(cfg.vocab, n=30, seed=8)
+    want = JEngine(jcfg, params, batch=B, max_len=64).generate(
+        {"inputs": jnp.asarray(tokens[:, :29])}, 12)
+    out = cs.run_serving(
+        cfg, params_from_numpy(cfg, params, device="cpu"), tokens,
+        device="cpu", directory=tmp_path, max_len=64, steps=12, save_at=5,
+        factor="0.5")
+    np.testing.assert_array_equal(out["tokens"], np.asarray(want))
+    assert out["session_flushed_bytes"] > 0
+    assert out["consistency_rel_err"] < 0.02
+    assert len(out["step_ms"]) == 11
+
+
+def test_serve_launcher_runs_recurrentgemma_on_the_cpu(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", RG_ARCH,
+         "--smoke", "--device", "cpu", "--steps", "4", "--session",
+         str(tmp_path / "s.bin")],
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "generated token ids" in r.stdout and "session flushed" in r.stdout
