@@ -26,7 +26,9 @@ into ``build/repro_torch``), and then:
   no per-span transfer, and both kernels must have launched.
 
 * phase 1b holds ``ops.flash_attention`` against its plain version on
-  the card: the sweep of ``tests/test_kernels.py`` (four shapes; causal,
+  the card, bf16 through the tensor-core kernel (``flash_attention_tc``)
+  and float32 through the CUDA-core kernel (``flash_attention``), each of
+  which must launch: the sweep of ``tests/test_kernels.py`` (four shapes; causal,
   full and window 24; causal only where S == T) plus d = 128, d = 256 and
   a ``t_actual`` case, float32 at 2e-5 and bfloat16 at 2e-2, and the main
   paths' shapes (internlm2-1.8b's B 4, H 16, K 8, S 2000, d 128, causal;
@@ -42,17 +44,22 @@ into ``build/repro_torch``), and then:
   tail merges into main at 2048).  Run 1 is ``Engine.generate``; run 2
   saves the session (factor 0.5, under ``build/chip_smoke/``) at token
   100, drops the engine, opens a fresh one on the same store, loads, and
-  runs on.  Run 2's 200 tokens must equal run 1's, the flash kernel must
-  have launched once per layer in each prefill, and decode after
+  runs on.  Run 2's 200 tokens must equal run 1's, the bf16 flash kernel
+  (``flash_attention_tc``) must have launched once per layer in each
+  prefill, and decode after
   prefill(2000) must agree with prefill(2001) to 0.02 relative
   (``tests/test_models.py``), with finite logits.  The same reading for
   two parameter seeds and four prompts is printed beside it, to show its
   spread.  Beside it, a float32 gate outside the bf16 noise: internlm2-1.8b
   at full widths cut to 4 layers, ``dtype="float32"``, a float32 cache,
   TF32 off; decode after prefill(2000) against prefill(2001) within 1e-4
-  relative.
-* phase 1c holds ``ops.ssd_scan`` against its plain version on the card:
-  the sweep of ``tests/test_kernels.py`` (three shapes, float32 at 1e-4
+  relative, with the float32 kernel (``flash_attention``) launched once per
+  layer in each of its two prefills (in phases 4 and 5 the same holds for
+  the float32 gates' ``ssd_scan`` and ``flash_attention``).
+* phase 1c holds ``ops.ssd_scan`` against its plain version on the card,
+  bf16 through the tensor-core kernel (``ssd_scan_tc``, chunks in parallel)
+  and float32 through the CUDA-core kernel (``ssd_scan``), each of which
+  must launch: the sweep of ``tests/test_kernels.py`` (three shapes, float32 at 1e-4
   and bf16 at 3e-2 relative to the largest |y|), and one mamba2-2.7b
   prefill layer (B 4, H 80, S 2000, P 64, N 128; x a view of the model's
   (B,S,H,P) activations, Bm and C one group read with a head stride of 0;
@@ -74,8 +81,8 @@ into ``build/repro_torch``), and then:
   mamba2-2.7b's full widths and depth (64 layers, 2.70 B parameters made
   on the card from a seed, ``A_log`` and ``dt_bias`` set in the published
   ranges, cast once to bf16), with phase 3's traffic and session: run 2's
-  200 tokens must equal run 1's, ``ssd_scan`` must launch once per layer
-  in each prefill, and the float32 gate (4 layers) must hold at 1e-4.  The
+  200 tokens must equal run 1's, ``ssd_scan_tc`` must launch once per
+  layer in each prefill, and the float32 gate (4 layers) must hold at 1e-4.  The
   bf16 full-depth readings for phase 3's seeds are printed beside it, not
   held: at 64 layers on an H100 all eight read above phase 3's 0.02, while
   the float32 gate reads about 3e-6 (PERF.md).
@@ -85,8 +92,8 @@ into ``build/repro_torch``), and then:
   every ``lam`` set in Griffin's published range, cast once to bf16), with
   phase 3's traffic: the local-attention ring of 2048 slots wraps during
   decode, before the session is saved at token 100.  Run 2's tokens must
-  equal run 1's, ``flash_attention`` must launch 8 times and ``rg_lru`` 18
-  times in each prefill, and the float32 gate (4 layers: rglru, rglru,
+  equal run 1's, ``flash_attention_tc`` must launch 8 times and ``rg_lru``
+  18 times in each prefill, and the float32 gate (4 layers: rglru, rglru,
   local_attn, rglru) with a prompt of 2100 + 1, so that the window binds
   in the prefill and the ring has wrapped before the decode step, must
   hold at 1e-4.  As in phase 3, the bf16 full-depth reading on seed 0 must
@@ -98,8 +105,11 @@ into ``build/repro_torch``), and then:
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
-times, and one JSON line ``{"kernels": [...]}`` with each kernel's time,
-launches, bound, plain-version and library times.  The last line is
+times, and one JSON line ``{"kernels": [...]}`` with each of the seven
+kernels' time, launches, bound, plain-version and library times (B3 and B4
+have a bf16 tensor-core kernel and a float32 CUDA-core kernel each; B2 has
+no library time, as no one PyTorch call computes diff + pack, and the
+two-call composition is timed beside it).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is not 0 and no such line is printed; the same holds when CUDA is not
 available or the package is missing.
@@ -127,6 +137,11 @@ DIRTY_FRAC = 0.08            # page-spread traffic of benchmarks/selective_sync.
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor cores (data sheet)
 F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
+# float32-accurate products on the tensor cores: each is three TF32
+# products (hi.hi, hi.lo, lo.hi of operands split into TF32 hi + lo) at the
+# data sheet's dense 495 TFLOP/s; the bound of the float32 attention and
+# scan, whose limits need float32-accurate products
+F32_MMA_FLOPS = 495e12 / 3
 SMOKE_LAYERS = 2             # depth cut of internlm2-1.8b (24 layers)
 WORKDIR = ROOT / "build" / "chip_smoke"
 # phase 3 traffic: 4 requests of 2000 prompt tokens, 200 greedy steps in a
@@ -156,8 +171,13 @@ KERNELS = {
                    "replaces": "src/repro/kernels/dirty_diff.py:77"},
     "diff_pack": {"source": "src/repro_torch/csrc/pack_diff.cu",
                   "replaces": "src/repro/kernels/pack_diff.py:84"},
+    "flash_attention_tc": {
+        "source": "src/repro_torch/csrc/flash_attention_tc.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86"},
     "flash_attention": {"source": "src/repro_torch/csrc/flash_attention.cu",
                         "replaces": "src/repro/kernels/flash_attention.py:86"},
+    "ssd_scan_tc": {"source": "src/repro_torch/csrc/ssd_scan_tc.cu",
+                    "replaces": "src/repro/kernels/ssd_scan.py:70"},
     "ssd_scan": {"source": "src/repro_torch/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:70"},
     "rg_lru": {"source": "src/repro_torch/csrc/rg_lru.cu",
@@ -469,11 +489,16 @@ def _attention_err(ops, ref, q, k, v, tol=None, **kw) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def phase1b(dev, log=print) -> float:
-    """``ops.flash_attention`` against its plain version; returns the
-    largest absolute difference at the main paths' shapes in bf16."""
+def phase1b(dev, log=print) -> dict:
+    """``ops.flash_attention`` against its plain version: bf16 through the
+    tensor-core kernel, float32 through the CUDA-core kernel (both must
+    launch).  Returns ``{dtype: largest absolute difference at the main
+    paths' shapes}``."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(2)
+    mods = {dt: ops.kernel_module("flash_attention", dt) for dt in ATTN_TOL}
+    for mod in mods.values():
+        mod.launches = 0
     ncases, worst = 0, {}
     for dtype in ATTN_TOL:
         for B, H, K, S, T, d in ATTN_SWEEP:
@@ -508,30 +533,45 @@ def phase1b(dev, log=print) -> float:
                   f"flash_attention gave different bits on the same inputs "
                   f"at {shape}")
     torch.cuda.synchronize(dev)
-    log(f"phase 1b: {ncases} cases, flash_attention within "
+    check(all(mod.launches > 0 for mod in mods.values()),
+          "phase 1b: a kernel of flash_attention never launched: "
+          + str({_kernel_name(m): m.launches for m in mods.values()}))
+    log(f"phase 1b: {ncases} cases ("
+        + ", ".join(f"{_kernel_name(m)} {m.launches} launches"
+                    for m in mods.values())
+        + "), flash_attention within "
         f"{ATTN_TOL[torch.float32]} (f32, worst {worst[torch.float32]:.3g}) "
         f"and {ATTN_TOL[torch.bfloat16]} (bf16, worst "
         f"{worst[torch.bfloat16]:.3g}) of its plain version; main shapes, "
         f"causal, q and k std {ATTN_MAIN_QK_STD}, f32 at rtol = atol = 2e-5 "
         "and bf16 at rtol 1e-2, atol 1e-4, max abs err: "
         + json.dumps(main_err) + "; deterministic")
-    return max(v for k, v in main_err.items() if k.endswith("bfloat16"))
+    return {dt: max(v for k, v in main_err.items()
+                    if k.endswith(str(dt).removeprefix("torch.")))
+            for dt in ATTN_MAIN_TOL}
 
 
-def measure_attention(dev, shape=ATTN_MAIN, window=None) -> dict:
+def measure_attention(dev, shape=ATTN_MAIN, window=None,
+                      dtype=torch.bfloat16) -> dict:
     """Kernel, plain-version and library times of one prefill layer's
-    attention at a main path's shape (bf16, causal, ``window``), and its
-    bound.  The library call is causal attention without a window: the
-    same function wherever the window does not bind (S <= window)."""
+    attention at a main path's shape (causal, ``window``) in ``dtype``,
+    which picks the kernel (bf16: the tensor cores; float32: the CUDA
+    cores), and its bound at the card's rate for that dtype's products
+    (float32: float32-accurate products on the tensor cores, not this
+    kernel's CUDA cores).  The library call is
+    causal attention without a window: the same function wherever the
+    window does not bind (S <= window)."""
     from repro_torch.kernels import ops, ref
     B, H, K, S, d = shape
     check(window is None or S <= window,
           f"the library call has no window, which binds at S {S}")
     gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = attention_inputs(B, H, K, S, S, d, torch.bfloat16, gen, dev)
+    q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev)
     flops = 4 * B * H * d * (S * (S + 1) // 2)  # causal: S(S+1)/2 pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-    t_ops = flops / BF16_FLOPS
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + q.numel())
+    t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16
+                     else F32_MMA_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return {
         "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
@@ -602,11 +642,16 @@ def chunk_errors(y, want, chunk: int = SSD_CHECK_CHUNK,
     return errs
 
 
-def phase1c(dev, log=print) -> float:
-    """``ops.ssd_scan`` against its plain version; returns the largest
-    absolute difference of y at the main path's shape."""
+def phase1c(dev, log=print) -> dict:
+    """``ops.ssd_scan`` against its plain version: bf16 through the
+    tensor-core kernel, float32 through the CUDA-core kernel (both must
+    launch).  Returns ``{dtype: largest absolute difference of y at the
+    main path's shape}``."""
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(4)
+    mods = {dt: ops.kernel_module("ssd_scan", dt) for dt in SSD_TOL}
+    for mod in mods.values():
+        mod.launches = 0
     ncases, worst = 0, {}
     for dtype, tol in SSD_TOL.items():
         for shape in SSD_SWEEP:
@@ -647,7 +692,13 @@ def phase1c(dev, log=print) -> float:
                        "max_abs": float((y - want).abs().max())}
         ncases += 1
     torch.cuda.synchronize(dev)
-    log(f"phase 1c: {ncases} cases, ssd_scan within {SSD_TOL[torch.float32]} "
+    check(all(mod.launches > 0 for mod in mods.values()),
+          "phase 1c: a kernel of ssd_scan never launched: "
+          + str({_kernel_name(m): m.launches for m in mods.values()}))
+    log(f"phase 1c: {ncases} cases ("
+        + ", ".join(f"{_kernel_name(m)} {m.launches} launches"
+                    for m in mods.values())
+        + f"), ssd_scan within {SSD_TOL[torch.float32]} "
         f"(f32, worst {worst[torch.float32]:.3g}) and "
         f"{SSD_TOL[torch.bfloat16]} (bf16, worst "
         f"{worst[torch.bfloat16]:.3g}) of its plain version; main shape "
@@ -655,31 +706,37 @@ def phase1c(dev, log=print) -> float:
         f"{SSD_MAIN_TOL}): " + json.dumps(
             {str(d).removeprefix("torch."): v for d, v in main.items()})
         + "; deterministic")
-    return max(v["max_abs"] for v in main.values())
+    return {dt: v["max_abs"] for dt, v in main.items()}
 
 
-def measure_ssd(dev) -> dict:
+def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
     """Kernel, plain-version and plain chunked-form times of one prefill
-    layer's scan at the main path's shape (bf16 inputs), and its bound."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.ssd_scan import CHUNK
+    layer's scan at the main path's shape with x, Bm and C in ``dtype``,
+    which picks the kernel (bf16: the tensor cores, chunks in parallel;
+    float32: the CUDA cores), and its bound at the card's rate for that
+    dtype's products (float32: float32-accurate tensor-core products).
+    The tensor-core kernel's scratch is reported beside the bound, which
+    counts only the function's inputs and outputs."""
+    from repro_torch.kernels import ops, ref, ssd_scan_tc
     from repro_torch.models.ssm import ssd_chunked
     B, H, S, P, N = SSD_MAIN
+    chunk = ops.kernel_module("ssd_scan", dtype).CHUNK
     gen = torch.Generator(device=dev).manual_seed(5)
-    x, dt, A, bm, c = ssd_main_inputs(torch.bfloat16, gen, dev)
+    x, dt, A, bm, c = ssd_main_inputs(dtype, gen, dev)
     # the least work: the chunked form at the kernel's chunk, scores only
     # for i >= j (l(l+1)/2 of a chunk of l), C.h and the state update
-    pairs = sum(min(CHUNK, S - s0) * (min(CHUNK, S - s0) + 1) // 2
-                for s0 in range(0, S, CHUNK))
+    pairs = sum(min(chunk, S - s0) * (min(chunk, S - s0) + 1) // 2
+                for s0 in range(0, S, chunk))
     flops = 2 * B * H * (pairs * (N + P) + 2 * S * N * P)
     # each input read once (Bm and C: one group, B*S*N values each), y and
     # the final state written once
-    nbytes = (2 * (B * S * H * P + 2 * B * S * N) + 4 * (B * H * S + H)
-              + 4 * (B * H * S * P + B * H * N * P))
-    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    nbytes = (x.element_size() * (B * S * H * P + 2 * B * S * N)
+              + 4 * (B * H * S + H) + 4 * (B * H * S * P + B * H * N * P))
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_MMA_FLOPS
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     model = (x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2),
              c.transpose(1, 2))
-    return {
+    out = {
         "ms": cuda_ms(lambda: ops.ssd_scan(x, dt, A, bm, c,
                                            return_state=True)),
         "plain_ms": cuda_ms(lambda: ref.ssd_scan_ref(x, dt, A, bm, c,
@@ -690,6 +747,9 @@ def measure_ssd(dev) -> dict:
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
+    if dtype == torch.bfloat16:
+        out["scratch_bytes"] = ssd_scan_tc.scratch_bytes(B, H, S, N, P)
+    return out
 
 
 # -- phase 1d: RG-LRU kernel against its plain version -------------------------
@@ -841,10 +901,14 @@ def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
 
 def prefill_kernels(cfg) -> dict:
     """``{kernel module: launches in one prefill of cfg}``: each layer's
-    prefill launches its kind's kernel once."""
-    from repro_torch.kernels import flash_attention, rg_lru, ssd_scan
-    of_kind = {"attn": flash_attention, "local_attn": flash_attention,
-               "ssm": ssd_scan, "rglru": rg_lru}
+    prefill launches its kind's kernel once, attention and the SSD scan
+    the one for ``cfg.dtype`` (the tensor-core kernel for bf16, the
+    CUDA-core kernel for float32)."""
+    from repro_torch.kernels import ops, rg_lru
+    dtype = getattr(torch, cfg.dtype)
+    attn = ops.kernel_module("flash_attention", dtype)
+    of_kind = {"attn": attn, "local_attn": attn,
+               "ssm": ops.kernel_module("ssd_scan", dtype), "rglru": rg_lru}
     out: dict = {}
     for reps, pattern in cfg.groups():
         for kind in pattern:
@@ -1086,9 +1150,20 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
         n: bf16_readings(dataclasses.replace(cfg, n_layers=n), dev)
         for n in depths}
     cut = dataclasses.replace(cfg, n_layers=F32_LAYERS)
+    # the gate runs the float32 kernels: two prefills (the engine's and the
+    # prefill of S + 1), each kernel once per layer of its kind
+    f32_kernels = prefill_kernels(dataclasses.replace(cut, dtype="float32"))
+    for mod in f32_kernels:
+        mod.launches = 0
     out["float32_rel_err"] = float32_consistency(
         cut, model_params(cut, 0, dev), prompt_tokens(cut, 0, f32_prompt),
         device=dev)
+    out["float32_launches"] = {_kernel_name(mod): mod.launches
+                               for mod in f32_kernels}
+    for mod, want in f32_kernels.items():
+        check(mod.launches == 2 * want,
+              f"{cfg.name} float32 gate: {_kernel_name(mod)} launched "
+              f"{mod.launches} times, not {2 * want}")
     check(out["float32_rel_err"] < F32_LIMIT,
           f"{cfg.name}, {F32_LAYERS} layers in float32: decode after "
           f"prefill({f32_prompt}) vs prefill({f32_prompt + 1}): "
@@ -1143,9 +1218,13 @@ def measure_sync(masters: dict, snapshot: dict, block_elems: int) -> dict:
         ref.diff_pack_ref(c2, s2) for c2, s2 in rows])
     out["dirty_diff_library_ms"] = cuda_ms(lambda: [
         (c2 != s2).view(c2.shape[0], -1).any(1) for c2, s2 in rows])
+    # no one PyTorch call computes diff + pack: B2 has no library time.
+    # For information, the two-call composition (compare, then gather the
+    # changed rows), which gives neither the flags nor the count
+    out["diff_pack_library_ms"] = None
+    out["diff_pack_two_calls_ms"] = cuda_ms(lambda: [
+        c2[(c2 != s2).view(c2.shape[0], -1).any(1)] for c2, s2 in rows])
     packs = [ops.dirty_pack(c, s, block_elems=block_elems) for c, s in pairs]
-    out["diff_pack_library_ms"] = cuda_ms(lambda: [
-        c2[f.bool()] for (c2, _), (f, _, _) in zip(rows, packs)])
     flags = [f for f, _, _ in packs]
     ks = [int(f.sum()) for f in flags]
     parts = [p[:k].view(torch.uint8).reshape(-1)
@@ -1189,8 +1268,9 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           "device(s)")
     t0 = time.perf_counter()
-    built = _build.build(["dirty_diff", "pack_diff", "flash_attention",
-                          "ssd_scan", "rg_lru"])
+    built = _build.build(["dirty_diff", "pack_diff", "flash_attention_tc",
+                          "flash_attention", "ssd_scan_tc", "ssd_scan",
+                          "rg_lru"])
     for name, b in built.items():
         print(f"built {name} in {b['seconds']:.2f} s -> {b['path']}")
         for line in b["log"].splitlines():
@@ -1234,6 +1314,7 @@ def main() -> int:
             "ms": m[f"{name}_ms"], "plain_ms": m[f"{name}_plain_ms"],
             "bound_ms": m[f"{name}_bound_ms"], "bound_by": "bytes",
             "library_ms": m[f"{name}_library_ms"]})
+    kernels[-1]["two_calls_ms"] = m["diff_pack_two_calls_ms"]
 
     marks.append(time.perf_counter())
     serve = serving_phase("internlm2-1.8b", dev, consistency_limit=0.02)
@@ -1242,7 +1323,9 @@ def main() -> int:
     print("serve tokens (request 0, first 16): "
           f"{serve['tokens'][0, :16].tolist()}")
     a = measure_attention(dev)
-    print(f"attention at {ATTN_MAIN} ({card}): " + json.dumps(a))
+    print(f"attention at {ATTN_MAIN}, bf16 ({card}): " + json.dumps(a))
+    a32 = measure_attention(dev, dtype=torch.float32)
+    print(f"attention at {ATTN_MAIN}, float32 ({card}): " + json.dumps(a32))
 
     marks.append(time.perf_counter())
     # phase 4: Mamba-2 serving.  Its bf16 readings are printed, not held:
@@ -1257,15 +1340,21 @@ def main() -> int:
         {k: v for k, v in ssm.items() if k not in ("tokens", "step_ms")}))
     print("serve mamba2 tokens (request 0, first 16): "
           f"{ssm['tokens'][0, :16].tolist()}")
-    m = measure_ssd(dev)
-    print(f"ssd_scan at {SSD_MAIN} ({card}): " + json.dumps(m))
-    kernels.append({
-        "name": "ssd_scan", "route": "cuda", **KERNELS["ssd_scan"],
-        "launches": ssm["launches"]["ssd_scan"], "max_abs_err": ssd_err,
-        "ms": m["ms"],
-        "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": None,
-        "chunked_torch_ms": m["chunked_torch_ms"]})
+    # B4: the bf16 kernel runs the prefills, the float32 kernel the gate;
+    # no PyTorch call computes the scan (the plain chunked form is beside)
+    for dtype, name, n in (
+            (torch.bfloat16, "ssd_scan_tc", ssm["launches"]["ssd_scan_tc"]),
+            (torch.float32, "ssd_scan", ssm["float32_launches"]["ssd_scan"])):
+        m = measure_ssd(dev, dtype)
+        print(f"{name} at {SSD_MAIN} ({card}): " + json.dumps(m))
+        kernels.append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": n, "max_abs_err": ssd_err[dtype],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "chunked_torch_ms": m["chunked_torch_ms"],
+            **({"scratch_bytes": m["scratch_bytes"]}
+               if "scratch_bytes" in m else {})})
     marks.append(time.perf_counter())
 
     # phase 5: RecurrentGemma serving.  Its bf16 readings fell under 0.02
@@ -1279,25 +1368,31 @@ def main() -> int:
     print("serve recurrentgemma tokens (request 0, first 16): "
           f"{rg['tokens'][0, :16].tolist()}")
     a_rg = measure_attention(dev, ATTN_RG, RG_WINDOW)
-    print(f"attention at {ATTN_RG}, window {RG_WINDOW} ({card}): "
+    print(f"attention at {ATTN_RG}, window {RG_WINDOW}, bf16 ({card}): "
           + json.dumps(a_rg))
+    a32_rg = measure_attention(dev, ATTN_RG, RG_WINDOW, dtype=torch.float32)
+    print(f"attention at {ATTN_RG}, window {RG_WINDOW}, float32 ({card}): "
+          + json.dumps(a32_rg))
     m = measure_rg_lru(dev)
     print(f"rg_lru at {RG_MAIN} ({card}): " + json.dumps(m))
-    # flash_attention runs in phases 3 and 5: its launches are both paths',
-    # its times phase 3's shape, with phase 5's beside them
-    kernels.insert(2, {
-        "name": "flash_attention", "route": "cuda",
-        **KERNELS["flash_attention"],
-        "launches": (serve["launches"]["flash_attention"]
-                     + rg["launches"]["flash_attention"]),
-        "max_abs_err": attn_err, "ms": a["ms"], "plain_ms": a["plain_ms"],
-        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-        "library_ms": a["library_ms"],
-        "recurrentgemma": {
-            "shape": list(ATTN_RG), "window": RG_WINDOW,
-            "launches": rg["launches"]["flash_attention"],
-            **{k: a_rg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}}})
+    # B3 runs in phases 3 and 5: the bf16 kernel in the prefills, the
+    # float32 kernel in the gates.  Launches are both paths', times phase
+    # 3's shape, with phase 5's beside them
+    for at, (name, dtype, at_main, at_rg, path) in enumerate((
+            ("flash_attention_tc", torch.bfloat16, a, a_rg, "launches"),
+            ("flash_attention", torch.float32, a32, a32_rg,
+             "float32_launches"))):
+        kernels.insert(2 + at, {
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": serve[path][name] + rg[path][name],
+            "max_abs_err": attn_err[dtype],
+            **{k: at_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "recurrentgemma": {
+                "shape": list(ATTN_RG), "window": RG_WINDOW,
+                "launches": rg[path][name],
+                **{k: at_rg[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}})
     kernels.append({
         "name": "rg_lru", "route": "cuda", **KERNELS["rg_lru"],
         "launches": rg["launches"]["rg_lru"], "max_abs_err": rg_err,

@@ -1,25 +1,28 @@
 // Flash attention forward (GQA; causal, sliding window or full) for Hopper
-// (sm_90a).
+// (sm_90a), float32 inputs, on the CUDA cores.
 //
 // Replaces: flash_attention_tpu in src/repro/kernels/flash_attention.py,
-// the Pallas kernel that serves attention on the TPU.  In this package it
-// runs the attention of every attention layer's prefill: internlm2-1.8b's
-// (d 128, causal) and recurrentgemma-2b's local attention (d 256, MQA with
-// 10 query heads over one kv head, causal, window 2048).
+// the Pallas kernel that serves attention on the TPU, for float32 inputs
+// (bf16 inputs go to flash_attention_tc.cu, on the tensor cores).  In this
+// package it runs the attention of the float32 consistency gates'
+// prefills: internlm2-1.8b's (d 128, causal) and recurrentgemma-2b's local
+// attention (d 256, MQA with 10 query heads over one kv head, causal,
+// window 2048).  Their limit of 2e-5 (1e-4 end to end) needs float32
+// products, which is why this kernel stays.
 //
 // What it computes: q (B,H,S,d), k/v (B,K,T,d) with H = K*G; head h reads
 // kv head h/G.  s = (float(q) * scale) . float(k); a key is masked when
 // k_pos >= t_actual, (causal) k_pos > q_pos, or (window) q_pos - k_pos >=
 // window; masked scores are -1e30, never -inf; softmax in float32 by the
 // online recurrence (running max m, denominator l, accumulator acc per query
-// row); out = acc / max(l, 1e-30), cast to q's dtype (float32 or bf16).
+// row); out = acc / max(l, 1e-30), float32.
 //
 // Bound: operations.  At the prefill shape of internlm2-1.8b (B 4, H 16,
 // K 8, S = T = 2000, d 128, causal) the kernel does 4*B*H*d*S(S+1)/2 =
-// 65.6 GFLOP on 98 MB of q, k, v and out: 0.066 ms at 989 TFLOP/s (bf16
-// tensor cores) against 0.029 ms at 3.35 TB/s.  At recurrentgemma-2b's
-// (B 4, H 10, K 1, S = T = 2000, d 256, causal; the window of 2048 does
-// not bind) 81.96 GFLOP on 90.1 MB: 0.083 ms against 0.027 ms.
+// 65.6 GFLOP on 196 MB of float32 q, k, v and out: 0.98 ms at 67 TFLOP/s
+// (float32 on the CUDA cores) against 0.059 ms at 3.35 TB/s.  At
+// recurrentgemma-2b's (B 4, H 10, K 1, S = T = 2000, d 256, causal; the
+// window of 2048 does not bind) 81.96 GFLOP: 1.22 ms.
 //
 // Design: the simple, exact form first.  The TPU walks a sequential kv grid
 // axis with the accumulators in VMEM scratch; here one CTA of 256 threads
@@ -29,16 +32,13 @@
 // (115 KB at d = 128 and 213,760 B of the 232,448 a block may take at
 // d = 256, so one CTA per SM there: dynamic shared memory, raised with
 // cudaFuncSetAttribute).  Scores and P.V are float32 FMAs on the CUDA cores,
-// which keeps the TPU kernel's float32 arithmetic for both input types; the
-// tensor-core (wgmma/TMA) version is later work, and until then the kernel
-// sits far from the operations bound.  Key tiles wholly in the future
+// the TPU kernel's float32 arithmetic.  Key tiles wholly in the future
 // (causal), wholly before the window, or wholly at or past t_actual are
 // never loaded.  Ragged S and T are masked here, so the caller pads
 // nothing; strides are arguments, so (B,S,H,d) tensors are read in place.
 // Row sums are butterfly shuffles and every sum has a fixed order, with no
 // atomics: two runs give the same bits.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,10 +51,10 @@ constexpr float kNeg = -1e30f;
 static_assert(kBQ == kBK, "stage() moves kBK rows for Q as for K and V");
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int64_t q_sb, q_sh, q_ss;  // element strides: batch, head, position
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -63,20 +63,12 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Rows [row0, row0 + 64) of one (batch, head) slab into dst[64][ld] as
 // float32 times `mul`; rows at or past `limit` and columns at or past d are
 // zero, so they add nothing to a dot product and stay finite.
-template <typename T, int DMAX>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+template <int DMAX>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
                                       int64_t ss, int row0, int limit, int d,
                                       float mul) {
 #pragma unroll 4
@@ -86,13 +78,13 @@ __device__ __forceinline__ void stage(float* dst, int ld, const T* src,
     const int c = idx % DMAX;
     float x = 0.f;
     if (row0 + r < limit && c < d) {
-      x = to_f32(src[static_cast<int64_t>(row0 + r) * ss + c]) * mul;
+      x = src[static_cast<int64_t>(row0 + r) * ss + c] * mul;
     }
     dst[r * ld + c] = x;
   }
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
   constexpr int LDQ = DMAX + 1;  // padded: a column walk hits 16 banks
@@ -109,14 +101,14 @@ flash_fwd_kernel(const Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / p.group;
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* qp = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kp = p.k + b * p.k_sb + kvh * p.k_sh;
+  const float* vp = p.v + b * p.v_sb + kvh * p.v_sh;
+  float* op = p.o + b * p.o_sb + h * p.o_sh;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  stage<T, DMAX>(Qs, LDQ, qp, p.q_ss, q0, p.S, p.d, p.scale);
+  stage<DMAX>(Qs, LDQ, qp, p.q_ss, q0, p.S, p.d, p.scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -135,8 +127,8 @@ flash_fwd_kernel(const Params p) {
 
   for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
     __syncthreads();  // the last tile's reads are done; Qs is visible
-    stage<T, DMAX>(Ks, LDQ, kp, p.k_ss, k0, p.T, p.d, 1.f);
-    stage<T, DMAX>(Vs, LDV, vp, p.v_ss, k0, p.T, p.d, 1.f);
+    stage<DMAX>(Ks, LDQ, kp, p.k_ss, k0, p.T, p.d, 1.f);
+    stage<DMAX>(Vs, LDV, vp, p.v_ss, k0, p.T, p.d, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -217,11 +209,11 @@ flash_fwd_kernel(const Params p) {
     const int r = q0 + ty + 16 * i;
     if (r >= p.S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    T* orow = op + r * p.o_ss;
+    float* orow = op + r * p.o_ss;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < p.d) store(orow + col, acc[i][c] / den);
+      if (col < p.d) orow[col] = acc[i][c] / den;
     }
   }
 }
@@ -232,26 +224,25 @@ constexpr size_t smem_bytes() {
                           kBQ * (kBK + 1));
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 int launch(const Params& p, int64_t B, int64_t H, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((p.S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_fwd_kernel<T, DMAX><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<DMAX><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch(const Params& p, int64_t B, int64_t H, cudaStream_t stream) {
-  if (p.d <= 16) return launch<T, 16>(p, B, H, stream);
-  if (p.d <= 32) return launch<T, 32>(p, B, H, stream);
-  if (p.d <= 64) return launch<T, 64>(p, B, H, stream);
-  if (p.d <= 128) return launch<T, 128>(p, B, H, stream);
-  if (p.d <= 256) return launch<T, 256>(p, B, H, stream);
+  if (p.d <= 16) return launch<16>(p, B, H, stream);
+  if (p.d <= 32) return launch<32>(p, B, H, stream);
+  if (p.d <= 64) return launch<64>(p, B, H, stream);
+  if (p.d <= 128) return launch<128>(p, B, H, stream);
+  if (p.d <= 256) return launch<256>(p, B, H, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -259,20 +250,20 @@ int dispatch(const Params& p, int64_t B, int64_t H, cudaStream_t stream) {
 
 // out = attention(q, k, v) on `stream`.  Pointers are device pointers,
 // strides are in elements (the last dimension is contiguous); window <= 0
-// means none; bf16 != 0 selects __nv_bfloat16 for q, k, v and out, else
-// float.  Returns cudaGetLastError() after the launch.
+// means none; q, k, v and out are float (bf16 inputs go to
+// flash_attention_tc.cu).  Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int64_t B,
     int64_t H, int64_t S, int64_t T, int64_t d, int64_t group, int64_t q_sb,
     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
     int64_t o_ss, int64_t causal, int64_t window, int64_t t_actual,
-    float scale, int64_t bf16, void* stream) {
+    float scale, void* stream) {
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
@@ -285,7 +276,5 @@ extern "C" int flash_attention_launch(
   p.window = static_cast<int>(window);
   p.t_actual = static_cast<int>(t_actual);
   p.scale = scale;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return dispatch<__nv_bfloat16>(p, B, H, st);
-  return dispatch<float>(p, B, H, st);
+  return dispatch(p, B, H, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,11 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a).
+// Mamba-2 SSD chunked scan for Hopper (sm_90a), float32 inputs, on the
+// CUDA cores.
 //
 // Replaces: ssd_scan_tpu in src/repro/kernels/ssd_scan.py, the Pallas
-// kernel of the Mamba-2 scan on the TPU.  In this package it runs the scan
-// of every Mamba-2 layer's prefill.
+// kernel of the Mamba-2 scan on the TPU, for float32 x, Bm and C (bf16
+// inputs go to ssd_scan_tc.cu: tensor cores, chunks in parallel).  In this
+// package it runs the scan of the float32 consistency gate's prefills,
+// whose limit needs float32 products.
 //
 // What it computes: x (B,H,S,P), dt (B,H,S) float32, A (H,) float32,
 // Bm/C (B,H,S,N).  Per (batch, head), with the (N,P) state h carried from
@@ -14,17 +17,15 @@
 // y is float32; after the last chunk the state is written out as a second
 // output (B,H,N,P) float32, which the TPU kernel keeps in VMEM and drops:
 // the model's prefill needs it for the decode cache.  Everything is float32
-// arithmetic, for float32 and bf16 inputs alike (as on the TPU).  The
-// chunked identity holds at any chunk length, so the chunk here is this
-// kernel's own (64), not the TPU's 256.
+// arithmetic (as on the TPU).  The chunked identity holds at any chunk
+// length, so the chunk here is this kernel's own (64), not the TPU's 256.
 //
-// Bound: bytes.  At one mamba2-2.7b prefill layer (B 4, H 80, S 2000,
-// P 64, N 128, bf16 inputs; Bm and C one group read with a head stride of
-// 0) the inputs and outputs are 262.9 MB, 0.0785 ms at 3.35 TB/s; the
-// float32 y alone is 164 MB of them.  The chunked form at this kernel's
-// chunk of 64 with only i >= j needs
+// Bound: operations.  At one mamba2-2.7b prefill layer (B 4, H 80,
+// S 2000, P 64, N 128; Bm and C one group read with a head stride of 0)
+// the chunked form at this kernel's chunk of 64 with only i >= j needs
 // 2*B*H*(sum over chunks of l(l+1)/2 * (N+P) + 2*S*N*P) = 28.9 GFLOP,
-// 0.029 ms at 989 TFLOP/s.
+// 0.43 ms at 67 TFLOP/s (float32 on the CUDA cores); the float32 inputs
+// and outputs are 348.9 MB, 0.104 ms at 3.35 TB/s.
 //
 // Design: the simple, exact form first.  One CTA of 256 threads per
 // (batch, head) walks its chunks in order with the state in shared memory
@@ -32,11 +33,10 @@
 // loop.  Each chunk's B, C and x*dt are staged in shared memory as float32
 // (130 KB in all, dynamic); the three products (C.B^T, scores.xdt plus
 // C.h, and the state update) are float32 FMAs on the CUDA cores with 4x4
-// or 8x4 register tiles.  Tensor cores, TMA and chunks in parallel with a
-// state-passing scan are later work; until then the kernel sits far from
-// its bound.  exp(cum_i - cum_j) is taken only for i >= j (it can overflow
-// above the diagonal, where the TPU kernel multiplies first and discards);
-// the C.B^T products there are computed with the rest and dropped.
+// or 8x4 register tiles.  exp(cum_i - cum_j) is taken only for i >= j (it
+// can overflow above the diagonal, where the TPU kernel multiplies first
+// and discards); the C.B^T products there are computed with the rest and
+// dropped.
 // Ragged S is masked here: rows past S are staged as zero with dt = 0,
 // exact no-ops on the state, so the caller pads nothing.  Strides are
 // arguments: x is read through the model's (B,S,H,P) view, Bm and C with a
@@ -44,7 +44,6 @@
 // Every sum has a fixed order and there are no atomics: two runs give the
 // same bits.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,11 +59,11 @@ static_assert(kL == 64 && kPMax == 64 && kNMax == 128,
               "the 16 x 16 thread tiles below assume these sizes");
 
 struct Params {
-  const void* x;
+  const float* x;
   const float* dt;
   const float* A;
-  const void* bm;
-  const void* c;
+  const float* bm;
+  const float* c;
   float* y;
   float* h_out;  // (B, H, N, P), contiguous
   int64_t x_sb, x_sh, x_ss;  // element strides: batch, head, position
@@ -75,11 +74,6 @@ struct Params {
   int H, S, N, P;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 constexpr size_t smem_floats() {
   return 2 * kL * kLDN      // Bs, Cs
          + kL * kPMax       // Xs (x * dt)
@@ -88,7 +82,6 @@ constexpr size_t smem_floats() {
          + 3 * kL;          // cum, w, dts
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const Params p) {
   extern __shared__ float smem[];
@@ -103,10 +96,10 @@ ssd_scan_kernel(const Params p) {
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const T* xp = static_cast<const T*>(p.x) + b * p.x_sb + h * p.x_sh;
+  const float* xp = p.x + b * p.x_sb + h * p.x_sh;
   const float* dtp = p.dt + b * p.dt_sb + h * p.dt_sh;
-  const T* bp = static_cast<const T*>(p.bm) + b * p.b_sb + h * p.b_sh;
-  const T* cp = static_cast<const T*>(p.c) + b * p.c_sb + h * p.c_sh;
+  const float* bp = p.bm + b * p.b_sb + h * p.b_sh;
+  const float* cp = p.c + b * p.c_sb + h * p.c_sh;
   float* yp = p.y + b * p.y_sb + h * p.y_sh;
   const float A = p.A[h];
   const int tid = threadIdx.x;
@@ -124,8 +117,8 @@ ssd_scan_kernel(const Params p) {
       const int n = idx % kNMax;
       float bv = 0.f, cv = 0.f;
       if (s0 + r < p.S && n < p.N) {
-        bv = to_f32(bp[static_cast<int64_t>(s0 + r) * p.b_ss + n]);
-        cv = to_f32(cp[static_cast<int64_t>(s0 + r) * p.c_ss + n]);
+        bv = bp[static_cast<int64_t>(s0 + r) * p.b_ss + n];
+        cv = cp[static_cast<int64_t>(s0 + r) * p.c_ss + n];
       }
       Bs[r * kLDN + n] = bv;
       Cs[r * kLDN + n] = cv;
@@ -135,7 +128,7 @@ ssd_scan_kernel(const Params p) {
       const int c = idx % kPMax;
       float xv = 0.f;
       if (s0 + r < p.S && c < p.P) {
-        xv = to_f32(xp[static_cast<int64_t>(s0 + r) * p.x_ss + c]);
+        xv = xp[static_cast<int64_t>(s0 + r) * p.x_ss + c];
       }
       Xs[idx] = xv;
     }
@@ -280,15 +273,14 @@ ssd_scan_kernel(const Params p) {
   }
 }
 
-template <typename T>
 int launch(const Params& p, int64_t B, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * smem_floats();
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(p.H), static_cast<unsigned>(B));
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  ssd_scan_kernel<<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -296,8 +288,8 @@ int launch(const Params& p, int64_t B, cudaStream_t stream) {
 
 // y, h_out = ssd_scan(x, dt, A, bm, c) on `stream`.  Pointers are device
 // pointers, strides are in elements (the last dimension of x, bm, c and y
-// is contiguous; h_out is a contiguous (B,H,N,P) buffer); dt and A are
-// float32; bf16 != 0 selects __nv_bfloat16 for x, bm and c, else float.
+// is contiguous; h_out is a contiguous (B,H,N,P) buffer); x, bm, c, dt and
+// A are float32 (bf16 inputs go to ssd_scan_tc.cu).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for N or P beyond the kernel's tiles.
 extern "C" int ssd_scan_launch(
@@ -306,16 +298,16 @@ extern "C" int ssd_scan_launch(
     int64_t N, int64_t P, int64_t x_sb, int64_t x_sh, int64_t x_ss,
     int64_t dt_sb, int64_t dt_sh, int64_t dt_ss, int64_t b_sb, int64_t b_sh,
     int64_t b_ss, int64_t c_sb, int64_t c_sh, int64_t c_ss, int64_t y_sb,
-    int64_t y_sh, int64_t y_ss, int64_t bf16, void* stream) {
+    int64_t y_sh, int64_t y_ss, void* stream) {
   if (N < 1 || N > kNMax || P < 1 || P > kPMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.x = x;
+  p.x = static_cast<const float*>(x);
   p.dt = static_cast<const float*>(dt);
   p.A = static_cast<const float*>(A);
-  p.bm = bm;
-  p.c = c;
+  p.bm = static_cast<const float*>(bm);
+  p.c = static_cast<const float*>(c);
   p.y = static_cast<float*>(y);
   p.h_out = static_cast<float*>(h_out);
   p.x_sb = x_sb; p.x_sh = x_sh; p.x_ss = x_ss;
@@ -327,7 +319,5 @@ extern "C" int ssd_scan_launch(
   p.S = static_cast<int>(S);
   p.N = static_cast<int>(N);
   p.P = static_cast<int>(P);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch<__nv_bfloat16>(p, B, st);
-  return launch<float>(p, B, st);
+  return launch(p, B, static_cast<cudaStream_t>(stream));
 }

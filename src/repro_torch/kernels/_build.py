@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on its own, for ``sm_90a``, into
 ``build/repro_torch/lib<name>-<hash>.so`` at the root of the checkout; the
-hash covers the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is.  Sources expose a plain C interface (no
+hash covers the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header builds anew and an unchanged one is loaded as
+it is.  Sources expose a plain C interface (no
 PyTorch headers), which keeps a build to seconds.  Nothing is compiled when
 a module is imported: the first launch builds what it needs, and
 :func:`build` starts several ``nvcc`` processes at once.
@@ -50,6 +51,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256(source_path(name).read_bytes())
+    for header in sorted(SOURCES.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,13 +1,15 @@
-"""Attention on the card: the ``flash_attention`` CUDA kernel.
+"""Attention on the card in float32: the ``flash_attention`` CUDA kernel.
 
-The counterpart of the JAX package's ``flash_attention_tpu``
-(``csrc/flash_attention.cu``): the GQA attention forward with a causal,
+The counterpart of the JAX package's ``flash_attention_tpu`` for float32
+inputs (``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores, which
+the float32 limit of 2e-5 needs): the GQA attention forward with a causal,
 sliding-window or full mask, keys at or past ``t_actual`` masked, an f32
 online softmax with finite -1e30 masking, and key tiles outside the mask
-skipped.  It serves every attention layer's prefill.  The kernel reads its
-inputs through their strides, so a (B,S,H,d) tensor viewed as (B,H,S,d) is
-read in place, and it masks ragged lengths itself: nothing is padded or
-copied.  Its plain PyTorch version is
+skipped.  It serves every attention layer's float32 prefill (the float32
+gates); bfloat16 inputs go to :mod:`.flash_attention_tc`.  The kernel reads
+its inputs through their strides, so a (B,S,H,d) tensor viewed as
+(B,H,S,d) is read in place, and it masks ragged lengths itself: nothing is
+padded or copied.  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 
@@ -31,7 +33,7 @@ D_MAX = 256
 _SIGNATURES = {
     "flash_attention_launch": (
         [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 21
-        + [ctypes.c_float, ctypes.c_int64, ctypes.c_void_p], ctypes.c_int),
+        + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
 }
 
 _GRID_YZ = 65535  # largest grid y and z: heads and batch
@@ -40,9 +42,9 @@ _GRID_YZ = 65535  # largest grid y and z: heads and batch
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: int | None, scale: float,
                          t_actual: int) -> torch.Tensor:
-    """q: (B,H,S,d); k/v: (B,K,T,d) CUDA tensors of one dtype (float32 or
-    bfloat16), the last dimension contiguous, any other strides.  Returns
-    (B,H,S,d) in q.dtype, with q's strides where q is dense.  The caller
+    """q: (B,H,S,d); k/v: (B,K,T,d) float32 CUDA tensors, the last dimension
+    contiguous, any other strides.  Returns (B,H,S,d) float32, with q's
+    strides where q is dense.  The caller
     (:func:`repro_torch.kernels.ops.flash_attention`) has checked shapes,
     ``window`` and ``t_actual``.  Launches on the current stream and does
     not synchronise."""
@@ -52,8 +54,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError("flash_attention_cuda takes q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if not q.dtype == k.dtype == v.dtype == torch.float32:
+        raise ValueError("the CUDA-core kernel takes float32, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d > D_MAX:
         raise ValueError(f"head dimension {d} > {D_MAX}, which the kernel "
                          "does not take")
@@ -73,7 +76,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3],
             int(causal), 0 if window is None else window, t_actual,
-            scale, int(q.dtype == torch.bfloat16), stream)
+            scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: CUDA error {err} at launch")
     launches += 1

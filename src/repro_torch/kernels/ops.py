@@ -5,6 +5,10 @@ selective sync, for attention, for the SSD scan and for the RG-LRU
 recurrence.  A CUDA tensor goes to the CUDA kernel, and a failing build
 or launch raises; a CPU tensor goes to the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Nothing else chooses between the two.
+Attention and the SSD scan have two CUDA kernels each, picked by dtype
+(:func:`cuda_kernel`): bfloat16 inputs go to the tensor-core kernel
+(``*_tc``), float32 inputs to the CUDA-core kernel, whose float32 products
+their float32 limits need.  Any other dtype on the card raises.
 
 The CUDA kernels take flat byte views and mask the short last block
 themselves, so nothing is padded or copied on the card.  The plain versions
@@ -18,17 +22,48 @@ recurrence to whole blocks (a = 1, gx = 0).
 
 from __future__ import annotations
 
+import sys
+from types import ModuleType
+from typing import Callable
+
 import torch
 
 from . import ref
 from .dirty_diff import dirty_diff_cuda
 from .flash_attention import flash_attention_cuda
+from .flash_attention_tc import flash_attention_tc_cuda
 from .pack_diff import diff_pack_cuda
 from .rg_lru import rg_lru_cuda
 from .ssd_scan import ssd_scan_cuda
+from .ssd_scan_tc import ssd_scan_tc_cuda
 
-__all__ = ["dirty_blocks", "dirty_pack", "flash_attention", "padded_rows",
-           "rg_lru_scan", "ssd_scan"]
+__all__ = ["cuda_kernel", "dirty_blocks", "dirty_pack", "flash_attention",
+           "kernel_module", "padded_rows", "rg_lru_scan", "ssd_scan"]
+
+# the CUDA kernel that serves CUDA tensors of each dtype
+_CUDA_KERNELS = {
+    "flash_attention": {torch.float32: flash_attention_cuda,
+                        torch.bfloat16: flash_attention_tc_cuda},
+    "ssd_scan": {torch.float32: ssd_scan_cuda,
+                 torch.bfloat16: ssd_scan_tc_cuda},
+}
+
+
+def cuda_kernel(op: str, dtype: torch.dtype) -> Callable:
+    """The wrapper of the CUDA kernel that ``op`` (``"flash_attention"`` or
+    ``"ssd_scan"``) launches for CUDA tensors of ``dtype``.  Raises
+    ``ValueError`` for a dtype that no kernel takes."""
+    kernel = _CUDA_KERNELS[op].get(dtype)
+    if kernel is None:
+        raise ValueError(f"no CUDA kernel of {op} takes {dtype}; float32 "
+                         "and bfloat16 have one each")
+    return kernel
+
+
+def kernel_module(op: str, dtype: torch.dtype) -> ModuleType:
+    """The module of :func:`cuda_kernel`'s wrapper, whose ``launches``
+    counts that kernel's launches."""
+    return sys.modules[cuda_kernel(op, dtype).__module__]
 
 
 def _check_pair(cur: torch.Tensor, snap: torch.Tensor,
@@ -132,8 +167,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"t_actual must be in [1, {T}], got {t_actual}")
     scale = d ** -0.5 if scale is None else scale
     if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    scale=scale, t_actual=t_actual)
+        return cuda_kernel("flash_attention", q.dtype)(
+            q, k, v, causal=causal, window=window, scale=scale,
+            t_actual=t_actual)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, t_actual=t_actual)
 
@@ -165,7 +201,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {x.device}")
     if x.is_cuda:
-        y, h = ssd_scan_cuda(x, dt.float(), A.float(), Bm, C)
+        y, h = cuda_kernel("ssd_scan", x.dtype)(x, dt.float(), A.float(), Bm,
+                                                 C)
         return (y, h) if return_state else y
     return ref.ssd_scan_ref(x, dt, A, Bm, C, return_state=return_state)
 

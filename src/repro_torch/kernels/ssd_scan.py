@@ -1,11 +1,12 @@
-"""The Mamba-2 SSD scan on the card: the ``ssd_scan`` CUDA kernel.
+"""The Mamba-2 SSD scan on the card in float32: the ``ssd_scan`` CUDA kernel.
 
-The counterpart of the JAX package's ``ssd_scan_tpu``
-(``csrc/ssd_scan.cu``): the chunked SSD scan with the (N,P) state carried
-across chunks in float32, for float32 or bfloat16 x, Bm and C.  It runs the
-scan of every Mamba-2 layer's prefill, and it also returns the final state,
-which the TPU kernel drops and the decode cache needs.  The kernel reads its
-inputs through their strides (x as a view of the model's (B,S,H,P)
+The counterpart of the JAX package's ``ssd_scan_tpu`` for float32 x, Bm
+and C (``csrc/ssd_scan.cu``, float32 FMAs on the CUDA cores): the chunked
+SSD scan with the (N,P) state carried across chunks in float32.  It runs
+the scan of every Mamba-2 layer's float32 prefill (the float32 gate);
+bfloat16 inputs go to :mod:`.ssd_scan_tc`.  It also returns the final
+state, which the TPU kernel drops and the decode cache needs.  The kernel
+reads its inputs through their strides (x as a view of the model's (B,S,H,P)
 activations, Bm and C broadcast over heads with a head stride of 0) and
 masks a ragged last chunk itself: nothing is padded or copied.  Its plain
 PyTorch version is :func:`repro_torch.kernels.ref.ssd_scan_ref`.
@@ -34,7 +35,7 @@ CHUNK = 64
 
 _SIGNATURES = {
     "ssd_scan_launch": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 21
+        [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 20
         + [ctypes.c_void_p], ctypes.c_int),
 }
 
@@ -44,7 +45,7 @@ _GRID_Y = 65535  # largest grid y: batch
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   Bm: torch.Tensor, C: torch.Tensor):
     """x: (B,H,S,P); dt: (B,H,S); A: (H,); Bm/C: (B,H,S,N), CUDA tensors on
-    one device.  x, Bm and C share a dtype (float32 or bfloat16) and have
+    one device.  x, Bm and C are float32 with
     their last dimension contiguous, any other strides (0 included); dt and
     A are float32.  Returns ``(y (B,H,S,P) float32, h (B,H,N,P) float32)``;
     y is dense in x's order of dimensions (the model's (B,S,H,P) storage
@@ -59,8 +60,9 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_scan_cuda takes its tensors on one CUDA device, "
                          f"got {x.device}, {dt.device}, {A.device}, "
                          f"{Bm.device}, {C.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
+    if not x.dtype == Bm.dtype == C.dtype == torch.float32:
+        raise ValueError("the CUDA-core kernel takes float32 x, Bm, C, got "
+                         f"{x.dtype}, {Bm.dtype}, {C.dtype}")
     if not (dt.dtype == A.dtype == torch.float32):
         raise ValueError(f"dt and A must be float32, got {dt.dtype}, {A.dtype}")
     if N > N_MAX or P > P_MAX:
@@ -84,7 +86,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             C.data_ptr(), y.data_ptr(), h.data_ptr(), B, H, S, N, P,
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3], *C.stride()[:3],
-            *y.stride()[:3], int(x.dtype == torch.bfloat16), stream)
+            *y.stride()[:3], stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan: CUDA error {err} at launch")
     launches += 1

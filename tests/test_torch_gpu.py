@@ -10,14 +10,20 @@ Inputs are numpy arrays from a seed (bfloat16 as uint16 bit patterns).
 Flags, ``count`` and ``packed[:count]`` must be bit-identical, for
 aligned and unaligned (offset by one element) views, and for the window's
 packed route end to end.  The attention kernel is held to its plain
-version at 2e-5 (float32) and 2e-2 (bfloat16), over the sweep of
-``tests/test_kernels.py`` plus d = 128 and d = 256, in both layouts (at
-d = 256 with recurrentgemma-2b's MQA and a window that binds), and must
-give the same bits twice.  The SSD scan kernel is held to its plain version at
-1e-4 (float32) and 3e-2 (bfloat16) relative to the largest |y| over the
-sweep of ``tests/test_kernels.py``, y and the final state, and at 1e-4
-through the model's strides (x a view of (B,S,H,P) storage, Bm and C
-broadcast over heads with a head stride of 0).  The RG-LRU kernel must
+version at 2e-5 (float32, the CUDA-core kernel) and 2e-2 (bfloat16, the
+tensor-core kernel), over the sweep of ``tests/test_kernels.py`` plus
+d = 128 and d = 256, in both layouts (at d = 256 with recurrentgemma-2b's
+MQA and a window that binds), and must give the same bits twice; the
+tensor-core kernel also at the prefill shapes at rtol 1e-2, atol 1e-4 with
+q and k at std 1.5 (``chip_smoke.py`` phase 1b's limits).  The SSD scan
+kernels are held to their plain version at 1e-4 (float32) and 3e-2
+(bfloat16) relative to the largest |y| over the sweep of
+``tests/test_kernels.py``, y and the final state, and at 1e-4 through the
+model's strides (x a view of (B,S,H,P) storage, Bm and C broadcast over
+heads with a head stride of 0); the tensor-core kernel also at 1e-4 per
+256 positions at mamba2-2.7b's prefill shape (phase 1c's limit), where a
+scan that drops the carried state fails.  Each dtype must launch its own
+kernel, and each kernel raises on what it does not take.  The RG-LRU kernel must
 equal its plain version bit for bit over the sweep of
 ``tests/test_kernels.py`` (ragged S included), through strided views, and
 at recurrentgemma-2b's prefill shape with a in Griffin's range.
@@ -28,8 +34,9 @@ import pytest
 import torch
 
 from repro_torch.core import Communicator, Window
-from repro_torch.kernels import (dirty_diff, flash_attention, ops, pack_diff,
-                                 ref, rg_lru, ssd_scan)
+from repro_torch.kernels import (dirty_diff, flash_attention,
+                                 flash_attention_tc, ops, pack_diff, ref,
+                                 rg_lru, ssd_scan, ssd_scan_tc)
 from repro_torch.models.attention import prefill_attention
 
 PAGE = 4096
@@ -133,12 +140,14 @@ def test_flash_attention_kernel_matches_plain_version(cuda, shape, mask,
     q = _normal((B, H, S, d), 0, dtype, cuda)
     k = _normal((B, K, T, d), 1, dtype, cuda)
     v = _normal((B, K, T, d), 2, dtype, cuda)
-    n0 = flash_attention.launches
+    mod = {torch.float32: flash_attention,
+           torch.bfloat16: flash_attention_tc}[dtype]
+    n0 = mod.launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     again = ops.flash_attention(q, k, v, causal=causal, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches == n0 + 2
+    assert mod.launches == n0 + 2
     assert got.dtype == dtype and torch.equal(got, again)
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
@@ -203,12 +212,13 @@ def _rel(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain_version(cuda, shape, dtype):
     args = _ssd_inputs(*shape, dtype, cuda)
-    n0 = ssd_scan.launches
+    mod = {torch.float32: ssd_scan, torch.bfloat16: ssd_scan_tc}[dtype]
+    n0 = mod.launches
     y, h = ops.ssd_scan(*args, return_state=True)
     y2, h2 = ops.ssd_scan(*args, return_state=True)
     want, want_h = ref.ssd_scan_ref(*args, return_state=True)
     torch.cuda.synchronize()
-    assert ssd_scan.launches == n0 + 2
+    assert mod.launches == n0 + 2
     assert y.dtype == h.dtype == torch.float32
     assert torch.equal(y, y2) and torch.equal(h, h2)
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
@@ -318,3 +328,123 @@ def test_rg_lru_kernel_limits(cuda):
     b = torch.zeros(1, 4, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         ops.rg_lru_scan(b.transpose(1, 2), b.transpose(1, 2))
+
+
+# the prefill shapes of phase 1b: (B, H, K, S, d, window)
+TC_ATTN_MAIN = [(4, 16, 8, 2000, 128, None), (4, 10, 1, 2000, 256, 2048),
+                (1, 10, 1, 4096, 256, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,S,d,window", TC_ATTN_MAIN)
+def test_flash_attention_tc_at_the_prefill_shapes(cuda, B, H, K, S, d,
+                                                  window):
+    """The tensor-core kernel at phase 1b's main shapes and limits (rtol
+    1e-2, atol 1e-4; q and k at std 1.5, model layout), the same bits
+    twice; the float32 kernel does not launch."""
+    rng = np.random.default_rng(S + d)
+
+    def mk(heads, std):
+        a = rng.standard_normal((B, S, heads, d)) * std
+        return torch.from_numpy(a.astype(np.float32)).to(
+            cuda, torch.bfloat16).transpose(1, 2)
+    q, k, v = mk(H, 1.5), mk(K, 1.5), mk(K, 0.4)
+    n_tc, n_f32 = flash_attention_tc.launches, flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    again = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_tc.launches == n_tc + 2
+    assert flash_attention.launches == n_f32
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tc_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 8, 20, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ops.flash_attention(q, q, q)
+    wide = torch.zeros(1, 2, 8, 129, device=cuda, dtype=torch.bfloat16)
+    q = wide[..., 1:]  # d 128, starting 2 bytes past an aligned address
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        ops.flash_attention(*(torch.zeros(1, 2, 8, 16, device=cuda,
+                                          dtype=torch.float16),) * 3)
+    f32 = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention_tc.flash_attention_tc_cuda(
+            f32, f32, f32, causal=True, window=None, scale=1.0, t_actual=8)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention.flash_attention_cuda(
+            q, q, q, causal=True, window=None, scale=1.0, t_actual=8)
+
+
+def _chunk_rel(y, want, chunk=256):
+    return max(float((y[:, :, s:s + chunk] - want[:, :, s:s + chunk]).abs()
+                     .max() / want[:, :, s:s + chunk].abs().max())
+               for s in range(0, want.shape[2], chunk))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_tc_at_the_prefill_shape(cuda):
+    """mamba2-2.7b's prefill layer (B 4, H 80, S 2000, P 64, N 128) as the
+    model hands it over, dt and A in Mamba-2's published ranges: y within
+    1e-4 per 256 positions and the state within 1e-4 (phase 1c's limit),
+    the same bits twice, while a scan that zeroes the carried state every
+    256 positions fails that limit."""
+    B, H, S, P, N = 4, 80, 2000, 64, 128
+    rng = np.random.default_rng(9)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (B, S, H * P + 2 * N)).astype(np.float32)).to(cuda, torch.bfloat16)
+    x = xbc[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+    bm = xbc[..., H * P:H * P + N, None].transpose(2, 3).expand(
+        B, S, H, N).transpose(1, 2)
+    c = xbc[..., H * P + N:, None].transpose(2, 3).expand(
+        B, S, H, N).transpose(1, 2)
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                             (B, S, H))).astype(
+        np.float32)).to(cuda).transpose(1, 2)
+    A = -torch.from_numpy(rng.uniform(1, 16, H).astype(np.float32)).to(cuda)
+    n_tc, n_f32 = ssd_scan_tc.launches, ssd_scan.launches
+    y, h = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
+    y2, h2 = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
+    want, want_h = ref.ssd_scan_ref(x, dt, A, bm, c, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_tc.launches == n_tc + 2 and ssd_scan.launches == n_f32
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert _chunk_rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
+    zeroed = torch.cat([ref.ssd_scan_ref(
+        x[:, :, s:s + 256], dt[:, :, s:s + 256], A, bm[:, :, s:s + 256],
+        c[:, :, s:s + 256]) for s in range(0, S, 256)], dim=2)
+    assert _chunk_rel(zeroed, want) > 1e-4
+
+
+@pytest.mark.gpu
+def test_ssd_scan_tc_refuses_what_it_does_not_take(cuda):
+    for N, P in ((16, 15), (ssd_scan_tc.N_MAX + 8, 16), (16, 66)):
+        args = list(_ssd_inputs(1, 2, 8, P, N, torch.bfloat16, cuda))
+        with pytest.raises(ValueError, match="exceeds"):
+            ops.ssd_scan(*args)
+    x, dt, A, bm, c = _ssd_inputs(1, 2, 8, 16, 16, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        ops.ssd_scan(x.half(), dt, A, bm.half(), c.half())
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan.ssd_scan_cuda(x, dt, A, bm, c)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_tc_element_loads(cuda):
+    """Rows that are not whole aligned 16-byte chunks (N 12, x starting 2
+    bytes past an aligned address) load element by element and give the
+    plain version's result at 1e-4, over a ragged last chunk (S 203)."""
+    B, H, S, P, N = 2, 3, 203, 16, 12
+    x, dt, A, bm, c = _ssd_inputs(B, H, S, P + 1, N, torch.bfloat16, cuda)
+    x = x[..., 1:]
+    assert x.data_ptr() % 16 != 0
+    y, h = ssd_scan_tc.ssd_scan_tc_cuda(x, dt, A, bm, c)
+    want, want_h = ref.ssd_scan_ref(x, dt, A, bm, c, return_state=True)
+    torch.cuda.synchronize()
+    assert _rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
