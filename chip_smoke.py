@@ -20,15 +20,18 @@ into ``build/repro_torch``), and then:
   layers) with float32 masters on the card: three syncs (8% of every
   tensor's pages touched page-spread; ``lm_head`` and every norm rewritten;
   no change).  After each, the flushed bytes must equal the changed pages
-  times the page size, the window file read back with ``np.fromfile`` must
+  times the page size (each sync's flush time, the host's span apply and
+  write-back, is printed), the window file read back with ``np.fromfile`` must
   equal the masters, the window's transfer counters must show one bitmap
   transfer per sync, one payload transfer per sync that changed a byte and
   no per-span transfer, and both kernels must have launched.
 
 * phase 1b holds ``ops.flash_attention`` against its plain version on
-  the card, bf16 through the tensor-core kernel (``flash_attention_tc``)
-  and float32 through the CUDA-core kernel (``flash_attention``), each of
-  which must launch: the sweep of ``tests/test_kernels.py`` (four shapes; causal,
+  the card, bf16 through ``flash_attention_tc`` and float32 through
+  ``flash_attention_tc32`` (both on the tensor cores), each of which must
+  launch, and the earlier CUDA-core float32 kernel (``flash_attention``,
+  on no path, a comparator) over the same float32 cases: the sweep of
+  ``tests/test_kernels.py`` (four shapes; causal,
   full and window 24; causal only where S == T) plus d = 128, d = 256 and
   a ``t_actual`` case, float32 at 2e-5 and bfloat16 at 2e-2, and the main
   paths' shapes (internlm2-1.8b's B 4, H 16, K 8, S 2000, d 128, causal;
@@ -53,13 +56,16 @@ into ``build/repro_torch``), and then:
   spread.  Beside it, a float32 gate outside the bf16 noise: internlm2-1.8b
   at full widths cut to 4 layers, ``dtype="float32"``, a float32 cache,
   TF32 off; decode after prefill(2000) against prefill(2001) within 1e-4
-  relative, with the float32 kernel (``flash_attention``) launched once per
-  layer in each of its two prefills (in phases 4 and 5 the same holds for
-  the float32 gates' ``ssd_scan`` and ``flash_attention``).
+  relative, with the float32 kernel (``flash_attention_tc32``) launched
+  once per layer in each of its two prefills (in phases 4 and 5 the same
+  holds for the float32 gates' ``ssd_scan_tc32`` and
+  ``flash_attention_tc32``).
 * phase 1c holds ``ops.ssd_scan`` against its plain version on the card,
-  bf16 through the tensor-core kernel (``ssd_scan_tc``, chunks in parallel)
-  and float32 through the CUDA-core kernel (``ssd_scan``), each of which
-  must launch: the sweep of ``tests/test_kernels.py`` (three shapes, float32 at 1e-4
+  bf16 through ``ssd_scan_tc`` and float32 through ``ssd_scan_tc32`` (both
+  on the tensor cores, chunks in parallel), each of which must launch, and
+  the earlier CUDA-core float32 kernel (``ssd_scan``, a comparator) over
+  the same float32 cases: the sweep of ``tests/test_kernels.py`` (three
+  shapes, float32 at 1e-4
   and bf16 at 3e-2 relative to the largest |y|), and one mamba2-2.7b
   prefill layer (B 4, H 80, S 2000, P 64, N 128; x a view of the model's
   (B,S,H,P) activations, Bm and C one group read with a head stride of 0;
@@ -106,10 +112,12 @@ into ``build/repro_torch``), and then:
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
 times, and one JSON line ``{"kernels": [...]}`` with each of the seven
-kernels' time, launches, bound, plain-version and library times (B3 and B4
-have a bf16 tensor-core kernel and a float32 CUDA-core kernel each; B2 has
-no library time, as no one PyTorch call computes diff + pack, and the
-two-call composition is timed beside it).  The last line is
+kernels of the main paths: time, launches, bound, plain-version and
+library times (B3 and B4 have a bf16 and a float32 tensor-core kernel
+each; the float32 rows carry the earlier CUDA-core kernel's check and
+times under ``comparator``, measured in the same run, with its launches
+in phases 3 to 5, counted there and required to be 0; B2 has no library time, as no one PyTorch call computes
+diff + pack, and the two-call composition is timed beside it).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is not 0 and no such line is printed; the same holds when CUDA is not
 available or the package is missing.
@@ -124,6 +132,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -174,10 +183,15 @@ KERNELS = {
     "flash_attention_tc": {
         "source": "src/repro_torch/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86"},
+    "flash_attention_tc32": {
+        "source": "src/repro_torch/csrc/flash_attention_tc32.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86"},
     "flash_attention": {"source": "src/repro_torch/csrc/flash_attention.cu",
                         "replaces": "src/repro/kernels/flash_attention.py:86"},
     "ssd_scan_tc": {"source": "src/repro_torch/csrc/ssd_scan_tc.cu",
                     "replaces": "src/repro/kernels/ssd_scan.py:70"},
+    "ssd_scan_tc32": {"source": "src/repro_torch/csrc/ssd_scan_tc32.cu",
+                      "replaces": "src/repro/kernels/ssd_scan.py:70"},
     "ssd_scan": {"source": "src/repro_torch/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:70"},
     "rg_lru": {"source": "src/repro_torch/csrc/rg_lru.cu",
@@ -489,15 +503,36 @@ def _attention_err(ops, ref, q, k, v, tol=None, **kw) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
+def _comparator_attention(q, k, v, *, causal=True, window=None):
+    """The earlier CUDA-core float32 attention kernel, as ``ops`` calls it."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                scale=q.shape[-1] ** -0.5,
+                                t_actual=k.shape[2])
+
+
+def _comparator_ssd(x, dt, A, Bm, C, *, return_state=False):
+    """The earlier CUDA-core float32 scan, as ``ops`` calls it."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    y, h = ssd_scan_cuda(x, dt, A, Bm, C)
+    return (y, h) if return_state else y
+
+
+# ``ops``-shaped access to the comparators (on no path) for the checks
+COMPARATOR = SimpleNamespace(flash_attention=_comparator_attention,
+                             ssd_scan=_comparator_ssd)
+
+
 def phase1b(dev, log=print) -> dict:
-    """``ops.flash_attention`` against its plain version: bf16 through the
-    tensor-core kernel, float32 through the CUDA-core kernel (both must
-    launch).  Returns ``{dtype: largest absolute difference at the main
-    paths' shapes}``."""
-    from repro_torch.kernels import ops, ref
+    """``ops.flash_attention`` against its plain version: bf16 through
+    ``flash_attention_tc``, float32 through ``flash_attention_tc32`` (both
+    must launch), and the comparator (``flash_attention``) on the float32
+    cases.  Returns ``{dtype or "comparator": largest absolute difference
+    at the main paths' shapes}``."""
+    from repro_torch.kernels import flash_attention, ops, ref
     gen = torch.Generator(device=dev).manual_seed(2)
     mods = {dt: ops.kernel_module("flash_attention", dt) for dt in ATTN_TOL}
-    for mod in mods.values():
+    for mod in (*mods.values(), flash_attention):
         mod.launches = 0
     ncases, worst = 0, {}
     for dtype in ATTN_TOL:
@@ -510,6 +545,11 @@ def phase1b(dev, log=print) -> dict:
                                      window=window)
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
                 ncases += 1
+                if dtype == torch.float32:
+                    err = _attention_err(COMPARATOR, ref, q, k, v,
+                                         causal=causal, window=window)
+                    worst["comparator"] = max(worst.get("comparator", 0.0),
+                                              err)
         q, k, v = attention_inputs(1, 4, 2, 96, 96, 64, dtype, gen, dev)
         _attention_err(ops, ref, q, k, v, causal=False, t_actual=70)
         ncases += 1
@@ -526,6 +566,11 @@ def phase1b(dev, log=print) -> dict:
                      f"{str(dtype).removeprefix('torch.')}"] = _attention_err(
                 ops, ref, q, k, v, tol=tol, causal=True, window=window)
             ncases += 1
+            if dtype == torch.float32:
+                main_err[f"{name} {shape} window {window}, "
+                         "comparator"] = _attention_err(
+                    COMPARATOR, ref, q, k, v, tol=tol, causal=True,
+                    window=window)
         if twice:
             again = [ops.flash_attention(q, k, v, causal=True, window=window)
                      for _ in range(2)]
@@ -533,32 +578,36 @@ def phase1b(dev, log=print) -> dict:
                   f"flash_attention gave different bits on the same inputs "
                   f"at {shape}")
     torch.cuda.synchronize(dev)
-    check(all(mod.launches > 0 for mod in mods.values()),
+    every = (*mods.values(), flash_attention)
+    check(all(mod.launches > 0 for mod in every),
           "phase 1b: a kernel of flash_attention never launched: "
-          + str({_kernel_name(m): m.launches for m in mods.values()}))
+          + str({_kernel_name(m): m.launches for m in every}))
     log(f"phase 1b: {ncases} cases ("
         + ", ".join(f"{_kernel_name(m)} {m.launches} launches"
-                    for m in mods.values())
+                    for m in every)
         + "), flash_attention within "
-        f"{ATTN_TOL[torch.float32]} (f32, worst {worst[torch.float32]:.3g}) "
+        f"{ATTN_TOL[torch.float32]} (f32, worst {worst[torch.float32]:.3g}; "
+        f"comparator {worst['comparator']:.3g}) "
         f"and {ATTN_TOL[torch.bfloat16]} (bf16, worst "
         f"{worst[torch.bfloat16]:.3g}) of its plain version; main shapes, "
         f"causal, q and k std {ATTN_MAIN_QK_STD}, f32 at rtol = atol = 2e-5 "
         "and bf16 at rtol 1e-2, atol 1e-4, max abs err: "
         + json.dumps(main_err) + "; deterministic")
-    return {dt: max(v for k, v in main_err.items()
-                    if k.endswith(str(dt).removeprefix("torch.")))
-            for dt in ATTN_MAIN_TOL}
+    return {key: max(v for k, v in main_err.items() if k.endswith(suffix))
+            for key, suffix in ((torch.float32, "float32"),
+                                (torch.bfloat16, "bfloat16"),
+                                ("comparator", "comparator"))}
 
 
 def measure_attention(dev, shape=ATTN_MAIN, window=None,
                       dtype=torch.bfloat16) -> dict:
     """Kernel, plain-version and library times of one prefill layer's
     attention at a main path's shape (causal, ``window``) in ``dtype``,
-    which picks the kernel (bf16: the tensor cores; float32: the CUDA
-    cores), and its bound at the card's rate for that dtype's products
-    (float32: float32-accurate products on the tensor cores, not this
-    kernel's CUDA cores).  The library call is
+    which picks the kernel (``flash_attention_tc`` or
+    ``flash_attention_tc32``; for float32 the comparator, the CUDA-core
+    ``flash_attention``, is timed beside it on the same inputs), and its
+    bound at the card's rate for that dtype's products (float32:
+    float32-accurate products on the tensor cores).  The library call is
     causal attention without a window: the same function wherever the
     window does not bind (S <= window)."""
     from repro_torch.kernels import ops, ref
@@ -573,7 +622,7 @@ def measure_attention(dev, shape=ATTN_MAIN, window=None,
     t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16
                      else F32_MMA_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return {
+    out = {
         "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
                                                   window=window)),
         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
@@ -584,6 +633,10 @@ def measure_attention(dev, shape=ATTN_MAIN, window=None,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
+    if dtype == torch.float32:
+        out["comparator_ms"] = cuda_ms(lambda: _comparator_attention(
+            q, k, v, causal=True, window=window))
+    return out
 
 
 # -- phase 1c: SSD scan kernel against its plain version ----------------------
@@ -643,38 +696,47 @@ def chunk_errors(y, want, chunk: int = SSD_CHECK_CHUNK,
 
 
 def phase1c(dev, log=print) -> dict:
-    """``ops.ssd_scan`` against its plain version: bf16 through the
-    tensor-core kernel, float32 through the CUDA-core kernel (both must
-    launch).  Returns ``{dtype: largest absolute difference of y at the
-    main path's shape}``."""
-    from repro_torch.kernels import ops, ref
+    """``ops.ssd_scan`` against its plain version: bf16 through
+    ``ssd_scan_tc``, float32 through ``ssd_scan_tc32`` (both must launch),
+    and the comparator (``ssd_scan``) on the float32 cases.  Returns
+    ``{dtype or "comparator": largest absolute difference of y at the main
+    path's shape}``."""
+    from repro_torch.kernels import ops, ref, ssd_scan
     gen = torch.Generator(device=dev).manual_seed(4)
     mods = {dt: ops.kernel_module("ssd_scan", dt) for dt in SSD_TOL}
-    for mod in mods.values():
+    for mod in (*mods.values(), ssd_scan):
         mod.launches = 0
+    # the kernels by the key of their results: each dtype's, and the
+    # comparator on the float32 inputs
+    runs = [(torch.bfloat16, torch.bfloat16, ops),
+            (torch.float32, torch.float32, ops),
+            ("comparator", torch.float32, COMPARATOR)]
     ncases, worst = 0, {}
-    for dtype, tol in SSD_TOL.items():
+    for key, dtype, impl in runs:
+        tol = SSD_TOL[dtype]
+        gen.manual_seed(4)  # the comparator sees float32's inputs
         for shape in SSD_SWEEP:
             args = ssd_sweep_inputs(*shape, dtype, gen, dev)
-            y, h = ops.ssd_scan(*args, return_state=True)
+            y, h = impl.ssd_scan(*args, return_state=True)
             want, want_h = ref.ssd_scan_ref(*args, return_state=True)
             err = max(float((y - want).abs().max() / want.abs().max()),
                       float((h - want_h).abs().max() / want_h.abs().max()))
             check(y.dtype == torch.float32 and y.shape == want.shape,
                   f"ssd_scan output {y.dtype} {tuple(y.shape)}")
-            check(err < tol, f"ssd_scan != plain version: {err} ({dtype}, "
+            check(err < tol, f"ssd_scan != plain version: {err} ({key}, "
                   f"{shape})")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            worst[key] = max(worst.get(key, 0.0), err)
             ncases += 1
     main = {}
-    for dtype in SSD_TOL:
+    for key, dtype, impl in runs:
+        gen.manual_seed(5)
         args = ssd_main_inputs(dtype, gen, dev)
-        y, h = ops.ssd_scan(*args, return_state=True)
+        y, h = impl.ssd_scan(*args, return_state=True)
         want, want_h = ref.ssd_scan_ref(*args, return_state=True)
         y_err = max(chunk_errors(y, want))
         h_err = float((h - want_h).abs().max() / want_h.abs().max())
         check(y_err < SSD_MAIN_TOL and h_err < SSD_MAIN_TOL,
-              f"ssd_scan at {SSD_MAIN} ({dtype}): y per chunk {y_err}, "
+              f"ssd_scan at {SSD_MAIN} ({key}): y per chunk {y_err}, "
               f"state {h_err}, limit {SSD_MAIN_TOL}")
         # the check can fail: the incoming state zeroed at each chunk start
         x, dt, A, bm, c = args
@@ -685,42 +747,48 @@ def phase1c(dev, log=print) -> dict:
         mutant_err = max(chunk_errors(mutant, want))
         check(mutant_err > SSD_MAIN_TOL,
               f"a scan that drops the carried state passes: {mutant_err}")
-        again = ops.ssd_scan(*args, return_state=True)
+        again = impl.ssd_scan(*args, return_state=True)
         check(torch.equal(y, again[0]) and torch.equal(h, again[1]),
               "ssd_scan gave different bits on the same inputs")
-        main[dtype] = {"y": y_err, "state": h_err, "zeroed_state": mutant_err,
-                       "max_abs": float((y - want).abs().max())}
+        main[key] = {"y": y_err, "state": h_err, "zeroed_state": mutant_err,
+                     "max_abs": float((y - want).abs().max())}
         ncases += 1
     torch.cuda.synchronize(dev)
-    check(all(mod.launches > 0 for mod in mods.values()),
+    every = (*mods.values(), ssd_scan)
+    check(all(mod.launches > 0 for mod in every),
           "phase 1c: a kernel of ssd_scan never launched: "
-          + str({_kernel_name(m): m.launches for m in mods.values()}))
+          + str({_kernel_name(m): m.launches for m in every}))
     log(f"phase 1c: {ncases} cases ("
         + ", ".join(f"{_kernel_name(m)} {m.launches} launches"
-                    for m in mods.values())
+                    for m in every)
         + f"), ssd_scan within {SSD_TOL[torch.float32]} "
-        f"(f32, worst {worst[torch.float32]:.3g}) and "
+        f"(f32, worst {worst[torch.float32]:.3g}; comparator "
+        f"{worst['comparator']:.3g}) and "
         f"{SSD_TOL[torch.bfloat16]} (bf16, worst "
         f"{worst[torch.bfloat16]:.3g}) of its plain version; main shape "
         f"{SSD_MAIN} per {SSD_CHECK_CHUNK}-position chunk (limit "
         f"{SSD_MAIN_TOL}): " + json.dumps(
-            {str(d).removeprefix("torch."): v for d, v in main.items()})
+            {str(k).removeprefix("torch."): v for k, v in main.items()})
         + "; deterministic")
-    return {dt: v["max_abs"] for dt, v in main.items()}
+    return {key: v["max_abs"] for key, v in main.items()}
 
 
 def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
     """Kernel, plain-version and plain chunked-form times of one prefill
     layer's scan at the main path's shape with x, Bm and C in ``dtype``,
-    which picks the kernel (bf16: the tensor cores, chunks in parallel;
-    float32: the CUDA cores), and its bound at the card's rate for that
-    dtype's products (float32: float32-accurate tensor-core products).
-    The tensor-core kernel's scratch is reported beside the bound, which
-    counts only the function's inputs and outputs."""
-    from repro_torch.kernels import ops, ref, ssd_scan_tc
+    which picks the kernel (``ssd_scan_tc`` or ``ssd_scan_tc32``, chunks
+    in parallel; for float32 the comparator, the CUDA-core ``ssd_scan``, is
+    timed beside it on the same inputs), and its bound at the card's rate
+    for that dtype's products (float32: float32-accurate tensor-core
+    products).  The kernel's scratch, read from the caching allocator (the
+    peak of one call beyond what was allocated before it and the outputs
+    it returns, in the allocator's rounded blocks), is reported beside the
+    bound, which counts only the function's inputs and outputs."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.models.ssm import ssd_chunked
     B, H, S, P, N = SSD_MAIN
-    chunk = ops.kernel_module("ssd_scan", dtype).CHUNK
+    kernel = ops.kernel_module("ssd_scan", dtype)
+    chunk = kernel.CHUNK
     gen = torch.Generator(device=dev).manual_seed(5)
     x, dt, A, bm, c = ssd_main_inputs(dtype, gen, dev)
     # the least work: the chunked form at the kernel's chunk, scores only
@@ -736,6 +804,14 @@ def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     model = (x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2),
              c.transpose(1, 2))
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    y, h = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
+    torch.cuda.synchronize(dev)
+    scratch = torch.cuda.max_memory_allocated(dev) - before \
+        - y.nbytes - h.nbytes
+    del y, h
     out = {
         "ms": cuda_ms(lambda: ops.ssd_scan(x, dt, A, bm, c,
                                            return_state=True)),
@@ -746,9 +822,11 @@ def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
         "flops": flops, "bytes": nbytes,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "scratch_bytes": scratch,
     }
-    if dtype == torch.bfloat16:
-        out["scratch_bytes"] = ssd_scan_tc.scratch_bytes(B, H, S, N, P)
+    if dtype == torch.float32:
+        out["comparator_ms"] = cuda_ms(lambda: _comparator_ssd(
+            x, dt, A, bm, c, return_state=True))
     return out
 
 
@@ -902,8 +980,8 @@ def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
 def prefill_kernels(cfg) -> dict:
     """``{kernel module: launches in one prefill of cfg}``: each layer's
     prefill launches its kind's kernel once, attention and the SSD scan
-    the one for ``cfg.dtype`` (the tensor-core kernel for bf16, the
-    CUDA-core kernel for float32)."""
+    the one for ``cfg.dtype`` (``flash_attention_tc``/``ssd_scan_tc`` for
+    bf16, ``flash_attention_tc32``/``ssd_scan_tc32`` for float32)."""
     from repro_torch.kernels import ops, rg_lru
     dtype = getattr(torch, cfg.dtype)
     attn = ops.kernel_module("flash_attention", dtype)
@@ -1124,8 +1202,15 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
     only, where ``consistency_limit`` is given), and the same readings
     with the depth cut to each of ``depths``; then the float32 gate at
     F32_LAYERS layers with a prompt of ``f32_prompt`` + 1, held to
-    F32_LIMIT."""
+    F32_LIMIT.  The comparators (the CUDA-core ``flash_attention`` and
+    ``ssd_scan``, on no path) must not launch in any of it: their counts
+    are set to 0 at the start and read at the end
+    (``comparator_launches``)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd_scan
+    comparators = (flash_attention, ssd_scan)
+    for mod in comparators:
+        mod.launches = 0
     cfg = get_config(arch)
     params = model_params(cfg, 0, dev)
     nparams = sum(t.numel() for t in params.values())
@@ -1168,6 +1253,11 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
           f"{cfg.name}, {F32_LAYERS} layers in float32: decode after "
           f"prefill({f32_prompt}) vs prefill({f32_prompt + 1}): "
           f"relative error {out['float32_rel_err']}")
+    out["comparator_launches"] = {_kernel_name(mod): mod.launches
+                                  for mod in comparators}
+    check(not any(out["comparator_launches"].values()),
+          f"{cfg.name}: a comparator on no path launched: "
+          f"{out['comparator_launches']}")
     return out
 
 
@@ -1244,6 +1334,18 @@ def measure_sync(masters: dict, snapshot: dict, block_elems: int) -> dict:
     return out
 
 
+def comparator_row(name: str, m: dict, err: float, launches: int) -> dict:
+    """A comparator's entry of the kernels line: its check and its time on
+    the same inputs as the kernel it was replaced by (``m``, which also
+    gives the bound and the plain and library times), and its launches in
+    the serving phases (``serving_phase``'s count, 0: it is on no path)."""
+    return {"name": name, "route": "cuda", **KERNELS[name],
+            "launches": launches,
+            "max_abs_err": err, "ms": m["comparator_ms"],
+            **{k: m.get(k) for k in ("plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
+
 def gpu_line() -> str:
     smi = shutil.which("nvidia-smi")
     check(smi is not None, "nvidia-smi not found")
@@ -1269,12 +1371,15 @@ def main() -> int:
           "device(s)")
     t0 = time.perf_counter()
     built = _build.build(["dirty_diff", "pack_diff", "flash_attention_tc",
-                          "flash_attention", "ssd_scan_tc", "ssd_scan",
+                          "flash_attention_tc32", "flash_attention",
+                          "ssd_scan_tc", "ssd_scan_tc32", "ssd_scan",
                           "rg_lru"])
     for name, b in built.items():
         print(f"built {name} in {b['seconds']:.2f} s -> {b['path']}")
         for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line:  # the instantiation that follows
+                print(f"  ptxas {name}: {line.split()[-3][-60:]}")
+            elif "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print(f"build wall: {time.perf_counter() - t0:.2f} s")
 
@@ -1304,6 +1409,9 @@ def main() -> int:
     launches = result["launches"]
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path never launched: {launches}")
+    print(f"phase 2 flush ms per sync, host span apply and write-back "
+          f"({card}): " + json.dumps(
+              [round(r["flush_ms"], 3) for r in result["records"]]))
     worst = max([worst] + [v["max_abs_err"] for v in measured.values()])
     m = measured[0]  # the 8% page-spread sync: the main traffic
     kernels = []
@@ -1344,17 +1452,20 @@ def main() -> int:
     # no PyTorch call computes the scan (the plain chunked form is beside)
     for dtype, name, n in (
             (torch.bfloat16, "ssd_scan_tc", ssm["launches"]["ssd_scan_tc"]),
-            (torch.float32, "ssd_scan", ssm["float32_launches"]["ssd_scan"])):
+            (torch.float32, "ssd_scan_tc32",
+             ssm["float32_launches"]["ssd_scan_tc32"])):
         m = measure_ssd(dev, dtype)
         print(f"{name} at {SSD_MAIN} ({card}): " + json.dumps(m))
-        kernels.append({
+        row = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": n, "max_abs_err": ssd_err[dtype],
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "chunked_torch_ms": m["chunked_torch_ms"],
-            **({"scratch_bytes": m["scratch_bytes"]}
-               if "scratch_bytes" in m else {})})
+            "scratch_bytes": m["scratch_bytes"]}
+        if dtype == torch.float32:
+            ssd32 = row, m  # its comparator's entry follows phase 5
+        kernels.append(row)
     marks.append(time.perf_counter())
 
     # phase 5: RecurrentGemma serving.  Its bf16 readings fell under 0.02
@@ -1375,24 +1486,37 @@ def main() -> int:
           + json.dumps(a32_rg))
     m = measure_rg_lru(dev)
     print(f"rg_lru at {RG_MAIN} ({card}): " + json.dumps(m))
+    # the comparators' launches in phases 3-5, each phase's read at its end
+    on_paths = {name: sum(p["comparator_launches"][name]
+                          for p in (serve, ssm, rg))
+                for name in ("flash_attention", "ssd_scan")}
+    ssd32[0]["comparator"] = comparator_row(
+        "ssd_scan", ssd32[1], ssd_err["comparator"], on_paths["ssd_scan"])
     # B3 runs in phases 3 and 5: the bf16 kernel in the prefills, the
     # float32 kernel in the gates.  Launches are both paths', times phase
     # 3's shape, with phase 5's beside them
+    times = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for at, (name, dtype, at_main, at_rg, path) in enumerate((
             ("flash_attention_tc", torch.bfloat16, a, a_rg, "launches"),
-            ("flash_attention", torch.float32, a32, a32_rg,
+            ("flash_attention_tc32", torch.float32, a32, a32_rg,
              "float32_launches"))):
-        kernels.insert(2 + at, {
+        row = {
             "name": name, "route": "cuda", **KERNELS[name],
             "launches": serve[path][name] + rg[path][name],
             "max_abs_err": attn_err[dtype],
-            **{k: at_main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
+            **{k: at_main[k] for k in times},
             "recurrentgemma": {
                 "shape": list(ATTN_RG), "window": RG_WINDOW,
                 "launches": rg[path][name],
-                **{k: at_rg[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}})
+                **{k: at_rg[k] for k in times}}}
+        if dtype == torch.float32:
+            row["comparator"] = comparator_row(
+                "flash_attention", at_main, attn_err["comparator"],
+                on_paths["flash_attention"])
+            row["comparator"]["recurrentgemma"] = comparator_row(
+                "flash_attention", at_rg, attn_err["comparator"],
+                rg["comparator_launches"]["flash_attention"])
+        kernels.insert(2 + at, row)
     kernels.append({
         "name": "rg_lru", "route": "cuda", **KERNELS["rg_lru"],
         "launches": rg["launches"]["rg_lru"], "max_abs_err": rg_err,

@@ -91,11 +91,15 @@ class DirtyTracker:
         self.page_size = page_size
         self.num_blocks = max(1, -(-size // page_size)) if size else 0
         self._bits = np.zeros(self.num_blocks, dtype=bool)
+        # running count of set bits: every method that sets or clears bits
+        # keeps it, so dirty_count costs O(1) where the reference sums the
+        # whole bitmap (after every write, through dirty_fraction)
+        self._count = 0
         self._lock = threading.Lock()
 
     @property
     def dirty_count(self) -> int:
-        return int(self._bits.sum())
+        return self._count
 
     @property
     def dirty_fraction(self) -> float:
@@ -109,7 +113,9 @@ class DirtyTracker:
     def mark(self, offset: int, nbytes: int) -> None:
         b0, b1 = self.block_range(offset, nbytes)
         with self._lock:
-            self._bits[b0:b1] = True
+            run = self._bits[b0:b1]
+            self._count += run.size - int(np.count_nonzero(run))
+            run[:] = True
 
     def _normalize(self, mask: np.ndarray) -> np.ndarray:
         """Clip/pad a block mask to ``num_blocks`` booleans.
@@ -132,7 +138,15 @@ class DirtyTracker:
         """OR a boolean block mask into the bitmap (device-diff path)."""
         m = self._normalize(mask)
         with self._lock:
+            self._count += int(np.count_nonzero(m & ~self._bits))
             self._bits |= m
+
+    def clear_block(self, block: int) -> None:
+        """Clear one block's bit (its page was written back)."""
+        with self._lock:
+            if self._bits[block]:
+                self._bits[block] = False
+                self._count -= 1
 
     def is_dirty(self, block: int) -> bool:
         return bool(self._bits[block])
@@ -149,10 +163,12 @@ class DirtyTracker:
             if mask is None:
                 out = self._bits.copy()
                 self._bits[:] = False
+                self._count = 0
             else:
                 m = self._normalize(mask)
                 out = self._bits & m
                 self._bits &= ~m
+                self._count -= int(np.count_nonzero(out))
         return out
 
     def masked_dirty_count(self, mask: np.ndarray) -> int:
@@ -458,8 +474,7 @@ class CachedBacking(_BackingBase):
         lo = blk * self.page_size
         hi = min(lo + self.page_size, self.size)
         self.file.pwrite(lo, self._slots[slot, : hi - lo].tobytes())
-        with self.tracker._lock:
-            self.tracker._bits[blk] = False
+        self.tracker.clear_block(blk)
         self.bytes_flushed += hi - lo
 
     def _fault_in(self, blk: int, *, load: bool = True) -> int:
@@ -487,13 +502,19 @@ class CachedBacking(_BackingBase):
         # so the lowest free slot is normally slot ``_used``: O(1) instead
         # of the reference's scan of every slot per fault, which makes
         # first-touching a window of P pages cost O(P^2).
+        free = self._free_slots(1)
+        return self._evict_one() if len(free) == 0 else int(free[0])
+
+    def _free_slots(self, n: int) -> np.ndarray:
+        """The ``n`` lowest free slots (fewer if fewer are free).  Slots
+        are only freed by an eviction that refills the slot at once, so the
+        used slots are ``[0, _used)`` and the lowest free ones follow: a
+        cursor, not a scan of every slot (the reference's rule, without
+        its cost).  The scan stays for a pool that breaks that pattern."""
         s = self._used
-        if s < self.capacity and self._block_of[s] < 0:
-            return s
-        free = np.flatnonzero(self._block_of < 0)
-        if len(free) == 0:
-            return self._evict_one()
-        return int(free[0])
+        if s + n <= self.capacity and (self._block_of[s:s + n] < 0).all():
+            return np.arange(s, s + n)
+        return np.flatnonzero(self._block_of < 0)[:n]
 
     # -- public interface ---------------------------------------------------
     def read(self, offset: int, nbytes: int) -> np.ndarray:
@@ -532,7 +553,7 @@ class CachedBacking(_BackingBase):
         # overwrite); the check above guarantees there is room for them
         missing = np.flatnonzero(self._slot_of[b0:b1] < 0) + b0
         if missing.size:
-            free = np.flatnonzero(self._block_of < 0)[:missing.size]
+            free = self._free_slots(missing.size)
             self._slot_of[missing] = free
             self._block_of[free] = missing
             self._used += missing.size

@@ -3,12 +3,12 @@
 //
 // Replaces: flash_attention_tpu in src/repro/kernels/flash_attention.py,
 // the Pallas kernel that serves attention on the TPU, for float32 inputs
-// (bf16 inputs go to flash_attention_tc.cu, on the tensor cores).  In this
-// package it runs the attention of the float32 consistency gates'
-// prefills: internlm2-1.8b's (d 128, causal) and recurrentgemma-2b's local
-// attention (d 256, MQA with 10 query heads over one kv head, causal,
-// window 2048).  Their limit of 2e-5 (1e-4 end to end) needs float32
-// products, which is why this kernel stays.
+// (bf16 inputs go to flash_attention_tc.cu, on the tensor cores).  It is
+// the earlier float32 design: flash_attention_tc32.cu now runs the float32
+// consistency gates' prefills (internlm2-1.8b's d 128, recurrentgemma-2b's
+// d 256 with MQA and a window) with float32-accurate tensor-core products,
+// and this kernel stays on no path, as the comparator that chip_smoke.py
+// checks and times beside it.
 //
 // What it computes: q (B,H,S,d), k/v (B,K,T,d) with H = K*G; head h reads
 // kv head h/G.  s = (float(q) * scale) . float(k); a key is masked when

@@ -43,12 +43,20 @@
 // the q tiles are issued from the last (the most keys) to the first, so
 // the long CTAs start first.  Ragged S and T are masked here (rows past
 // the end load as zeros), strides are arguments, so (B,S,H,d) tensors are
-// read in place; each pointer and row stride must be 16-byte aligned, and
-// d a multiple of 8 (the wrapper checks both).  Every sum has a fixed
-// order and there are no atomics: two runs give the same bits.
+// read in place.  Any d up to 256 is zero-padded in shared memory to the
+// tile's width (zero columns add nothing to q.k; padded output columns are
+// never stored).  When every row comes in whole, aligned 16-byte chunks (d
+// a multiple of 8, pointers and strides aligned: the models' tensors) the
+// kernel is instantiated with VEC: rows load by cp.async and outputs are
+// stored as bf16 pairs; otherwise (any other d, a view that starts
+// mid-chunk) rows load and outputs are stored element by element.  Every
+// sum has a fixed order and there are no atomics: two runs give the same
+// bits.
 //
 // Resources (ptxas -v, sm_90a, CUDA 12.8), 128 threads a CTA; shared
-// memory is (64 + 4 BK) rows of (d + 8) bf16:
+// memory is (64 + 4 BK) rows of (d + 8) bf16; the VEC instantiations (the
+// element-by-element ones take fewer registers: d 256 255, no spills; d
+// 128 168):
 //   d 256, BK 32: 255 registers, 20 bytes spilled; 101,376 B (2 CTAs/SM)
 //   d 128, BK 64: 211 registers, no spills; 87,040 B (2 CTAs/SM)
 //   d 64: 150 registers; 46,080 B.  d 32: 96 registers, 8 bytes spilled;
@@ -82,29 +90,40 @@ struct Params {
 };
 
 // rows [row0, row0 + ROWS) of one (batch, head) slab into
-// dst[ROWS][DMAX + 8] by cp.async; rows at or past `limit` and columns at
-// or past d are zeros
-template <int DMAX, int ROWS>
+// dst[ROWS][DMAX + 8]; rows at or past `limit` and columns at or past d
+// are zeros.  By cp.async where VEC, else element by element
+template <int DMAX, int ROWS, bool VEC>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           int64_t ss, int row0, int limit,
                                           int d) {
-  constexpr int kChunks = DMAX / 8;  // 16-byte chunks a row
   constexpr int LD = DMAX + 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "whole chunks per thread");
+  if constexpr (VEC) {
+    constexpr int kChunks = DMAX / 8;  // 16-byte chunks a row
+    static_assert(ROWS * kChunks % kThreads == 0, "whole chunks per thread");
 #pragma unroll
-  for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    const bool ok = row0 + r < limit && c < d;
-    const bf16* g = ok ? src + static_cast<int64_t>(row0 + r) * ss + c : src;
-    tc::cp_async16(dst + r * LD + c, g, ok);
+    for (int it = 0; it < ROWS * kChunks / kThreads; ++it) {
+      const int idx = it * kThreads + threadIdx.x;
+      const int r = idx / kChunks;
+      const int c = (idx % kChunks) * 8;
+      const bool ok = row0 + r < limit && c < d;
+      const bf16* g =
+          ok ? src + static_cast<int64_t>(row0 + r) * ss + c : src;
+      tc::cp_async16(dst + r * LD + c, g, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * DMAX; idx += kThreads) {
+      const int r = idx / DMAX;
+      const int c = idx % DMAX;
+      dst[r * LD + c] = row0 + r < limit && c < d
+                            ? src[static_cast<int64_t>(row0 + r) * ss + c]
+                            : __float2bfloat16(0.f);
+    }
   }
 }
 
 // BK keys a tile: 64, or 32 at d 256, where the scores of a 64-key tile
 // beside the 128 output registers a thread would spill
-template <int DMAX, int BK>
+template <int DMAX, int BK, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const Params p) {
   constexpr int LD = DMAX + 8;
@@ -141,10 +160,10 @@ flash_tc_kernel(const Params p) {
   if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
   const int first = (k_begin / BK) * BK;
 
-  load_tile<DMAX, kBQ>(Qs, qp, p.q_ss, q0, p.S, p.d);
+  load_tile<DMAX, kBQ, VEC>(Qs, qp, p.q_ss, q0, p.S, p.d);
   if (first < k_end) {
-    load_tile<DMAX, BK>(Ks, kp, p.k_ss, first, p.T, p.d);
-    load_tile<DMAX, BK>(Vs, vp, p.v_ss, first, p.T, p.d);
+    load_tile<DMAX, BK, VEC>(Ks, kp, p.k_ss, first, p.T, p.d);
+    load_tile<DMAX, BK, VEC>(Vs, vp, p.v_ss, first, p.T, p.d);
   }
   tc::cp_async_commit();
 
@@ -159,10 +178,10 @@ flash_tc_kernel(const Params p) {
   int buf = 0;
   for (int k0 = first; k0 < k_end; k0 += BK, buf ^= 1) {
     if (k0 + BK < k_end) {  // the next tile, into the other buffer
-      load_tile<DMAX, BK>(Ks + (buf ^ 1) * BK * LD, kp, p.k_ss, k0 + BK,
-                          p.T, p.d);
-      load_tile<DMAX, BK>(Vs + (buf ^ 1) * BK * LD, vp, p.v_ss, k0 + BK,
-                          p.T, p.d);
+      load_tile<DMAX, BK, VEC>(Ks + (buf ^ 1) * BK * LD, kp, p.k_ss,
+                               k0 + BK, p.T, p.d);
+      load_tile<DMAX, BK, VEC>(Vs + (buf ^ 1) * BK * LD, vp, p.v_ss,
+                               k0 + BK, p.T, p.d);
     }
     tc::cp_async_commit();  // an empty group when there is no next tile
     tc::cp_async_wait<1>();  // this tile (and Q) has landed
@@ -267,35 +286,52 @@ flash_tc_kernel(const Params p) {
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       const int col = n * 8 + 2 * t;
-      if (col < p.d) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
-            __floats2bfloat162_rn(o[n][2 * i] / den[i],
-                                  o[n][2 * i + 1] / den[i]);
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(
+          o[n][2 * i] / den[i], o[n][2 * i + 1] / den[i]);
+      if constexpr (VEC) {  // d is even: the pair is whole
+        if (col < p.d) *reinterpret_cast<__nv_bfloat162*>(orow + col) = pair;
+      } else {
+        if (col < p.d) orow[col] = pair.x;
+        if (col + 1 < p.d) orow[col + 1] = pair.y;
       }
     }
   }
 }
 
-template <int DMAX, int BK = 64>
-int launch(const Params& p, int64_t B, int64_t H, cudaStream_t stream) {
+template <int DMAX, int BK, bool VEC>
+int launch_one(const Params& p, int64_t B, int64_t H, cudaStream_t stream) {
   constexpr size_t smem = sizeof(bf16) * (kBQ + 4 * BK) * (DMAX + 8);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<DMAX, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_tc_kernel<DMAX, BK, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((p.S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_tc_kernel<DMAX, BK><<<grid, kThreads, smem, stream>>>(p);
+  flash_tc_kernel<DMAX, BK, VEC><<<grid, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DMAX, int BK = 64>
+int launch(const Params& p, int64_t B, int64_t H, cudaStream_t stream,
+           bool vec) {
+  return vec ? launch_one<DMAX, BK, true>(p, B, H, stream)
+             : launch_one<DMAX, BK, false>(p, B, H, stream);
+}
+
+// rows of `width` bf16 values in whole, 16-byte aligned chunks
+bool vec16(const void* ptr, int64_t sb, int64_t sh, int64_t ss,
+           int64_t width) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 &&
+         sh % 8 == 0 && ss % 8 == 0 && width % 8 == 0;
 }
 
 }  // namespace
 
 // out = attention(q, k, v) on `stream`, bf16 in and out.  Pointers are
-// device pointers, 16-byte aligned; strides are in elements, multiples of
-// 8 (the last dimension is contiguous); d is a multiple of 8 up to 256;
-// window <= 0 means none.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a d the kernel does not take.
+// device pointers; strides are in elements (the last dimension is
+// contiguous); 1 <= d <= 256; window <= 0 means none.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a d the
+// kernel does not take.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o, int64_t B,
     int64_t H, int64_t S, int64_t T, int64_t d, int64_t group, int64_t q_sb,
@@ -303,9 +339,7 @@ extern "C" int flash_attention_tc_launch(
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
     int64_t o_ss, int64_t causal, int64_t window, int64_t t_actual,
     float scale, void* stream) {
-  if (d < 8 || d > 256 || d % 8) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (d < 1 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
@@ -323,10 +357,15 @@ extern "C" int flash_attention_tc_launch(
   p.window = static_cast<int>(window);
   p.t_actual = static_cast<int>(t_actual);
   p.scale = scale;
+  const bool vec = vec16(q, q_sb, q_sh, q_ss, d) &&
+                   vec16(k, k_sb, k_sh, k_ss, d) &&
+                   vec16(v, v_sb, v_sh, v_ss, d) &&
+                   reinterpret_cast<uintptr_t>(o) % 4 == 0 && o_sb % 2 == 0 &&
+                   o_sh % 2 == 0 && o_ss % 2 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 16) return launch<16>(p, B, H, st);
-  if (d <= 32) return launch<32>(p, B, H, st);
-  if (d <= 64) return launch<64>(p, B, H, st);
-  if (d <= 128) return launch<128>(p, B, H, st);
-  return launch<256, 32>(p, B, H, st);
+  if (d <= 16) return launch<16>(p, B, H, st, vec);
+  if (d <= 32) return launch<32>(p, B, H, st, vec);
+  if (d <= 64) return launch<64>(p, B, H, st, vec);
+  if (d <= 128) return launch<128>(p, B, H, st, vec);
+  return launch<256, 32>(p, B, H, st, vec);
 }

@@ -3,9 +3,11 @@
 //
 // Replaces: ssd_scan_tpu in src/repro/kernels/ssd_scan.py, the Pallas
 // kernel of the Mamba-2 scan on the TPU, for float32 x, Bm and C (bf16
-// inputs go to ssd_scan_tc.cu: tensor cores, chunks in parallel).  In this
-// package it runs the scan of the float32 consistency gate's prefills,
-// whose limit needs float32 products.
+// inputs go to ssd_scan_tc.cu: tensor cores, chunks in parallel).  It is
+// the earlier float32 design: ssd_scan_tc32.cu now runs the float32
+// consistency gate's prefills with float32-accurate tensor-core products,
+// and this kernel stays on no path, as the comparator that chip_smoke.py
+// checks and times beside it.
 //
 // What it computes: x (B,H,S,P), dt (B,H,S) float32, A (H,) float32,
 // Bm/C (B,H,S,N).  Per (batch, head), with the (N,P) state h carried from

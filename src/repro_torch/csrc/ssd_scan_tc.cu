@@ -28,8 +28,9 @@
 //       and the last state to the state output;
 //   (c) ssd_chunk_scan: one CTA per (chunk, head, batch) computes y from
 //       its chunk and the state that enters it.
-// The chunk length L is 64; (a) and (c) run L / 16 warps.  The chunks of (a) and (c), 32 a sequence
-// of 2000 at L 64, run in parallel: 10,240 CTAs at mamba2-2.7b's prefill,
+// The chunk length L is 64 (ssd_chunk.cuh says why); (a) and (c) run L / 16
+// warps.  The chunks of (a) and (c), 32 a sequence of 2000 at L 64, run in
+// parallel: 10,240 CTAs at mamba2-2.7b's prefill,
 // not 320 sequential walks.  The products run on the tensor cores
 // (mma.sync.m16n8k16, bf16 operands, float32 accumulation) by the split
 // rule of tc_mma.cuh: every
@@ -49,8 +50,12 @@
 // read through the model's (B,S,H,P) view, Bm and C with a head stride of
 // 0, y written in x's layout.  Rows that come in whole, aligned 16-byte
 // chunks (the model's) are copied by cp.async, others element by element.
-// N <= 128; P <= 64 and even (float2 stores).  Every sum has a fixed order
-// and there are no atomics: two runs give the same bits.
+// N <= 128; P <= 64.  (a) and (c) are instantiated twice: with PAIRS (P
+// even, y's rows 8-byte aligned: the model's) they store y and the chunk
+// states a float2 at a time, without it one float at a time (an odd P).
+// Every sum has a fixed order and there are no atomics: two runs give the
+// same bits.  Shared with ssd_scan_tc32.cu (ssd_chunk.cuh): the chunk, the
+// parameters, the row loads, cum, the stores and the launches.
 //
 // Bound: bytes.  At one mamba2-2.7b prefill layer (B 4, H 80, S 2000, P 64,
 // N 128) the function's inputs and outputs are 262.9 MB, 0.0785 ms at 3.35
@@ -62,20 +67,17 @@
 // Resources (ptxas -v, sm_90a, CUDA 12.8), no spills: (a) 96 registers
 // and 44,800 B of shared memory, 128 threads; (c) 106 registers and
 // 44,544 B; (b) 72 registers, 256 threads, no shared memory.
-//
-// The chunk: L 128 halves the scratch and (b), but (c) then runs twice the
-// warps over the same h_in fragments and takes about twice as long; on an
-// H100 the whole scan was slower at L 128, so L is 64.
 
+#include "ssd_chunk.cuh"
 #include "tc_mma.cuh"
 
 namespace {
 
+using ssd::kNMax;
+using ssd::kPMax;
+using ssd::L;
 using tc::bf16;
 
-constexpr int L = 64;            // positions per chunk
-constexpr int kNMax = 128;       // largest state size N
-constexpr int kPMax = 64;        // largest head dimension P
 constexpr int kLDN = kNMax + 8;  // bf16 rows padded by 16 bytes: ldmatrix
 constexpr int kLDP = kPMax + 8;  // reads 8 rows without bank conflicts
 // the state entering a chunk, as the B operand of C . h_in: one uint4 per
@@ -85,98 +87,12 @@ constexpr int kKSteps = kNMax / 16;
 constexpr int kPTiles = kPMax / 8;
 constexpr int kFrags = kKSteps * kPTiles;
 
-struct Params {
-  const bf16* x;
-  const float* dt;
-  const float* A;
-  const bf16* bm;
-  const bf16* c;
-  float* y;
-  float* h_out;   // (B, H, N, P), contiguous
-  float* states;  // (B, H, nc, N, P), contiguous scratch
-  uint4* hin;     // (B, H, nc, kFrags, 32): h_in as mma B fragments
-  float* decay;   // (B, H, nc), contiguous scratch
-  int64_t x_sb, x_sh, x_ss;  // element strides: batch, head, position
-  int64_t dt_sb, dt_sh, dt_ss;
-  int64_t b_sb, b_sh, b_ss;
-  int64_t c_sb, c_sh, c_ss;
-  int64_t y_sb, y_sh, y_ss;
-  int H, S, N, P, nc;
-  bool vec_x, vec_b, vec_c;  // rows in whole, aligned 16-byte chunks
-};
-
-// L rows of width `width` (at most W) from row0 into dst[L][W + 8]; rows
-// at or past S and columns at or past width are zeros.  By cp.async in
-// 16-byte chunks where `vec` (width a multiple of 8, rows 16-byte
-// aligned), else element by element
-template <int W>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int64_t ss, int row0, int S,
-                                          int width, bool vec) {
-  constexpr int kThreads = 2 * L;
-  if (vec) {
-    constexpr int kChunks = W / 8;
-#pragma unroll
-    for (int it = 0; it < L * kChunks / kThreads; ++it) {
-      const int idx = it * kThreads + threadIdx.x;
-      const int r = idx / kChunks;
-      const int c = (idx % kChunks) * 8;
-      const bool ok = row0 + r < S && c < width;
-      const bf16* g =
-          ok ? src + static_cast<int64_t>(row0 + r) * ss + c : src;
-      tc::cp_async16(dst + r * (W + 8) + c, g, ok);
-    }
-    return;
-  }
-  for (int idx = threadIdx.x; idx < L * W; idx += kThreads) {
-    const int r = idx / W;
-    const int c = idx % W;
-    dst[r * (W + 8) + c] =
-        row0 + r < S && c < width
-            ? src[static_cast<int64_t>(row0 + r) * ss + c]
-            : __float2bfloat16(0.f);
-  }
-}
-
-// cum[r] = sum_{r' <= r} dts[r'] * A by warp 0 (L / 32 rows a lane in
-// order, then a shuffle scan over the lanes): the same order in (a) and (c)
-__device__ __forceinline__ void chunk_cum(const float* dts, float A,
-                                          float* cum) {
-  constexpr int E = L / 32;
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  float loc[E];
-  float run = 0.f;
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    run += dts[E * lane + e] * A;
-    loc[e] = run;
-  }
-  float inc = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float v = __shfl_up_sync(0xffffffffu, inc, off);
-    if (lane >= off) inc += v;
-  }
-  float ex = __shfl_up_sync(0xffffffffu, inc, 1);
-  if (lane == 0) ex = 0.f;
-#pragma unroll
-  for (int e = 0; e < E; ++e) cum[E * lane + e] = ex + loc[e];
-}
-
-__device__ __forceinline__ void load_dt(float* dts, const Params& p, int b,
-                                        int h, int s0) {
-  if (threadIdx.x < L) {
-    const int r = threadIdx.x;
-    dts[r] = s0 + r < p.S ? p.dt[b * p.dt_sb + h * p.dt_sh +
-                                 static_cast<int64_t>(s0 + r) * p.dt_ss]
-                          : 0.f;  // dt = 0: an exact no-op step
-  }
-}
+using Params = ssd::Params<bf16, uint4>;
 
 // (a): the chunk-local state and decay.  L / 16 warps; each owns
 // kNMax / (L / 16) state rows
-__global__ void __launch_bounds__(2 * L)
+template <bool PAIRS>
+__global__ void __launch_bounds__(ssd::kThreads)
 ssd_chunk_state(const Params p) {
   constexpr int kWarps = L / 16;
   constexpr int MT = kNMax / 16 / kWarps;  // 16-row tiles of a warp
@@ -201,14 +117,14 @@ ssd_chunk_state(const Params p) {
   const int lm = lane >> 3;
   const int lr = lane & 7;
 
-  load_rows<kNMax>(Bh, p.bm + b * p.b_sb + h * p.b_sh, p.b_ss, s0, p.S,
-                      p.N, p.vec_b);
-  load_rows<kPMax>(Xs, p.x + b * p.x_sb + h * p.x_sh, p.x_ss, s0, p.S,
-                      p.P, p.vec_x);
+  ssd::load_rows<kNMax, kLDN>(Bh, p.bm + b * p.b_sb + h * p.b_sh, p.b_ss,
+                              s0, p.S, p.N, p.vec_b);
+  ssd::load_rows<kPMax, kLDP>(Xs, p.x + b * p.x_sb + h * p.x_sh, p.x_ss, s0,
+                              p.S, p.P, p.vec_x);
   tc::cp_async_commit();
-  load_dt(dts, p, b, h, s0);
+  ssd::load_dt(dts, p, b, h, s0);
   __syncthreads();
-  chunk_cum(dts, p.A[h], cum);
+  ssd::chunk_cum(dts, p.A[h], cum);
   __syncthreads();
   if (tid < L) u[tid] = expf(cum[L - 1] - cum[tid]) * dts[tid];
   if (tid == 0) {
@@ -219,7 +135,7 @@ ssd_chunk_state(const Params p) {
   __syncthreads();
 
   // B * (w dt), split in place: hi over B, lo beside it
-  for (int idx = tid; idx < L * kNMax / 2; idx += 2 * L) {
+  for (int idx = tid; idx < L * kNMax / 2; idx += ssd::kThreads) {
     const int r = idx / (kNMax / 2);
     const int n = (idx % (kNMax / 2)) * 2;
     const float2 v = __bfloat1622float2(
@@ -275,11 +191,8 @@ ssd_chunk_state(const Params p) {
       if (n >= p.N) continue;
 #pragma unroll
       for (int nt = 0; nt < kPMax / 8; ++nt) {
-        const int col = nt * 8 + 2 * t;
-        if (col < p.P) {  // P is even: the pair is whole
-          *reinterpret_cast<float2*>(st + n * p.P + col) =
-              make_float2(acc[mt][nt][2 * i], acc[mt][nt][2 * i + 1]);
-        }
+        ssd::store_pair<PAIRS>(st + n * p.P, nt * 8 + 2 * t, p.P,
+                               acc[mt][nt][2 * i], acc[mt][nt][2 * i + 1]);
       }
     }
 }
@@ -349,7 +262,8 @@ __global__ void ssd_state_pass(const float* states, const float* decay,
 
 // (c): y of one chunk from its inputs and the state that enters it; L / 16
 // warps, each owning 16 rows of the chunk
-__global__ void __launch_bounds__(2 * L)
+template <bool PAIRS>
+__global__ void __launch_bounds__(ssd::kThreads)
 ssd_chunk_scan(const Params p) {
   constexpr int NT = L / 8;      // 8-wide tiles of the score band
   constexpr int PT = kPMax / 8;  // 8-wide tiles of y
@@ -373,16 +287,16 @@ ssd_chunk_scan(const Params p) {
   const int lr = lane & 7;
   const bool carried = ci > 0;  // the state entering chunk 0 is zero
 
-  load_rows<kNMax>(Cs, p.c + b * p.c_sb + h * p.c_sh, p.c_ss, s0, p.S,
-                      p.N, p.vec_c);
-  load_rows<kNMax>(Bs, p.bm + b * p.b_sb + h * p.b_sh, p.b_ss, s0, p.S,
-                      p.N, p.vec_b);
-  load_rows<kPMax>(Xs, p.x + b * p.x_sb + h * p.x_sh, p.x_ss, s0, p.S,
-                      p.P, p.vec_x);
+  ssd::load_rows<kNMax, kLDN>(Cs, p.c + b * p.c_sb + h * p.c_sh, p.c_ss, s0,
+                              p.S, p.N, p.vec_c);
+  ssd::load_rows<kNMax, kLDN>(Bs, p.bm + b * p.b_sb + h * p.b_sh, p.b_ss,
+                              s0, p.S, p.N, p.vec_b);
+  ssd::load_rows<kPMax, kLDP>(Xs, p.x + b * p.x_sb + h * p.x_sh, p.x_ss, s0,
+                              p.S, p.P, p.vec_x);
   tc::cp_async_commit();
-  load_dt(dts, p, b, h, s0);
+  ssd::load_dt(dts, p, b, h, s0);
   __syncthreads();
-  chunk_cum(dts, p.A[h], cum);
+  ssd::chunk_cum(dts, p.A[h], cum);
   tc::cp_async_wait<0>();
   __syncthreads();
 
@@ -475,52 +389,16 @@ ssd_chunk_scan(const Params p) {
     float* yrow = yp + static_cast<int64_t>(r) * p.y_ss;
 #pragma unroll
     for (int nt = 0; nt < PT; ++nt) {
-      const int col = nt * 8 + 2 * t;
-      if (col < p.P) {
-        *reinterpret_cast<float2*>(yrow + col) =
-            make_float2(ych[nt][2 * i], ych[nt][2 * i + 1]);
-      }
+      ssd::store_pair<PAIRS>(yrow, nt * 8 + 2 * t, p.P, ych[nt][2 * i],
+                             ych[nt][2 * i + 1]);
     }
   }
 }
 
-int launch(const Params& p, int64_t B, cudaStream_t st) {
-  constexpr size_t smem_state =
-      sizeof(bf16) * (2 * L * kLDN + L * kLDP) + sizeof(float) * 3 * L;
-  constexpr size_t smem_scan =
-      sizeof(bf16) * (2 * L * kLDN + L * kLDP) + sizeof(float) * 2 * L;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_state, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_state));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(ssd_chunk_scan,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_scan));
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(p.nc), static_cast<unsigned>(p.H),
-                  static_cast<unsigned>(B));
-  ssd_chunk_state<<<grid, 2 * L, smem_state, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t total = B * p.H * 32 * kFrags;
-  constexpr int kPassThreads = 256;
-  ssd_state_pass<<<static_cast<unsigned>((total + kPassThreads - 1) /
-                                         kPassThreads),
-                   kPassThreads, 0, st>>>(p.states, p.decay, p.hin, p.h_out,
-                                          p.nc, p.N, p.P, total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_chunk_scan<<<grid, 2 * L, smem_scan, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// rows of `width` elements in whole, 16-byte aligned chunks
-bool vec16(const void* ptr, int64_t sb, int64_t sh, int64_t ss,
-           int64_t width) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 &&
-         sh % 8 == 0 && ss % 8 == 0 && width % 8 == 0;
-}
+constexpr size_t kSmemState =
+    sizeof(bf16) * (2 * L * kLDN + L * kLDP) + sizeof(float) * 3 * L;
+constexpr size_t kSmemScan =
+    sizeof(bf16) * (2 * L * kLDN + L * kLDP) + sizeof(float) * 2 * L;
 
 }  // namespace
 
@@ -529,8 +407,8 @@ bool vec16(const void* ptr, int64_t sb, int64_t sh, int64_t ss,
 // bm, c bf16; dt and A float32); strides are in elements; y is float32
 // with its last dimension contiguous; h_out (B,H,N,P), states
 // (B,H,nc,N,P), hin (B,H,nc,128*64, 16-byte aligned) and decay (B,H,nc)
-// are contiguous float32 buffers, nc = ceil(S / L).  N <= 128; P <= 64
-// and even.  Returns the first CUDA error, or cudaErrorInvalidValue for a
+// are contiguous float32 buffers, nc = ceil(S / L).  N <= 128; P <= 64.
+// Returns the first CUDA error, or cudaErrorInvalidValue for a
 // shape the kernel does not take.
 extern "C" int ssd_scan_tc_launch(
     const void* x, const void* dt, const void* A, const void* bm,
@@ -541,33 +419,18 @@ extern "C" int ssd_scan_tc_launch(
     int64_t b_sb, int64_t b_sh, int64_t b_ss, int64_t c_sb, int64_t c_sh,
     int64_t c_ss, int64_t y_sb, int64_t y_sh, int64_t y_ss,
     void* stream) {
-  if (N < 1 || N > kNMax || P < 2 || P > kPMax || P % 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   Params p;
-  p.x = static_cast<const bf16*>(x);
-  p.dt = static_cast<const float*>(dt);
-  p.A = static_cast<const float*>(A);
-  p.bm = static_cast<const bf16*>(bm);
-  p.c = static_cast<const bf16*>(c);
-  p.y = static_cast<float*>(y);
-  p.h_out = static_cast<float*>(h_out);
-  p.states = static_cast<float*>(states);
-  p.hin = static_cast<uint4*>(hin);
-  p.decay = static_cast<float*>(decay);
-  p.x_sb = x_sb; p.x_sh = x_sh; p.x_ss = x_ss;
-  p.dt_sb = dt_sb; p.dt_sh = dt_sh; p.dt_ss = dt_ss;
-  p.b_sb = b_sb; p.b_sh = b_sh; p.b_ss = b_ss;
-  p.c_sb = c_sb; p.c_sh = c_sh; p.c_ss = c_ss;
-  p.y_sb = y_sb; p.y_sh = y_sh; p.y_ss = y_ss;
-  p.H = static_cast<int>(H);
-  p.S = static_cast<int>(S);
-  p.N = static_cast<int>(N);
-  p.P = static_cast<int>(P);
-  p.nc = static_cast<int>((S + L - 1) / L);
-  p.vec_x = vec16(x, x_sb, x_sh, x_ss, P);
-  p.vec_b = vec16(bm, b_sb, b_sh, b_ss, N);
-  p.vec_c = vec16(c, c_sb, c_sh, c_ss, N);
+  const int err = ssd::fill(p, x, dt, A, bm, c, y, h_out, states, hin,
+                            decay, H, S, N, P, x_sb, x_sh, x_ss, dt_sb,
+                            dt_sh, dt_ss, b_sb, b_sh, b_ss, c_sb, c_sh, c_ss,
+                            y_sb, y_sh, y_ss);
+  if (err != 0) return err;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return launch(p, B, st);
+  return p.pairs
+             ? ssd::launch(ssd_chunk_state<true>, ssd_state_pass,
+                           ssd_chunk_scan<true>, kSmemState, kSmemScan,
+                           kFrags, p, B, st)
+             : ssd::launch(ssd_chunk_state<false>, ssd_state_pass,
+                           ssd_chunk_scan<false>, kSmemState, kSmemScan,
+                           kFrags, p, B, st);
 }

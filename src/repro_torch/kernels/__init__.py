@@ -1,15 +1,17 @@
 """CUDA kernels for Hopper (sm_90a) with their plain PyTorch versions.
 
 ``dirty_diff`` (``csrc/dirty_diff.cu``), ``diff_pack``
-(``csrc/pack_diff.cu``), ``flash_attention`` (``csrc/flash_attention.cu``),
-``ssd_scan`` (``csrc/ssd_scan.cu``) and ``rg_lru`` (``csrc/rg_lru.cu``)
-replace the JAX package's Pallas kernels ``dirty_diff_tpu``,
-``diff_pack_tpu``, ``flash_attention_tpu``, ``ssd_scan_tpu`` and
-``rg_lru_tpu``: all five.  Attention and the SSD scan have a second
-kernel each for bfloat16 inputs, on the tensor cores: ``flash_attention_tc``
-(``csrc/flash_attention_tc.cu``) and ``ssd_scan_tc``
-(``csrc/ssd_scan_tc.cu``).  :mod:`.ops` dispatches by the tensors' device
-and, for those two, by dtype;
-:mod:`.ref` holds the plain versions, and :mod:`._build` compiles the
-sources with nvcc at first use.  Importing this package builds and loads nothing.
+(``csrc/pack_diff.cu``), attention, the SSD scan and ``rg_lru``
+(``csrc/rg_lru.cu``) replace the JAX package's Pallas kernels
+``dirty_diff_tpu``, ``diff_pack_tpu``, ``flash_attention_tpu``,
+``ssd_scan_tpu`` and ``rg_lru_tpu``: all five.  Attention and the SSD scan
+have two kernels each on the tensor cores, one per dtype: bfloat16
+``flash_attention_tc`` and ``ssd_scan_tc`` (``csrc/*_tc.cu``), float32
+``flash_attention_tc32`` and ``ssd_scan_tc32`` (``csrc/*_tc32.cu``).  Their
+earlier float32 kernels on the CUDA cores, ``flash_attention``
+(``csrc/flash_attention.cu``) and ``ssd_scan`` (``csrc/ssd_scan.cu``), are
+on no path and stay as comparators.  :mod:`.ops` dispatches by the
+tensors' device and, for attention and the scan, by dtype; :mod:`.ref`
+holds the plain versions, and :mod:`._build` compiles the sources with
+nvcc at first use.  Importing this package builds and loads nothing.
 """

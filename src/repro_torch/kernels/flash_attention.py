@@ -5,8 +5,10 @@ inputs (``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores, which
 the float32 limit of 2e-5 needs): the GQA attention forward with a causal,
 sliding-window or full mask, keys at or past ``t_actual`` masked, an f32
 online softmax with finite -1e30 masking, and key tiles outside the mask
-skipped.  It serves every attention layer's float32 prefill (the float32
-gates); bfloat16 inputs go to :mod:`.flash_attention_tc`.  The kernel reads
+skipped.  It is the earlier float32 design, on no path since float32
+inputs go to :mod:`.flash_attention_tc32` (the tensor cores); it stays as a
+comparator that ``chip_smoke.py`` holds to its plain version and times
+beside its successor.  The kernel reads
 its inputs through their strides, so a (B,S,H,d) tensor viewed as
 (B,H,S,d) is read in place, and it masks ragged lengths itself: nothing is
 padded or copied.  Its plain PyTorch version is

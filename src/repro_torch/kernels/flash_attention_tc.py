@@ -7,8 +7,10 @@ an f32 online softmax with finite -1e30 masking, tiles outside the mask
 skipped, strides read in place), with both products on the tensor cores:
 Q.K^T in bf16 with float32 accumulation, the score scaled after it, and P.V
 with P split into two bf16 parts, so the output stays within float32
-rounding.  It serves every attention layer's bf16 prefill; float32 inputs
-go to :mod:`.flash_attention`.  Its plain PyTorch version is
+rounding.  It takes any head dimension up to :data:`D_MAX` and any strides
+(rows that are not whole aligned 16-byte chunks load element by element).
+It serves every attention layer's bf16 prefill; float32 inputs go to
+:mod:`.flash_attention_tc32`.  Its plain PyTorch version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 
@@ -26,7 +28,7 @@ __all__ = ["D_MAX", "flash_attention_tc_cuda", "launches"]
 #: show it went through the kernel sets this to 0 before and reads it after)
 launches = 0
 
-#: the largest head dimension the kernel takes (a multiple of 8)
+#: the largest head dimension the kernel takes
 D_MAX = 256
 
 _SIGNATURES = {
@@ -38,18 +40,12 @@ _SIGNATURES = {
 _GRID_YZ = 65535  # largest grid y and z: heads and batch
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """16-byte aligned start and row strides (cp.async moves 16 bytes)."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
-
-
 def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool,
                             window: int | None, scale: float,
                             t_actual: int) -> torch.Tensor:
     """q: (B,H,S,d); k/v: (B,K,T,d) bfloat16 CUDA tensors, the last
-    dimension contiguous, 16-byte aligned with strides that are multiples
-    of 8, d a multiple of 8 up to :data:`D_MAX`.  Returns (B,H,S,d)
+    dimension contiguous, any other strides, d up to :data:`D_MAX`.  Returns (B,H,S,d)
     bfloat16, with q's strides where q is dense.  The caller
     (:func:`repro_torch.kernels.ops.flash_attention`) has checked shapes,
     ``window`` and ``t_actual``.  Launches on the current stream and does
@@ -63,9 +59,9 @@ def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
         raise ValueError("the tensor-core kernel takes bfloat16, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d > D_MAX or d % 8:
-        raise ValueError(f"head dimension {d}: the tensor-core kernel takes "
-                         f"multiples of 8 up to {D_MAX}")
+    if d > D_MAX:
+        raise ValueError(f"head dimension {d} > {D_MAX}, which the kernel "
+                         "does not take")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the kernel needs the head dimension contiguous")
     if B > _GRID_YZ or H > _GRID_YZ:
@@ -73,9 +69,6 @@ def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)  # q's strides when q is dense
     if out.numel() == 0:
         return out
-    if not all(_aligned(t) for t in (q, k, v, out)):
-        raise ValueError("the tensor-core kernel needs 16-byte aligned "
-                         "tensors with strides that are multiples of 8")
     lib = _build.library("flash_attention_tc", _SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -5,10 +5,13 @@ selective sync, for attention, for the SSD scan and for the RG-LRU
 recurrence.  A CUDA tensor goes to the CUDA kernel, and a failing build
 or launch raises; a CPU tensor goes to the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Nothing else chooses between the two.
-Attention and the SSD scan have two CUDA kernels each, picked by dtype
-(:func:`cuda_kernel`): bfloat16 inputs go to the tensor-core kernel
-(``*_tc``), float32 inputs to the CUDA-core kernel, whose float32 products
-their float32 limits need.  Any other dtype on the card raises.
+Attention and the SSD scan have two CUDA kernels each, both on the tensor
+cores, picked by dtype (:func:`cuda_kernel`): bfloat16 inputs go to
+``*_tc``, float32 inputs to ``*_tc32``, whose float32-accurate products
+(TF32 hi + lo, three products each) their float32 limits need.  Any other
+dtype on the card raises.  The earlier CUDA-core float32 kernels
+(:mod:`.flash_attention`, :mod:`.ssd_scan`) are on no path; they stay as
+comparators that ``chip_smoke.py`` checks and times.
 
 The CUDA kernels take flat byte views and mask the short last block
 themselves, so nothing is padded or copied on the card.  The plain versions
@@ -30,21 +33,21 @@ import torch
 
 from . import ref
 from .dirty_diff import dirty_diff_cuda
-from .flash_attention import flash_attention_cuda
 from .flash_attention_tc import flash_attention_tc_cuda
+from .flash_attention_tc32 import flash_attention_tc32_cuda
 from .pack_diff import diff_pack_cuda
 from .rg_lru import rg_lru_cuda
-from .ssd_scan import ssd_scan_cuda
 from .ssd_scan_tc import ssd_scan_tc_cuda
+from .ssd_scan_tc32 import ssd_scan_tc32_cuda
 
 __all__ = ["cuda_kernel", "dirty_blocks", "dirty_pack", "flash_attention",
            "kernel_module", "padded_rows", "rg_lru_scan", "ssd_scan"]
 
 # the CUDA kernel that serves CUDA tensors of each dtype
 _CUDA_KERNELS = {
-    "flash_attention": {torch.float32: flash_attention_cuda,
+    "flash_attention": {torch.float32: flash_attention_tc32_cuda,
                         torch.bfloat16: flash_attention_tc_cuda},
-    "ssd_scan": {torch.float32: ssd_scan_cuda,
+    "ssd_scan": {torch.float32: ssd_scan_tc32_cuda,
                  torch.bfloat16: ssd_scan_tc_cuda},
 }
 

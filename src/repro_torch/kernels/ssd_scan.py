@@ -2,9 +2,11 @@
 
 The counterpart of the JAX package's ``ssd_scan_tpu`` for float32 x, Bm
 and C (``csrc/ssd_scan.cu``, float32 FMAs on the CUDA cores): the chunked
-SSD scan with the (N,P) state carried across chunks in float32.  It runs
-the scan of every Mamba-2 layer's float32 prefill (the float32 gate);
-bfloat16 inputs go to :mod:`.ssd_scan_tc`.  It also returns the final
+SSD scan with the (N,P) state carried across chunks in float32.  It is the
+earlier float32 design, on no path since float32 inputs go to
+:mod:`.ssd_scan_tc32` (the tensor cores); it stays as a comparator that
+``chip_smoke.py`` holds to its plain version and times beside its
+successor.  It also returns the final
 state, which the TPU kernel drops and the decode cache needs.  The kernel
 reads its inputs through their strides (x as a view of the model's (B,S,H,P)
 activations, Bm and C broadcast over heads with a head stride of 0) and

@@ -9,21 +9,25 @@ there as
 Inputs are numpy arrays from a seed (bfloat16 as uint16 bit patterns).
 Flags, ``count`` and ``packed[:count]`` must be bit-identical, for
 aligned and unaligned (offset by one element) views, and for the window's
-packed route end to end.  The attention kernel is held to its plain
-version at 2e-5 (float32, the CUDA-core kernel) and 2e-2 (bfloat16, the
-tensor-core kernel), over the sweep of ``tests/test_kernels.py`` plus
+packed route end to end.  The attention kernels are held to their plain
+version at 2e-5 (float32, ``flash_attention_tc32``) and 2e-2 (bfloat16,
+``flash_attention_tc``), over the sweep of ``tests/test_kernels.py`` plus
 d = 128 and d = 256, in both layouts (at d = 256 with recurrentgemma-2b's
-MQA and a window that binds), and must give the same bits twice; the
-tensor-core kernel also at the prefill shapes at rtol 1e-2, atol 1e-4 with
-q and k at std 1.5 (``chip_smoke.py`` phase 1b's limits).  The SSD scan
-kernels are held to their plain version at 1e-4 (float32) and 3e-2
-(bfloat16) relative to the largest |y| over the sweep of
-``tests/test_kernels.py``, y and the final state, and at 1e-4 through the
-model's strides (x a view of (B,S,H,P) storage, Bm and C broadcast over
-heads with a head stride of 0); the tensor-core kernel also at 1e-4 per
-256 positions at mamba2-2.7b's prefill shape (phase 1c's limit), where a
-scan that drops the carried state fails.  Each dtype must launch its own
-kernel, and each kernel raises on what it does not take.  The RG-LRU kernel must
+MQA and a window that binds), and must give the same bits twice; both also
+at the prefill shapes with q and k at std 1.5 (``chip_smoke.py`` phase
+1b's limits: rtol = atol = 2e-5 float32, rtol 1e-2 and atol 1e-4 bf16),
+and at head dimensions that are not multiples of 8 and on views offset by
+one element.  The SSD scan kernels are held to their plain version at
+1e-4 (float32, ``ssd_scan_tc32``) and 3e-2 (bfloat16, ``ssd_scan_tc``)
+relative to the largest |y| over the sweep of ``tests/test_kernels.py``, y
+and the final state, and at 1e-4 through the model's strides (x a view of
+(B,S,H,P) storage, Bm and C broadcast over heads with a head stride of 0),
+at odd P, and at 1e-4 per 256 positions at mamba2-2.7b's prefill shape
+(phase 1c's limit), where a scan that drops the carried state fails.  Each
+dtype must launch its own kernel, and each kernel raises on what it does
+not take.  The earlier CUDA-core float32 kernels (``flash_attention``,
+``ssd_scan``), on no path now, are still held to the plain versions as
+comparators.  The RG-LRU kernel must
 equal its plain version bit for bit over the sweep of
 ``tests/test_kernels.py`` (ragged S included), through strided views, and
 at recurrentgemma-2b's prefill shape with a in Griffin's range.
@@ -35,8 +39,9 @@ import torch
 
 from repro_torch.core import Communicator, Window
 from repro_torch.kernels import (dirty_diff, flash_attention,
-                                 flash_attention_tc, ops, pack_diff, ref,
-                                 rg_lru, ssd_scan, ssd_scan_tc)
+                                 flash_attention_tc, flash_attention_tc32,
+                                 ops, pack_diff, ref, rg_lru, ssd_scan,
+                                 ssd_scan_tc, ssd_scan_tc32)
 from repro_torch.models.attention import prefill_attention
 
 PAGE = 4096
@@ -140,7 +145,7 @@ def test_flash_attention_kernel_matches_plain_version(cuda, shape, mask,
     q = _normal((B, H, S, d), 0, dtype, cuda)
     k = _normal((B, K, T, d), 1, dtype, cuda)
     v = _normal((B, K, T, d), 2, dtype, cuda)
-    mod = {torch.float32: flash_attention,
+    mod = {torch.float32: flash_attention_tc32,
            torch.bfloat16: flash_attention_tc}[dtype]
     n0 = mod.launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
@@ -212,7 +217,7 @@ def _rel(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_scan_kernel_matches_plain_version(cuda, shape, dtype):
     args = _ssd_inputs(*shape, dtype, cuda)
-    mod = {torch.float32: ssd_scan, torch.bfloat16: ssd_scan_tc}[dtype]
+    mod = {torch.float32: ssd_scan_tc32, torch.bfloat16: ssd_scan_tc}[dtype]
     n0 = mod.launches
     y, h = ops.ssd_scan(*args, return_state=True)
     y2, h2 = ops.ssd_scan(*args, return_state=True)
@@ -254,12 +259,13 @@ def test_ssd_scan_model_layout_and_head_broadcast(cuda):
 
 @pytest.mark.gpu
 def test_ssd_scan_kernel_limits(cuda):
-    args = list(_ssd_inputs(1, 2, 8, 4, ssd_scan.N_MAX + 1, torch.float32,
-                            cuda))
+    assert ops.kernel_module("ssd_scan", torch.float32) is ssd_scan_tc32
+    args = list(_ssd_inputs(1, 2, 8, 4, ssd_scan_tc32.N_MAX + 1,
+                            torch.float32, cuda))
     with pytest.raises(ValueError, match="exceeds"):
         ops.ssd_scan(*args)
-    args = list(_ssd_inputs(1, 2, 8, ssd_scan.P_MAX + 1, 4, torch.float32,
-                            cuda))
+    args = list(_ssd_inputs(1, 2, 8, ssd_scan_tc32.P_MAX + 1, 4,
+                            torch.float32, cuda))
     with pytest.raises(ValueError, match="exceeds"):
         ops.ssd_scan(*args)
 
@@ -341,7 +347,7 @@ def test_flash_attention_tc_at_the_prefill_shapes(cuda, B, H, K, S, d,
                                                   window):
     """The tensor-core kernel at phase 1b's main shapes and limits (rtol
     1e-2, atol 1e-4; q and k at std 1.5, model layout), the same bits
-    twice; the float32 kernel does not launch."""
+    twice; the float32 kernels do not launch."""
     rng = np.random.default_rng(S + d)
 
     def mk(heads, std):
@@ -349,13 +355,13 @@ def test_flash_attention_tc_at_the_prefill_shapes(cuda, B, H, K, S, d,
         return torch.from_numpy(a.astype(np.float32)).to(
             cuda, torch.bfloat16).transpose(1, 2)
     q, k, v = mk(H, 1.5), mk(K, 1.5), mk(K, 0.4)
-    n_tc, n_f32 = flash_attention_tc.launches, flash_attention.launches
+    n_tc, n_f32 = flash_attention_tc.launches, flash_attention_tc32.launches
     got = ops.flash_attention(q, k, v, causal=True, window=window)
     again = ops.flash_attention(q, k, v, causal=True, window=window)
     want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     assert flash_attention_tc.launches == n_tc + 2
-    assert flash_attention.launches == n_f32
+    assert flash_attention_tc32.launches == n_f32
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-4)
@@ -363,13 +369,19 @@ def test_flash_attention_tc_at_the_prefill_shapes(cuda, B, H, K, S, d,
 
 @pytest.mark.gpu
 def test_flash_attention_tc_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 2, 8, 20, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 8"):
-        ops.flash_attention(q, q, q)
-    wide = torch.zeros(1, 2, 8, 129, device=cuda, dtype=torch.bfloat16)
-    q = wide[..., 1:]  # d 128, starting 2 bytes past an aligned address
-    with pytest.raises(ValueError, match="aligned"):
-        ops.flash_attention(q, q, q)
+    """Head dimensions past D_MAX, other dtypes, and each kernel's other
+    dtype (any d up to 256 at any alignment is taken: see
+    test_flash_attention_any_head_dim_and_alignment)."""
+    for mod in (flash_attention_tc, flash_attention_tc32):
+        assert mod.D_MAX == 256
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros(1, 2, 8, 264, device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="256"):
+            ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 8, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention_tc32.flash_attention_tc32_cuda(
+            q, q, q, causal=True, window=None, scale=1.0, t_actual=8)
     with pytest.raises(ValueError, match="no CUDA kernel"):
         ops.flash_attention(*(torch.zeros(1, 2, 8, 16, device=cuda,
                                           dtype=torch.float16),) * 3)
@@ -408,12 +420,13 @@ def test_ssd_scan_tc_at_the_prefill_shape(cuda):
                                              (B, S, H))).astype(
         np.float32)).to(cuda).transpose(1, 2)
     A = -torch.from_numpy(rng.uniform(1, 16, H).astype(np.float32)).to(cuda)
-    n_tc, n_f32 = ssd_scan_tc.launches, ssd_scan.launches
+    n_tc, n_f32 = ssd_scan_tc.launches, ssd_scan_tc32.launches
     y, h = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
     y2, h2 = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
     want, want_h = ref.ssd_scan_ref(x, dt, A, bm, c, return_state=True)
     torch.cuda.synchronize()
-    assert ssd_scan_tc.launches == n_tc + 2 and ssd_scan.launches == n_f32
+    assert ssd_scan_tc.launches == n_tc + 2
+    assert ssd_scan_tc32.launches == n_f32
     assert torch.equal(y, y2) and torch.equal(h, h2)
     assert _chunk_rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
     zeroed = torch.cat([ref.ssd_scan_ref(
@@ -424,7 +437,9 @@ def test_ssd_scan_tc_at_the_prefill_shape(cuda):
 
 @pytest.mark.gpu
 def test_ssd_scan_tc_refuses_what_it_does_not_take(cuda):
-    for N, P in ((16, 15), (ssd_scan_tc.N_MAX + 8, 16), (16, 66)):
+    """N past N_MAX, P past P_MAX, other dtypes, and each kernel's other
+    dtype (an odd P is taken: see test_ssd_scan_odd_head_dim)."""
+    for N, P in ((ssd_scan_tc.N_MAX + 8, 16), (16, 66)):
         args = list(_ssd_inputs(1, 2, 8, P, N, torch.bfloat16, cuda))
         with pytest.raises(ValueError, match="exceeds"):
             ops.ssd_scan(*args)
@@ -433,6 +448,8 @@ def test_ssd_scan_tc_refuses_what_it_does_not_take(cuda):
         ops.ssd_scan(x.half(), dt, A, bm.half(), c.half())
     with pytest.raises(ValueError, match="float32"):
         ssd_scan.ssd_scan_cuda(x, dt, A, bm, c)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_scan_tc32.ssd_scan_tc32_cuda(x, dt, A, bm, c)
 
 
 @pytest.mark.gpu
@@ -447,4 +464,147 @@ def test_ssd_scan_tc_element_loads(cuda):
     y, h = ssd_scan_tc.ssd_scan_tc_cuda(x, dt, A, bm, c)
     want, want_h = ref.ssd_scan_ref(x, dt, A, bm, c, return_state=True)
     torch.cuda.synchronize()
+    assert _rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
+
+
+# -- float32 on the tensor cores, the comparators, and every head dim ---------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,S,d,window", TC_ATTN_MAIN)
+def test_flash_attention_tc32_at_the_prefill_shapes(cuda, B, H, K, S, d,
+                                                    window):
+    """The float32 tensor-core kernel at phase 1b's main shapes and its
+    float32 limits (rtol = atol = 2e-5; q and k at std 1.5, model layout),
+    the same bits twice; neither the bf16 kernel nor the comparator
+    launches."""
+    rng = np.random.default_rng(S + d + 1)
+
+    def mk(heads, std):
+        a = rng.standard_normal((B, S, heads, d)) * std
+        return torch.from_numpy(a.astype(np.float32)).to(cuda).transpose(1, 2)
+    q, k, v = mk(H, 1.5), mk(K, 1.5), mk(K, 0.4)
+    mods = (flash_attention_tc32, flash_attention_tc, flash_attention)
+    before = [m.launches for m in mods]
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    again = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert [m.launches for m in mods] == [before[0] + 2, *before[1:]]
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,mask", ATTN_SWEEP)
+def test_flash_attention_comparator_matches_plain_version(cuda, shape, mask):
+    """The earlier CUDA-core float32 kernel, kept as a comparator, over the
+    sweep at 2e-5."""
+    B, H, K, S, T, d = shape
+    causal, window = mask
+    q = _normal((B, H, S, d), 0, torch.float32, cuda)
+    k = _normal((B, K, T, d), 1, torch.float32, cuda)
+    v = _normal((B, K, T, d), 2, torch.float32, cuda)
+    n0 = flash_attention.launches
+    got = flash_attention.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, scale=d ** -0.5, t_actual=T)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [20, 72, 100, 250])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_any_head_dim_and_alignment(cuda, d, dtype):
+    """Head dimensions that are not multiples of 8, and q, k, v viewed one
+    element past an aligned start with odd row strides: element-by-element
+    loads, zero-padded columns, element stores; the plain version's result
+    at the sweep's limits, through each dtype's kernel."""
+    B, H, K, S = 2, 4, 2, 77
+    mod = ops.kernel_module("flash_attention", dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for offset in (0, 1):
+        q = _normal((B, H, S, d + offset), 10 + d, dtype, cuda)[..., offset:]
+        k = _normal((B, K, S, d + offset), 11 + d, dtype, cuda)[..., offset:]
+        v = _normal((B, K, S, d + offset), 12 + d, dtype, cuda)[..., offset:]
+        n0 = mod.launches
+        for causal, window in ((True, None), (False, None), (True, 24)):
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+        torch.cuda.synchronize()
+        assert mod.launches == n0 + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [33, 63])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_odd_head_dim(cuda, P, dtype):
+    """Odd P (rows of x and y not whole pairs), a ragged last chunk, and x
+    viewed one element past an aligned start: the plain version's result
+    at 1e-4, through each dtype's kernel."""
+    B, H, S, N = 2, 3, 203, 16
+    x, dt, A, bm, c = _ssd_inputs(B, H, S, P + 1, N, dtype, cuda, seed=P)
+    x = x[..., 1:]
+    mod = ops.kernel_module("ssd_scan", dtype)
+    n0 = mod.launches
+    y, h = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
+    want, want_h = ref.ssd_scan_ref(x, dt, A, bm, c, return_state=True)
+    torch.cuda.synchronize()
+    assert mod.launches == n0 + 1 and y.shape == (B, H, S, P)
+    assert _rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
+
+
+@pytest.mark.gpu
+def test_ssd_scan_tc32_at_the_prefill_shape(cuda):
+    """mamba2-2.7b's prefill layer in float32 as the model hands it over,
+    dt and A in Mamba-2's published ranges: y within 1e-4 per 256
+    positions and the state within 1e-4 (phase 1c's limit), the same bits
+    twice, while a scan that zeroes the carried state every 256 positions
+    fails that limit; the comparator meets the same limit."""
+    B, H, S, P, N = 4, 80, 2000, 64, 128
+    rng = np.random.default_rng(10)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (B, S, H * P + 2 * N)).astype(np.float32)).to(cuda)
+    x = xbc[..., :H * P].reshape(B, S, H, P).transpose(1, 2)
+    bm = xbc[..., H * P:H * P + N, None].transpose(2, 3).expand(
+        B, S, H, N).transpose(1, 2)
+    c = xbc[..., H * P + N:, None].transpose(2, 3).expand(
+        B, S, H, N).transpose(1, 2)
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                             (B, S, H))).astype(
+        np.float32)).to(cuda).transpose(1, 2)
+    A = -torch.from_numpy(rng.uniform(1, 16, H).astype(np.float32)).to(cuda)
+    n_f32, n_tc = ssd_scan_tc32.launches, ssd_scan_tc.launches
+    y, h = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
+    y2, h2 = ops.ssd_scan(x, dt, A, bm, c, return_state=True)
+    want, want_h = ref.ssd_scan_ref(x, dt, A, bm, c, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan_tc32.launches == n_f32 + 2
+    assert ssd_scan_tc.launches == n_tc
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert _chunk_rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
+    zeroed = torch.cat([ref.ssd_scan_ref(
+        x[:, :, s:s + 256], dt[:, :, s:s + 256], A, bm[:, :, s:s + 256],
+        c[:, :, s:s + 256]) for s in range(0, S, 256)], dim=2)
+    assert _chunk_rel(zeroed, want) > 1e-4
+    y3, h3 = ssd_scan.ssd_scan_cuda(x, dt, A, bm, c)
+    torch.cuda.synchronize()
+    assert _chunk_rel(y3, want) < 1e-4 and _rel(h3, want_h) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_scan_comparator_matches_plain_version(cuda, shape):
+    """The earlier CUDA-core float32 scan, kept as a comparator, over the
+    sweep at 1e-4."""
+    args = _ssd_inputs(*shape, torch.float32, cuda)
+    n0 = ssd_scan.launches
+    y, h = ssd_scan.ssd_scan_cuda(*args)
+    want, want_h = ref.ssd_scan_ref(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == n0 + 1
     assert _rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4

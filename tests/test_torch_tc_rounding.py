@@ -33,8 +33,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.convert import tree_from_numpy
-from repro_torch.kernels import (flash_attention, flash_attention_tc, ops,
-                                 ref, ssd_scan, ssd_scan_tc)
+from repro_torch.kernels import (flash_attention_tc, flash_attention_tc32,
+                                 ops, ref, ssd_scan_tc, ssd_scan_tc32)
 
 NEG = -1e30
 # phase 1b's bf16 limits at the main shapes and the distribution of q and k
@@ -291,10 +291,10 @@ def test_ssd_tc_emulation_any_chunk_ragged(chunk):
 @pytest.mark.parametrize("op,dtype,module,entry", [
     ("flash_attention", torch.bfloat16, flash_attention_tc,
      "flash_attention_tc_cuda"),
-    ("flash_attention", torch.float32, flash_attention,
-     "flash_attention_cuda"),
+    ("flash_attention", torch.float32, flash_attention_tc32,
+     "flash_attention_tc32_cuda"),
     ("ssd_scan", torch.bfloat16, ssd_scan_tc, "ssd_scan_tc_cuda"),
-    ("ssd_scan", torch.float32, ssd_scan, "ssd_scan_cuda"),
+    ("ssd_scan", torch.float32, ssd_scan_tc32, "ssd_scan_tc32_cuda"),
 ])
 def test_dtype_dispatch_names_kernel_and_counter(op, dtype, module, entry):
     assert ops.cuda_kernel(op, dtype) is getattr(module, entry)
