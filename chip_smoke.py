@@ -75,14 +75,19 @@ into ``build/repro_torch``), and then:
   chunk (relative to the chunk's largest |y|), the final state within
   1e-4, a plain version that zeroes the incoming state at each chunk
   boundary outside that limit, and the same bits twice.
-* phase 1d holds ``ops.rg_lru_scan`` against its plain version on the
-  card, bit for bit: the sweep of ``tests/test_kernels.py`` (ragged S
-  included) in float32 and bf16, and one recurrentgemma-2b prefill layer
-  (B 4, S 2000, W 2560) with a in Griffin's published range (per channel
-  u ~ U[0.9, 0.999], a = u^r, r ~ U(0, 1)), under which the state carries
-  across hundreds of positions; a plain version that zeroes the state at
-  each 256-position block start must fail 1e-5 there, and two runs must
-  give the same bits.
+* phase 1d holds ``ops.rg_lru_scan`` (``rg_lru_pipe``, which must
+  launch) and the first RG-LRU kernel (``rg_lru``, on no path, a
+  comparator) against their plain version on the card, bit for bit: the
+  sweep of ``tests/test_kernels.py`` (ragged S included) and a shape with
+  ragged S and W that wraps the kernel's ring of stages many times (B 3,
+  S 1999, W 2600; also read through a view one element in, which takes
+  the element-by-element copies) in float32 and bf16, and one
+  recurrentgemma-2b prefill layer (B 4, S 2000, W 2560) with a in
+  Griffin's published range (per channel u ~ U[0.9, 0.999], a = u^r,
+  r ~ U(0, 1)), under which the state carries across hundreds of
+  positions; a plain version that zeroes the state at each 256-position
+  block start must fail 1e-5 there, and two runs must give the same
+  bits.
 * phase 4 drives Mamba-2 serving, ``Engine`` with a ``SessionStore``, at
   mamba2-2.7b's full widths and depth (64 layers, 2.70 B parameters made
   on the card from a seed, ``A_log`` and ``dt_bias`` set in the published
@@ -98,11 +103,11 @@ into ``build/repro_torch``), and then:
   every ``lam`` set in Griffin's published range, cast once to bf16), with
   phase 3's traffic: the local-attention ring of 2048 slots wraps during
   decode, before the session is saved at token 100.  Run 2's tokens must
-  equal run 1's, ``flash_attention_tc`` must launch 8 times and ``rg_lru``
-  18 times in each prefill, and the float32 gate (4 layers: rglru, rglru,
-  local_attn, rglru) with a prompt of 2100 + 1, so that the window binds
-  in the prefill and the ring has wrapped before the decode step, must
-  hold at 1e-4.  As in phase 3, the bf16 full-depth reading on seed 0 must
+  equal run 1's, ``flash_attention_tc`` must launch 8 times and
+  ``rg_lru_pipe`` 18 times in each prefill, and the float32 gate (4
+  layers: rglru, rglru, local_attn, rglru) with a prompt of 2100 + 1, so
+  that the window binds in the prefill and the ring has wrapped before the
+  decode step, must hold at 1e-4.  As in phase 3, the bf16 full-depth reading on seed 0 must
   be under 0.02, with the readings for phase 3's seeds printed beside it
   (on an H100 all eight read 0.011-0.015; PERF.md).  In phases 3 to 5 the
   resumed run's final decode state must also equal the uninterrupted
@@ -114,10 +119,11 @@ power limit (``nvidia-smi``), build times, per-sync times, the serving
 times, and one JSON line ``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
 library times (B3 and B4 have a bf16 and a float32 tensor-core kernel
-each; the float32 rows carry the earlier CUDA-core kernel's check and
-times under ``comparator``, measured in the same run, with its launches
-in phases 3 to 5, counted there and required to be 0; B2 has no library time, as no one PyTorch call computes
-diff + pack, and the two-call composition is timed beside it).  The last line is
+each; the float32 B3 and B4 rows and the B5 row carry the earlier
+kernel's check and times under ``comparator``, measured in the same run,
+with its launches in phases 3 to 5, counted there and required to be 0;
+B2 has no library time, as no one PyTorch call computes diff + pack, and
+the two-call composition is timed beside it).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the exit
 code is not 0 and no such line is printed; the same holds when CUDA is not
 available or the package is missing.
@@ -127,6 +133,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -194,9 +201,16 @@ KERNELS = {
                       "replaces": "src/repro/kernels/ssd_scan.py:70"},
     "ssd_scan": {"source": "src/repro_torch/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:70"},
+    "rg_lru_pipe": {"source": "src/repro_torch/csrc/rg_lru_pipe.cu",
+                    "replaces": "src/repro/kernels/rg_lru.py:47"},
     "rg_lru": {"source": "src/repro_torch/csrc/rg_lru.cu",
                "replaces": "src/repro/kernels/rg_lru.py:47"},
 }
+# the sources to build: every kernel's
+BUILD = [Path(k["source"]).stem for k in KERNELS.values()]
+# the device functions of csrc/*.cu, as the profiler names them
+OWN_KERNELS = re.compile(r"\(anonymous namespace\)::"
+                         r"(dirty_diff|pack_rows|scan_tile|flash_|ssd_|rg_lru)")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -833,6 +847,9 @@ def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
 # -- phase 1d: RG-LRU kernel against its plain version -------------------------
 
 RG_SWEEP = [(1, 64, 16), (2, 70, 32), (1, 256, 8)]  # tests/test_kernels.py
+# ragged S and W that wrap the kernel's ring of stages many times, read
+# through an aligned and an unaligned (offset by one element) view
+RG_WRAP = (3, 1999, 2600)
 # one recurrentgemma-2b prefill layer at the SERVE shape: B, S, W.  y must
 # equal the plain version's bit for bit (both round the product and the sum
 # one at a time); a plain version that drops the carried state at every
@@ -859,30 +876,53 @@ def rg_lru_main_inputs(gen, dev, shape=RG_MAIN):
     return a, gx
 
 
-def phase1d(dev, log=print) -> float:
-    """``ops.rg_lru_scan`` against its plain version, bit for bit; returns
-    the largest absolute difference (0 when they agree)."""
+def _comparator_rg_lru(a, gx):
+    """The first RG-LRU kernel, loads in the walk, as ``ops`` calls it."""
+    from repro_torch.kernels.rg_lru import rg_lru_cuda
+    return rg_lru_cuda(a, gx)
+
+
+def phase1d(dev, log=print) -> dict:
+    """``ops.rg_lru_scan`` (``rg_lru_pipe``, which must launch) and the
+    comparator (``rg_lru``) against the plain version, bit for bit; returns
+    ``{"kernel" or "comparator": largest absolute difference}`` (0 when
+    they agree)."""
     from repro_torch.kernels import ops, ref
+    kernel = ops.kernel_module("rg_lru", torch.float32)
+    kernel.launches = 0
     gen = torch.Generator(device=dev).manual_seed(6)
-    ncases = 0
+    # (shape, offset): offset 1 is a view one element in, which the
+    # kernel reads by its element-by-element copies
+    shapes = [(shape, 0) for shape in RG_SWEEP] + [(RG_WRAP, 0), (RG_WRAP, 1)]
+    cases = []
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, W in RG_SWEEP:
-            a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device=dev)
-                              * 0.4).to(dtype)
-            gx = (torch.randn(B, S, W, generator=gen, device=dev)
+        for (B, S, W), off in shapes:
+            a = torch.sigmoid(torch.randn(B, S, W + off, generator=gen,
+                                          device=dev) * 0.4).to(dtype)
+            gx = (torch.randn(B, S, W + off, generator=gen, device=dev)
                   * 0.4).to(dtype)
-            y = ops.rg_lru_scan(a, gx)
-            check(y.dtype == torch.float32 and y.shape == (B, S, W),
-                  f"rg_lru_scan output {y.dtype} {tuple(y.shape)}")
-            check(torch.equal(y, ref.rg_lru_ref(a, gx)),
-                  f"rg_lru_scan != plain version ({dtype}, {(B, S, W)})")
-            ncases += 1
+            cases.append((a[..., off:], gx[..., off:]))
+    for a, gx in cases:
+        want = ref.rg_lru_ref(a, gx)
+        for label, fn in (("rg_lru_scan", ops.rg_lru_scan),
+                          ("comparator", _comparator_rg_lru)):
+            y = fn(a, gx)
+            check(y.dtype == torch.float32 and y.shape == a.shape,
+                  f"{label} output {y.dtype} {tuple(y.shape)}")
+            check(torch.equal(y, want), f"{label} != plain version "
+                  f"({a.dtype}, {tuple(a.shape)}, stride {a.stride()}, "
+                  f"offset {a.storage_offset()})")
     a, gx = rg_lru_main_inputs(gen, dev)
-    y = ops.rg_lru_scan(a, gx)
     want = ref.rg_lru_ref(a, gx)
-    max_abs = float((y - want).abs().max())
-    check(torch.equal(y, want),
-          f"rg_lru_scan at {RG_MAIN} != plain version: max abs {max_abs}")
+    worst = {}
+    for label, fn in (("kernel", ops.rg_lru_scan),
+                      ("comparator", _comparator_rg_lru)):
+        y = fn(a, gx)
+        worst[label] = float((y - want).abs().max())
+        check(torch.equal(y, want), f"{label} at {RG_MAIN} != plain "
+              f"version: max abs {worst[label]}")
+        check(torch.equal(y, fn(a, gx)),
+              f"{label} gave different bits on the same inputs")
     # the check can fail: the carried state dropped at each block start
     k = RG_CHECK_BLOCK
     mutant = torch.cat([ref.rg_lru_ref(a[:, s0:s0 + k], gx[:, s0:s0 + k])
@@ -890,35 +930,42 @@ def phase1d(dev, log=print) -> float:
     mutant_err = max(chunk_errors(mutant, want, k, dim=1))
     check(mutant_err > RG_TOL,
           f"a recurrence that drops the carried state passes: {mutant_err}")
-    check(torch.equal(y, ops.rg_lru_scan(a, gx)),
-          "rg_lru_scan gave different bits on the same inputs")
-    ncases += 1
     torch.cuda.synchronize(dev)
-    log(f"phase 1d: {ncases} cases, rg_lru_scan bit-identical to its plain "
-        f"version (f32 and bf16 sweep; main shape {RG_MAIN} with a in "
-        f"Griffin's range {RG_A_RANGE}); the state zeroed every "
-        f"{RG_CHECK_BLOCK} positions: {mutant_err:.3g} per block, limit "
-        f"{RG_TOL}; deterministic")
-    return max_abs
+    check(kernel.launches > 0, f"{_kernel_name(kernel)} never launched")
+    log(f"phase 1d: {len(cases) + 1} cases, rg_lru_scan "
+        f"({_kernel_name(kernel)}) and the comparator bit-identical to the "
+        f"plain version (f32 and bf16 sweep, {RG_WRAP} aligned and offset "
+        f"by one; main shape {RG_MAIN} with a in Griffin's range "
+        f"{RG_A_RANGE}); the state zeroed every {RG_CHECK_BLOCK} positions: "
+        f"{mutant_err:.3g} per block, limit {RG_TOL}; deterministic")
+    return worst
 
 
 def measure_rg_lru(dev) -> dict:
-    """Kernel and plain-version times of one prefill layer's recurrence at
-    the main path's shape (float32, as the model hands it over), and its
-    bound.  No PyTorch call computes the recurrence."""
+    """Kernel, comparator and plain-version times of one prefill layer's
+    recurrence at the main path's shape (float32, as the model hands it
+    over), and its bound.  No PyTorch call computes the recurrence; beside
+    it, ``torch.add(a, gx)`` moves the same bytes (``same_bytes_ms``: what
+    PyTorch's elementwise kernel reaches for that traffic)."""
     from repro_torch.kernels import ops, ref
     B, S, W = RG_MAIN
     gen = torch.Generator(device=dev).manual_seed(7)
     a, gx = rg_lru_main_inputs(gen, dev)
+    y = torch.empty_like(a)
     flops = 2 * B * S * W  # a product and a sum per element
     nbytes = 4 * 3 * B * S * W  # a and gx read, y written, float32
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    # 20 launches a mean: at 0.1 ms a launch, the host's latency to the
+    # first one would weigh in a mean of 5
     return {
-        "ms": cuda_ms(lambda: ops.rg_lru_scan(a, gx)),
+        "ms": cuda_ms(lambda: ops.rg_lru_scan(a, gx), reps=20),
+        "comparator_ms": cuda_ms(lambda: _comparator_rg_lru(a, gx), reps=20),
+        "same_bytes_ms": cuda_ms(lambda: torch.add(a, gx, out=y), reps=20),
         "plain_ms": cuda_ms(lambda: ref.rg_lru_ref(a, gx)),
         "flops": flops, "bytes": nbytes,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
     }
 
 
@@ -938,8 +985,9 @@ def _timed_ms(fn, dev):
 def device_profile(fn, nrep: int = 1) -> dict:
     """Wall time of ``nrep`` calls of ``fn`` against the card's busy time
     in them (the sum of the kernel and copy times that ``torch.profiler``
-    traces on the device; one stream, so they do not overlap), and the
-    kernels by device time."""
+    traces on the device; one stream, so they do not overlap), the
+    kernels by device time, and the device time of each of this package's
+    kernels (``own_ms``, by OWN_KERNELS)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -956,7 +1004,9 @@ def device_profile(fn, nrep: int = 1) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall),
             "device_ops_per_call": sum(e.count for e in events) / nrep,
             "top_ms": {e.key[:60]: e.self_device_time_total / 1e3 / nrep
-                       for e in top}}
+                       for e in top},
+            "own_ms": {e.key[:60]: e.self_device_time_total / 1e3 / nrep
+                       for e in events if OWN_KERNELS.search(e.key)}}
 
 
 def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
@@ -981,12 +1031,14 @@ def prefill_kernels(cfg) -> dict:
     """``{kernel module: launches in one prefill of cfg}``: each layer's
     prefill launches its kind's kernel once, attention and the SSD scan
     the one for ``cfg.dtype`` (``flash_attention_tc``/``ssd_scan_tc`` for
-    bf16, ``flash_attention_tc32``/``ssd_scan_tc32`` for float32)."""
-    from repro_torch.kernels import ops, rg_lru
+    bf16, ``flash_attention_tc32``/``ssd_scan_tc32`` for float32), the
+    recurrence ``rg_lru_pipe`` for both."""
+    from repro_torch.kernels import ops
     dtype = getattr(torch, cfg.dtype)
     attn = ops.kernel_module("flash_attention", dtype)
     of_kind = {"attn": attn, "local_attn": attn,
-               "ssm": ops.kernel_module("ssd_scan", dtype), "rglru": rg_lru}
+               "ssm": ops.kernel_module("ssd_scan", dtype),
+               "rglru": ops.kernel_module("rg_lru", dtype)}
     out: dict = {}
     for reps, pattern in cfg.groups():
         for kind in pattern:
@@ -1203,12 +1255,12 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
     with the depth cut to each of ``depths``; then the float32 gate at
     F32_LAYERS layers with a prompt of ``f32_prompt`` + 1, held to
     F32_LIMIT.  The comparators (the CUDA-core ``flash_attention`` and
-    ``ssd_scan``, on no path) must not launch in any of it: their counts
-    are set to 0 at the start and read at the end
+    ``ssd_scan`` and the first ``rg_lru``, on no path) must not launch in
+    any of it: their counts are set to 0 at the start and read at the end
     (``comparator_launches``)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention, ssd_scan
-    comparators = (flash_attention, ssd_scan)
+    from repro_torch.kernels import flash_attention, rg_lru, ssd_scan
+    comparators = (flash_attention, ssd_scan, rg_lru)
     for mod in comparators:
         mod.launches = 0
     cfg = get_config(arch)
@@ -1370,10 +1422,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} "
           "device(s)")
     t0 = time.perf_counter()
-    built = _build.build(["dirty_diff", "pack_diff", "flash_attention_tc",
-                          "flash_attention_tc32", "flash_attention",
-                          "ssd_scan_tc", "ssd_scan_tc32", "ssd_scan",
-                          "rg_lru"])
+    built = _build.build(BUILD)
     for name, b in built.items():
         print(f"built {name} in {b['seconds']:.2f} s -> {b['path']}")
         for line in b["log"].splitlines():
@@ -1489,7 +1538,7 @@ def main() -> int:
     # the comparators' launches in phases 3-5, each phase's read at its end
     on_paths = {name: sum(p["comparator_launches"][name]
                           for p in (serve, ssm, rg))
-                for name in ("flash_attention", "ssd_scan")}
+                for name in ("flash_attention", "ssd_scan", "rg_lru")}
     ssd32[0]["comparator"] = comparator_row(
         "ssd_scan", ssd32[1], ssd_err["comparator"], on_paths["ssd_scan"])
     # B3 runs in phases 3 and 5: the bf16 kernel in the prefills, the
@@ -1517,11 +1566,15 @@ def main() -> int:
                 "flash_attention", at_rg, attn_err["comparator"],
                 rg["comparator_launches"]["flash_attention"])
         kernels.insert(2 + at, row)
+    # B5: one kernel for both dtypes; the prefills pass it float32
     kernels.append({
-        "name": "rg_lru", "route": "cuda", **KERNELS["rg_lru"],
-        "launches": rg["launches"]["rg_lru"], "max_abs_err": rg_err,
-        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": None})
+        "name": "rg_lru_pipe", "route": "cuda", **KERNELS["rg_lru_pipe"],
+        "launches": rg["launches"]["rg_lru_pipe"],
+        "max_abs_err": rg_err["kernel"], "ms": m["ms"],
+        **{k: m[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                             "library_ms")},
+        "comparator": comparator_row("rg_lru", m, rg_err["comparator"],
+                                     on_paths["rg_lru"])})
     marks.append(time.perf_counter())
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(

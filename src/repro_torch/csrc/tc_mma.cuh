@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bf16 kernels of this package
 // (flash_attention_tc.cu, ssd_scan_tc.cu; the float32 kernels take its
-// cp.async helpers through tf32_mma.cuh): cp.async tile copies, ldmatrix
+// cp.async helpers through tf32_mma.cuh, rg_lru_pipe.cu takes them
+// directly): cp.async tile copies, ldmatrix
 // fragment loads, the bf16 mma.sync.m16n8k16 with float32 accumulation,
 // and the hi/lo split of float32 values into two bf16 operands.
 //

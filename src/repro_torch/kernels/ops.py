@@ -5,12 +5,14 @@ selective sync, for attention, for the SSD scan and for the RG-LRU
 recurrence.  A CUDA tensor goes to the CUDA kernel, and a failing build
 or launch raises; a CPU tensor goes to the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Nothing else chooses between the two.
-Attention and the SSD scan have two CUDA kernels each, both on the tensor
-cores, picked by dtype (:func:`cuda_kernel`): bfloat16 inputs go to
-``*_tc``, float32 inputs to ``*_tc32``, whose float32-accurate products
-(TF32 hi + lo, three products each) their float32 limits need.  Any other
-dtype on the card raises.  The earlier CUDA-core float32 kernels
-(:mod:`.flash_attention`, :mod:`.ssd_scan`) are on no path; they stay as
+Attention, the SSD scan and the RG-LRU recurrence find their CUDA kernel
+by dtype (:func:`cuda_kernel`).  Attention and the scan have two each,
+both on the tensor cores: bfloat16 inputs go to ``*_tc``, float32 inputs
+to ``*_tc32``, whose float32-accurate products (TF32 hi + lo, three
+products each) their float32 limits need.  The recurrence has one for both,
+``rg_lru_pipe``.  Any other dtype on the card raises.  The earlier kernels
+(:mod:`.flash_attention`, :mod:`.ssd_scan` on the CUDA cores,
+:mod:`.rg_lru` with loads in the walk) are on no path; they stay as
 comparators that ``chip_smoke.py`` checks and times.
 
 The CUDA kernels take flat byte views and mask the short last block
@@ -36,7 +38,7 @@ from .dirty_diff import dirty_diff_cuda
 from .flash_attention_tc import flash_attention_tc_cuda
 from .flash_attention_tc32 import flash_attention_tc32_cuda
 from .pack_diff import diff_pack_cuda
-from .rg_lru import rg_lru_cuda
+from .rg_lru_pipe import rg_lru_pipe_cuda
 from .ssd_scan_tc import ssd_scan_tc_cuda
 from .ssd_scan_tc32 import ssd_scan_tc32_cuda
 
@@ -49,17 +51,19 @@ _CUDA_KERNELS = {
                         torch.bfloat16: flash_attention_tc_cuda},
     "ssd_scan": {torch.float32: ssd_scan_tc32_cuda,
                  torch.bfloat16: ssd_scan_tc_cuda},
+    "rg_lru": {torch.float32: rg_lru_pipe_cuda,
+               torch.bfloat16: rg_lru_pipe_cuda},
 }
 
 
 def cuda_kernel(op: str, dtype: torch.dtype) -> Callable:
-    """The wrapper of the CUDA kernel that ``op`` (``"flash_attention"`` or
-    ``"ssd_scan"``) launches for CUDA tensors of ``dtype``.  Raises
-    ``ValueError`` for a dtype that no kernel takes."""
+    """The wrapper of the CUDA kernel that ``op`` (``"flash_attention"``,
+    ``"ssd_scan"`` or ``"rg_lru"``) launches for CUDA tensors of
+    ``dtype``.  Raises ``ValueError`` for a dtype that no kernel takes."""
     kernel = _CUDA_KERNELS[op].get(dtype)
     if kernel is None:
-        raise ValueError(f"no CUDA kernel of {op} takes {dtype}; float32 "
-                         "and bfloat16 have one each")
+        raise ValueError(f"no CUDA kernel of {op} takes {dtype}; it takes "
+                         "float32 or bfloat16")
     return kernel
 
 
@@ -225,5 +229,5 @@ def rg_lru_scan(a: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
     if a.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {a.device}")
     if a.is_cuda:
-        return rg_lru_cuda(a, gx)
+        return cuda_kernel("rg_lru", a.dtype)(a, gx)
     return ref.rg_lru_ref(a, gx)

@@ -27,10 +27,14 @@ at odd P, and at 1e-4 per 256 positions at mamba2-2.7b's prefill shape
 dtype must launch its own kernel, and each kernel raises on what it does
 not take.  The earlier CUDA-core float32 kernels (``flash_attention``,
 ``ssd_scan``), on no path now, are still held to the plain versions as
-comparators.  The RG-LRU kernel must
+comparators.  The RG-LRU kernel (``rg_lru_pipe``, both dtypes) must
 equal its plain version bit for bit over the sweep of
-``tests/test_kernels.py`` (ragged S included), through strided views, and
-at recurrentgemma-2b's prefill shape with a in Griffin's range.
+``tests/test_kernels.py`` (ragged S included), through strided views and a
+view one element in (its element-by-element copies), at a ragged shape
+that wraps its ring of stages many times (same bits twice), and at
+recurrentgemma-2b's prefill shape with a in Griffin's range; the first
+RG-LRU kernel (``rg_lru``), on no path now, is held the same way as a
+comparator.
 """
 
 import numpy as np
@@ -287,12 +291,13 @@ def _rg_inputs(B, S, W, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rg_lru_kernel_matches_plain_version(cuda, shape, dtype):
     a, gx = _rg_inputs(*shape, dtype, cuda)
-    n0 = rg_lru.launches
+    kernel = ops.kernel_module("rg_lru", dtype)
+    n0 = kernel.launches
     y = ops.rg_lru_scan(a, gx)
     y2 = ops.rg_lru_scan(a, gx)
     want = ref.rg_lru_ref(a, gx)
     torch.cuda.synchronize()
-    assert rg_lru.launches == n0 + 2
+    assert kernel.launches == n0 + 2
     assert y.dtype == torch.float32 and y.shape == shape
     assert torch.equal(y, want) and torch.equal(y, y2)
 
@@ -324,6 +329,48 @@ def test_rg_lru_kernel_at_the_prefill_shape(cuda):
     want = ref.rg_lru_ref(a, gx)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_lru_kernel_wraps_its_ring(cuda, dtype):
+    """Ragged S and W (S 1999, W 2600 = 40 CTAs of 64 channels and one of
+    40) that wrap the ring of stages many times: the same bits as the plain
+    version, twice, and the comparator does not launch."""
+    a, gx = _rg_inputs(3, 1999, 2600, dtype, cuda, seed=3)
+    n0, c0 = ops.kernel_module("rg_lru", dtype).launches, rg_lru.launches
+    y = ops.rg_lru_scan(a, gx)
+    y2 = ops.rg_lru_scan(a, gx)
+    want = ref.rg_lru_ref(a, gx)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want) and torch.equal(y, y2)
+    assert ops.kernel_module("rg_lru", dtype).launches == n0 + 2
+    assert rg_lru.launches == c0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_lru_kernel_unaligned_view(cuda, dtype):
+    """Columns 1..W of wider storage: no row is 16-byte aligned, so the
+    kernel copies element by element; the same bits as the plain version."""
+    a, gx = _rg_inputs(2, 301, 97, dtype, cuda, seed=4)
+    got = ops.rg_lru_scan(a[..., 1:], gx[..., 1:])
+    want = ref.rg_lru_ref(a[..., 1:], gx[..., 1:])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RG_SHAPES + [(3, 1999, 2600)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_lru_comparator_matches_plain_version(cuda, shape, dtype):
+    """The first RG-LRU kernel, on no path, called directly."""
+    a, gx = _rg_inputs(*shape, dtype, cuda, seed=5)
+    n0 = rg_lru.launches
+    y = rg_lru.rg_lru_cuda(a, gx)
+    torch.cuda.synchronize()
+    assert rg_lru.launches == n0 + 1
+    assert torch.equal(y, ref.rg_lru_ref(a, gx))
 
 
 @pytest.mark.gpu
