@@ -113,10 +113,31 @@ into ``build/repro_torch``), and then:
   resumed run's final decode state must also equal the uninterrupted
   run's, bit for bit: a random recurrentgemma-2b repeats one token id,
   which would hide a wrong resume from the tokens alone.
+* phase 6 trains internlm2-1.8b through ``Trainer`` at full widths (depth
+  cut to 2 layers as in phase 2, 504,899,584 float32 parameters made on
+  the card from seed 0, its own remat="full") on the repo's train_4k
+  shape cut to one card (seq 4096, 2 sequences x 2 microbatches a step,
+  ``SyntheticLM`` batches), under ``torch.use_deterministic_algorithms``
+  (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts).  Run A takes 6
+  fused AdamW steps; run B the same with asynchronous A/B window
+  checkpoints every 2 steps under ``build/chip_smoke/``, stopped after 4;
+  run C, a fresh ``Trainer`` on that directory, must restore step 4 and
+  continue to 6 with its params, moments, step and two losses equal to
+  run A's, bit for bit.  Each save's window file read back must equal the
+  tree saved, and its flushed bytes the tree's changed pages times the
+  page size (counted by the phase from its own host copy); the newest
+  manifest must validate through ``restore()``; step 0's loss must lie
+  within 0.5 of a random model's ln V + 1/2.  Two offload-mode steps
+  follow (bf16 params on the card, ``OutOfCoreAdamW`` on the host): finite
+  losses, and after the sync the window file must equal the masters.  No
+  kernel of the package may launch in phase 6: the reference's training
+  path runs none (its loss runs ``blockwise_attention`` in XLA, and no
+  kernel has a backward).  Both windows are removed at the end.
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
-times, and one JSON line ``{"kernels": [...]}`` with each of the seven
+times, phase 6's step times, step profile and per-save split (host copy,
+staging, flush), and one JSON line ``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
 library times (B3 and B4 have a bf16 and a float32 tensor-core kernel
 each; the float32 B3 and B4 rows and the B5 row carry the earlier
@@ -132,7 +153,10 @@ available or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
+import math
+import os
 import re
 import shutil
 import subprocess
@@ -140,6 +164,10 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+
+# phase 6 runs under torch.use_deterministic_algorithms, whose cuBLAS
+# products need this workspace setting before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import torch
@@ -160,6 +188,7 @@ F32_FLOPS = 67e12            # H100 SXM float32 outside the tensor cores
 F32_MMA_FLOPS = 495e12 / 3
 SMOKE_LAYERS = 2             # depth cut of internlm2-1.8b (24 layers)
 WORKDIR = ROOT / "build" / "chip_smoke"
+TRAIN_DIR = WORKDIR / "train"
 # phase 3 traffic: 4 requests of 2000 prompt tokens, 200 greedy steps in a
 # 4096-position cache, the session saved at token 100 into a combined
 # window that keeps half of it in memory
@@ -181,6 +210,19 @@ ATTN_RG_WRAP = (1, 10, 1, 4096, 256)
 # wrong cache
 F32_LAYERS = 4
 F32_LIMIT = 1e-4
+# phase 6: internlm2-1.8b trained on the repo's train_4k shape (seq 4096,
+# global batch 256) cut to one card: 2 sequences a microbatch, 2
+# microbatches (16,384 tokens a step); run A trains STEPS steps, run B the
+# same with a checkpoint every CKPT_EVERY steps and stops after KILL_AFTER,
+# run C restores and continues to STEPS; the offload run takes
+# OFFLOAD_STEPS steps
+TRAIN = dict(shape="train_4k", batch=2, microbatches=2, steps=6,
+             ckpt_every=2, kill_after=4, offload_steps=2)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
+# a random model's step-0 loss: the reference's init gives logits of unit
+# variance (lm_head at fan_in^-1/2 over a unit-rms input), so its
+# cross-entropy is about ln V + 1/2; held within TRAIN_LOSS0_TOL of that
+TRAIN_LOSS0_TOL = 0.5
 
 KERNELS = {
     "dirty_diff": {"source": "src/repro_torch/csrc/dirty_diff.cu",
@@ -1312,6 +1354,321 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
           f"{out['comparator_launches']}")
     return out
 
+# -- phase 6: training with window checkpoints --------------------------------
+
+def host_tree(tree: dict) -> dict[str, np.ndarray]:
+    """The phase's own host copy of a checkpoint tree: each tensor's bytes
+    (bf16 through an int16 view)."""
+    out = {}
+    for k, t in tree.items():
+        t = t.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        out[k] = t.to("cpu", copy=True).numpy().reshape(-1).view(np.uint8)
+    return out
+
+
+def window_equal(path: Path, slots: dict, host: dict) -> bool:
+    """The window file at each slot holds the host copy's bytes."""
+    for k, raw in host.items():
+        disk = np.fromfile(path, dtype=np.uint8, count=raw.nbytes,
+                           offset=slots[k].offset)
+        if not np.array_equal(disk, raw):
+            return False
+    return True
+
+
+class PeakRss:
+    """The largest resident set of this process (``VmRSS``) seen while the
+    context is open, sampled every ``interval`` seconds by a thread.
+    ``start`` is the resident set on entry; :meth:`mark` closes an
+    interval: ``marks`` keeps, for each, its label, its peak and the
+    resident set at its end."""
+
+    def __init__(self, interval: float = 0.05):
+        import threading
+        self.interval = interval
+        self.peak = 0
+        self.marks: list[dict] = []
+        self._since = 0  # the peak since the last mark
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss() -> int:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+        raise RuntimeError("no VmRSS in /proc/self/status")
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            now = self.rss()
+            self.peak = max(self.peak, now)
+            self._since = max(self._since, now)
+            self._stop.wait(self.interval)
+
+    def mark(self, label: str) -> None:
+        now = self.rss()
+        self.marks.append({"label": label, "peak": max(self._since, now),
+                           "end": now})
+        self._since = now
+
+    def __enter__(self):
+        self.start = self._since = self.rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss())
+
+
+class SaveChecks:
+    """Checks each checkpoint save of a Trainer as it completes.
+
+    :meth:`hook` gives one ``Trainer.run`` its ``on_save``: before a save
+    it joins the previous one (as ``save_async`` itself does first),
+    checks that save, and keeps the phase's own host copy of the new
+    tree.  A save is checked against that copy: the window file read back
+    must hold its bytes, and the bytes flushed must equal the pages that
+    differ from what the manager last saved to that window, times the
+    page size.  In this schedule each save is its manager's first to its
+    window, so every page of the tree differs (and the check says so if
+    that changes)."""
+
+    def __init__(self, directory: Path, mark=lambda label: None):
+        self.directory = directory
+        self.mark = mark  # called before each save, with a label
+        self.pending = None
+        self.records: list[dict] = []
+
+    def hook(self, trainer, run: str):
+        """``on_save`` for ``trainer.run`` (a run makes a fresh manager)."""
+        targets: set[str] = set()  # the windows this run's manager saved to
+
+        def on_save(step, tree):
+            trainer.ckpt.wait()
+            self.verify()
+            self.mark(f"{run} to the save at step {step}")
+            self.pending = (trainer.ckpt, targets, step, host_tree(tree))
+
+        return on_save
+
+    def verify(self) -> None:
+        """Check the last save; its flush must have completed."""
+        if self.pending is None:
+            return
+        manager, targets, step, host = self.pending
+        self.pending = None
+        rec = manager.records[-1]
+        check(rec["step"] == step, f"save at step {step} not committed: "
+              f"{manager.records}")
+        check(rec["target"] not in targets,
+              f"step {step}: a second save to window {rec['target']} by one "
+              "manager; count the pages that differ from its last save")
+        targets.add(rec["target"])
+        pages = sum(-(-a.nbytes // PAGE) for a in host.values())
+        check(rec["bytes"] == pages * PAGE,
+              f"step {step}: flushed {rec['bytes']} bytes, the tree's "
+              f"changed pages give {pages * PAGE}")
+        path = self.directory / f"ckpt_{rec['target']}.bin"
+        check(window_equal(path, manager.windows[rec["target"]].slots, host),
+              f"step {step}: {path.name} differs from the tree saved")
+        self.records.append(rec)
+
+
+def run_training(cfg, *, device, directory: Path, seq: int,
+                 batch: int = TRAIN["batch"],
+                 microbatches: int = TRAIN["microbatches"], log=print,
+                 mark=lambda label: None) -> dict:
+    """Phase 6: the ``Trainer`` on ``cfg`` (random parameters from seed 0,
+    made on ``device``) under deterministic algorithms.  Run A trains
+    TRAIN["steps"] fused steps; run B the same with asynchronous window
+    checkpoints every TRAIN["ckpt_every"] steps, stopped after
+    TRAIN["kill_after"]; a fresh manager restores the newest checkpoint;
+    run C, a fresh Trainer on the same directory, restores and continues.
+    C's final params, moments and step, and its losses, must equal A's bit
+    for bit.  Then TRAIN["offload_steps"] offload-mode steps.  ``mark``
+    is called with a label at the end of each stretch of the phase (the
+    host memory is read there).  Returns the measurements."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import param_specs
+    from repro_torch.train import (AdamWConfig, TrainConfig, Trainer,
+                                   adamw_update)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    opt = AdamWConfig(**TRAIN_OPT)
+    ds = SyntheticLM(cfg, batch=batch, seq=seq, microbatches=microbatches)
+    nparams = sum(int(np.prod(s.shape)) for s in param_specs(cfg).values())
+    steps, every, kill = (TRAIN[k] for k in ("steps", "ckpt_every",
+                                             "kill_after"))
+    out = {"nparams": nparams, "tokens_per_step": batch * microbatches * seq}
+
+    class Stream:
+        def __init__(self, start=0):
+            self.step = start
+
+        def __next__(self):
+            self.step += 1
+            return ds.batch_at(self.step - 1)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def tcfg(**kw):
+        return TrainConfig(steps=steps, microbatches=microbatches,
+                           log_every=0, **kw)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        # run A: uninterrupted, no checkpoint; step times synchronised
+        marks = []
+
+        def timed(step, rec):
+            sync()
+            marks.append(time.perf_counter())
+
+        if cuda:
+            torch.cuda.synchronize(dev)  # CUDA starts before the reset
+            torch.cuda.reset_peak_memory_stats(dev)
+        trA = Trainer(cfg, opt, tcfg(), device=dev)
+        pA, oA = trA.run(Stream(), on_step=timed)
+        lossA = [m["loss"] for m in trA.metrics_log]
+        step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        out["losses"] = lossA
+        out["step_ms"] = step_ms
+        out["step_ms_median"] = float(np.median(step_ms))
+        out["tokens_per_s"] = (out["tokens_per_step"]
+                               / (out["step_ms_median"] / 1e3))
+        if cuda:
+            out["peak_device_bytes_run_a"] = torch.cuda.max_memory_allocated(
+                dev)
+            probe = {k: torch.from_numpy(v).to(dev)
+                     for k, v in ds.batch_at(steps).items()}
+            out["step_profile"] = device_profile(lambda: adamw_update(
+                pA, trA.loss_and_grads(pA, probe)[1], oA, opt))
+        want0 = math.log(cfg.vocab) + 0.5
+        check(abs(lossA[0] - want0) <= TRAIN_LOSS0_TOL,
+              f"step 0 loss {lossA[0]}, a random model's is about {want0}")
+        check(all(math.isfinite(x) for x in lossA), f"losses {lossA}")
+
+        mark("run A")
+
+        # run B: the same, checkpointing, "killed" after KILL_AFTER steps
+        saves = SaveChecks(directory, mark)
+        tcB = tcfg(ckpt_dir=str(directory), ckpt_every=every,
+                   ckpt_async=True)
+        tr = Trainer(cfg, opt, tcB, device=dev)
+        tr.run(Stream(), stop_after=kill, on_save=saves.hook(tr, "run B"))
+        saves.verify()
+        check([m["loss"] for m in tr.metrics_log] == lossA[:kill],
+              "run B's losses differ from run A's")
+        tr.close()
+        mark("run B's last save, checked; run B closed")
+
+        # run C: a fresh Trainer on the same directory restores the newest
+        # manifest (its step and CRCs validate) and continues
+        tr = Trainer(cfg, opt, tcB, device=dev)
+
+        def restored_mark(step, rec):
+            if step == kill:
+                mark("run C's restore and first step")
+
+        pC, oC = tr.run(Stream(kill), on_step=restored_mark,
+                        on_save=saves.hook(tr, "run C"))
+        saves.verify()
+        restored = tr.ckpt.restore_records
+        check(tr.restored_step == kill and len(restored) == 1
+              and not restored[0]["fell_back"],
+              f"run C restored {restored}, not step {kill}")
+        out["restore_ms"] = restored[0]["ms"]
+        lossC = [m["loss"] for m in tr.metrics_log]
+        check(lossC == lossA[kill:],
+              f"run C's losses {lossC} differ from run A's {lossA[kill:]}")
+        same = {k: torch.equal(pC[k], pA[k]) and torch.equal(oC["m"][k],
+                                                             oA["m"][k])
+                and torch.equal(oC["v"][k], oA["v"][k]) for k in pA}
+        check(all(same.values()),
+              "run C's params or moments differ from run A's: "
+              f"{sorted(k for k, v in same.items() if not v)}")
+        check(torch.equal(oC["step"], oA["step"]), "run C's step differs")
+        tr.close()
+        mark("run C's last save, checked; run C closed")
+        out["saves"] = saves.records
+        if cuda:
+            out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        del pA, oA, pC, oC, trA, tr
+
+        # offload mode: bf16 params on the device, OutOfCoreAdamW walking
+        # its window on the host, synced at the last step
+        n_off = TRAIN["offload_steps"]
+        oo_dir = directory / "offload"
+        tr = Trainer(cfg, opt, TrainConfig(
+            steps=n_off, microbatches=microbatches, log_every=0,
+            mode="offload", ckpt_dir=str(oo_dir), ckpt_every=n_off),
+            device=dev)
+        t0 = time.perf_counter()
+        pO, _ = tr.run(Stream())
+        out["offload_s"] = time.perf_counter() - t0
+        out["offload_losses"] = [m["loss"] for m in tr.metrics_log]
+        check(all(math.isfinite(x) for x in out["offload_losses"]),
+              f"offload losses {out['offload_losses']}")
+        path = oo_dir / "optstate.bin"
+        check(path.exists(), f"{path} missing")
+        masters = tr.offload_opt.masters()
+        slots = tr.offload_opt.state.slots
+        check(window_equal(path, {k: slots[f"master/{k}"] for k in masters},
+                           {k: v.reshape(-1).view(np.uint8)
+                            for k, v in masters.items()}),
+              "offload: the window file differs from the masters")
+        check(all(torch.equal(torch.from_numpy(masters[k]).to(
+            dev, torch.bfloat16), v) for k, v in pO.items()),
+              "offload: the params are not the masters in bf16")
+        tr.close()
+        mark("offload")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def training_phase(dev, log=print) -> dict:
+    """Phase 6 at internlm2-1.8b's full widths (depth cut to SMOKE_LAYERS,
+    its own remat) on the train_4k shape cut to one card; no kernel of the
+    package may launch (the training path runs none)."""
+    from repro_torch.configs import SHAPES, get_config
+    mods = [importlib.import_module(f"repro_torch.kernels.{name}")
+            for name in BUILD]
+    for mod in mods:
+        mod.launches = 0
+    cfg = smoke_config()
+    shape = SHAPES[TRAIN["shape"]]
+    gbatch = TRAIN["batch"] * TRAIN["microbatches"]
+    log(f"reduced: n_layers {get_config(cfg.name).n_layers}->{cfg.n_layers} "
+        f"(host memory: about five copies of the checkpoint tree at once, "
+        f"run time limit and disk); {shape.name} global batch "
+        f"{shape.batch}->{gbatch} (one card: {TRAIN['batch']} sequences x "
+        f"{TRAIN['microbatches']} microbatches), seq {shape.seq}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    TRAIN_DIR.mkdir(parents=True)
+    try:
+        with PeakRss() as rss:
+            out = run_training(cfg, device=dev, directory=TRAIN_DIR,
+                               seq=shape.seq, log=log, mark=rss.mark)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out["peak_host_rss_bytes"] = rss.peak  # sampled every 50 ms
+    out["host_rss_at_start_bytes"] = rss.start
+    out["host_rss_stretches"] = rss.marks
+    out["kernel_launches"] = {name: mod.launches
+                              for name, mod in zip(BUILD, mods)}
+    check(not any(out["kernel_launches"].values()),
+          f"the training path launched a kernel: {out['kernel_launches']}")
+    return out
+
 
 # -- measurements ----------------------------------------------------------------
 
@@ -1412,7 +1769,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.serve import exact_float32
+    from repro_torch.convert import exact_float32
 
     exact_float32()  # the plain versions' float32 products stay float32
     dev = torch.device("cuda", 0)
@@ -1576,10 +1933,21 @@ def main() -> int:
         "comparator": comparator_row("rg_lru", m, rg_err["comparator"],
                                      on_paths["rg_lru"])})
     marks.append(time.perf_counter())
+
+    # phase 6: training with window checkpoints (no kernel of the package
+    # runs on this path; the counts are set to 0 here and must stay 0)
+    train = training_phase(dev)
+    prof = train.pop("step_profile")
+    saves = train.pop("saves")
+    print(f"train ({card}): " + json.dumps(train))
+    print(f"train step profile, accumulation over {TRAIN['microbatches']} "
+          f"microbatches + AdamW ({card}): " + json.dumps(prof))
+    print(f"train saves ({card}): " + json.dumps(saves))
+    marks.append(time.perf_counter())
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(
             ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
-             "phase 5"), marks, marks[1:])}))
+             "phase 5", "phase 6"), marks, marks[1:])}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from ..models.config import ModelConfig
 from . import internlm2_1p8b, mamba2_2p7b, recurrentgemma_2b
-from .base import reduce_for_smoke
+from .base import (SHAPES, Shape, batch_specs, cache_len_for, decode_specs,
+                   reduce_for_smoke, shape_applicable)
 
 ARCHS = {
     "internlm2-1.8b": internlm2_1p8b.config,
@@ -25,4 +26,6 @@ def get_config(name: str, *, smoke: bool = False) -> ModelConfig:
     return reduce_for_smoke(cfg) if smoke else cfg
 
 
-__all__ = ["ARCHS", "get_config", "ModelConfig", "reduce_for_smoke"]
+__all__ = ["ARCHS", "get_config", "ModelConfig", "reduce_for_smoke", "SHAPES",
+           "Shape", "batch_specs", "cache_len_for", "decode_specs",
+           "shape_applicable"]

@@ -1,8 +1,6 @@
-"""Config helpers: the smoke-test reduction.
+"""Config helpers: smoke-test reduction + batch/cache shape specs per cell.
 
-The counterpart of ``repro.configs.base``, trimmed to
-:func:`reduce_for_smoke`; the cell shapes (``SHAPES``, ``batch_specs``,
-...) wait for the config/data item of ROADMAP queue A.
+The counterpart of ``repro.configs.base``, field for field.
 """
 
 from __future__ import annotations
@@ -10,8 +8,10 @@ from __future__ import annotations
 import dataclasses
 
 from ..models.config import ModelConfig
+from ..models.spec import ParamSpec
 
-__all__ = ["reduce_for_smoke"]
+__all__ = ["reduce_for_smoke", "Shape", "SHAPES", "shape_applicable",
+           "batch_specs", "decode_specs", "cache_len_for"]
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
@@ -47,3 +47,76 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     if cfg.frontend == "vlm_stub":
         kw.update(img_tokens=8)
     return dataclasses.replace(cfg, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    kind: str       # train | prefill | decode
+    seq: int
+    batch: int
+
+
+SHAPES: dict[str, Shape] = {
+    "train_4k": Shape("train_4k", "train", 4096, 256),
+    "prefill_32k": Shape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": Shape("decode_32k", "decode", 32768, 128),
+    "long_500k": Shape("long_500k", "decode", 524288, 1),
+}
+
+# long_500k requires sub-quadratic decode state: SSM and the RG-LRU hybrid
+# qualify (O(1)/bounded state); pure full-attention archs are skipped.
+_SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: Shape) -> tuple[bool, str]:
+    if shape.name == "long_500k" and cfg.family not in _SUBQUADRATIC_FAMILIES:
+        return False, "full-attention arch: 500k decode cache/attn infeasible (skip per assignment)"
+    return True, ""
+
+
+def _text_len(cfg: ModelConfig, seq: int) -> int:
+    return seq - cfg.img_tokens if cfg.frontend == "vlm_stub" else seq
+
+
+def batch_specs(cfg: ModelConfig, shape: Shape) -> dict[str, ParamSpec]:
+    """Train/prefill input specs (ShapeDtypeStruct-ready, with logical axes)."""
+    B, S = shape.batch, shape.seq
+    St = _text_len(cfg, S)
+    specs = {
+        "inputs": ParamSpec((B, St), "int32", ("batch", None)),
+        "targets": ParamSpec((B, St), "int32", ("batch", None)),
+    }
+    if cfg.frontend == "vlm_stub":
+        specs["patches"] = ParamSpec((B, cfg.img_tokens, cfg.d_model), "bfloat16",
+                                     ("batch", None, None))
+    if cfg.is_encdec:
+        if shape.kind == "prefill":
+            # prefill = encode the long audio; short decoder start prompt
+            specs["frames"] = ParamSpec((B, S, cfg.d_model), "bfloat16",
+                                        ("batch", None, None))
+            for k in ("inputs", "targets"):
+                specs[k] = ParamSpec((B, 8), "int32", ("batch", None))
+        else:
+            specs["frames"] = ParamSpec((B, S, cfg.d_model), "bfloat16",
+                                        ("batch", None, None))
+    if shape.kind == "prefill":
+        specs.pop("targets", None)
+    return specs
+
+
+def decode_specs(cfg: ModelConfig, shape: Shape) -> dict[str, ParamSpec]:
+    B = shape.batch
+    return {
+        "tokens": ParamSpec((B, 1), "int32", ("batch", None)),
+        "pos": ParamSpec((), "int32", ()),
+    }
+
+
+def cache_len_for(cfg: ModelConfig, shape: Shape) -> tuple[int, int]:
+    """(decoder cache length, encoder context length) for a cell."""
+    if cfg.is_encdec:
+        if shape.kind == "prefill":
+            return 8, shape.seq
+        return shape.seq, cfg.enc_seq
+    return shape.seq, 0

@@ -10,6 +10,8 @@ directions: the bits never go through float32.
 
 Dtypes are matched by name and item size (:func:`dtype_matches`), which
 works for bfloat16 on both sides without a numpy bfloat16 type.
+:func:`exact_float32` keeps float32 products in float32 on the card, for
+the serving engine and the trainer alike.
 """
 
 from __future__ import annotations
@@ -19,9 +21,18 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["dtype_name", "dtype_matches", "params_from_numpy",
+__all__ = ["dtype_name", "dtype_matches", "exact_float32", "params_from_numpy",
            "resolve_device", "tensor_from_stored", "to_host_f32",
            "tree_from_numpy", "tree_to_numpy"]
+
+
+def exact_float32() -> None:
+    """Float32 products stay float32 on the card.  TF32 keeps about three
+    decimal digits, which would break the float32 parity with the
+    reference (PyTorch turns TF32 off for matmul but on for cuDNN by
+    default; both are set here, for the whole process)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def dtype_name(dtype: Any) -> str:
@@ -108,8 +119,10 @@ def tensor_from_stored(a: np.ndarray, dtype: Any,
                        device: str | torch.device = "cuda") -> torch.Tensor:
     """An array read back from a window slot of ``dtype`` -- a bfloat16
     slot stores its bits as ``uint16`` -- as a tensor of that dtype on
-    ``device`` (copies)."""
-    a = np.array(a, order="C")
+    ``device``.  ``a`` is the caller's private copy (``Window.get`` returns
+    one): on the CPU the tensor shares its memory, so a restored tree is
+    not held twice on the host."""
+    a = np.asarray(a, order="C")
     if dtype_name(dtype) == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:

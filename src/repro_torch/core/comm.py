@@ -16,6 +16,8 @@ Selection: ``Communicator(n, transport="inproc")`` explicitly, or via the
 environment (``REPRO_TRANSPORT`` / ``REPRO_NRANKS`` / ``REPRO_RANK``) with
 :meth:`Communicator.from_env` -- the launcher's rank bootstrap.  Collectives
 (``barrier``/``allreduce``/``bcast``) delegate to the transport.
+Liveness (``dead_ranks``, ``probe``, ``mark_dead``, ``mark_alive``) is the
+reference's: it feeds :class:`~repro_torch.core.resilience.FailureDetector`.
 Replicated windows and ``rebuild_rank`` are not ported yet (ROADMAP queue
 A, resilience).
 """
@@ -49,6 +51,8 @@ class Communicator:
             self._owns_transport = True
         self._windows: list = []
         self.barrier_count = 0
+        # ranks known dead (probe- or error-detected, or marked by a test)
+        self._dead: set[int] = set()
         # sub-communicator bookkeeping (identity mapping at the top level)
         self.color: int | None = None
         self.parent_ranks: tuple[int, ...] = tuple(range(size))
@@ -129,6 +133,44 @@ class Communicator:
             return self.parent_ranks.index(parent_rank)
         except ValueError:
             return None
+
+    # -- liveness -------------------------------------------------------------
+    @property
+    def dead_ranks(self) -> set[int]:
+        """Ranks currently considered dead."""
+        return self._dead
+
+    def probe(self, rank: int) -> bool:
+        """Liveness of ``rank``: False once marked dead, else the
+        transport's :meth:`~repro_torch.core.transport.base.Transport.probe`.
+        A failed probe marks the rank dead."""
+        if rank < 0 or rank >= self.size:
+            raise ValueError(
+                f"probe rank {rank} outside communicator of size {self.size}")
+        if rank in self._dead:
+            return False
+        if rank == self.rank:
+            return True
+        alive = self.transport.probe(rank)
+        if not alive:
+            self._dead.add(rank)
+        return alive
+
+    def mark_dead(self, rank: int) -> None:
+        """Record ``rank`` as dead (error- or probe-detected, or a simulated
+        failure in tests) until :meth:`mark_alive`."""
+        if 0 <= rank < self.size:
+            self._dead.add(rank)
+
+    def mark_alive(self, rank: int) -> None:
+        self._dead.discard(rank)
+
+    def rebuild_rank(self, rank: int) -> int:
+        """Not ported: rebuilding a rank from replicas needs replicated
+        windows."""
+        raise NotImplementedError(
+            "Communicator.rebuild_rank is not ported to repro_torch yet: see "
+            "ROADMAP.md queue A, A3 'resilience'")
 
     # -- window registry ----------------------------------------------------
     def _register(self, win) -> None:

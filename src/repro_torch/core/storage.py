@@ -651,8 +651,15 @@ class CachedBacking(_BackingBase):
                 slots = self._slot_of[b0:b1]
                 resident = slots >= 0
                 if resident.all() and b1 * self.page_size <= self.size:
-                    buf = self._slots[slots].reshape(-1)
-                    self.file.pwrite(b0 * self.page_size, buf.tobytes())
+                    # written from the cache itself where the run's slots
+                    # are consecutive (as a whole-window put leaves them),
+                    # else from one gathered copy: a run can be the window
+                    s0 = int(slots[0])
+                    if (np.diff(slots) == 1).all():
+                        buf = self._slots[s0:s0 + len(slots)].reshape(-1)
+                    else:
+                        buf = self._slots[slots].reshape(-1)
+                    self.file.pwrite(b0 * self.page_size, buf)
                     flushed += buf.nbytes
                     continue
                 for blk in range(b0, b1):

@@ -419,6 +419,17 @@ class Transport(abc.ABC):
         """Transport for a sub-group; local rank ``i`` maps to parent
         ``ranks[i]``."""
 
+    # -- liveness ----------------------------------------------------------
+    def probe(self, rank: int) -> bool:
+        """Is ``rank`` able to make progress?  Never raises for a dead rank:
+        failure detectors want a boolean.  In-process ranks cannot die on
+        their own, so this default (the ``inproc`` backend's) is True; the
+        communicator reports a rank dead once it is marked so."""
+        if rank < 0 or rank >= self.size:
+            raise ValueError(
+                f"probe rank {rank} outside transport of size {self.size}")
+        return True
+
     # -- capabilities / lifecycle -----------------------------------------
     @property
     def is_local(self) -> bool:

@@ -1,13 +1,17 @@
-"""Attention: the prefill kernel in the model layout, and the decode path.
+"""Attention: the prefill kernel in the model layout, the training
+attention, and the decode path.
 
 The counterpart of ``repro.models.attention``.  The reference's
 ``blockwise_attention`` (an online-softmax scan in XLA) is what its docstring
-says the Pallas kernel replaces on the accelerator; here
+says the Pallas kernel replaces on the accelerator for a forward; here
 :func:`prefill_attention` takes that role and calls
 :func:`repro_torch.kernels.ops.flash_attention`: the CUDA kernel for CUDA
-tensors, its plain version for CPU tensors.  The decode functions are plain
-PyTorch, as they are XLA code in the reference; :func:`full_attention` is a
-test oracle only.
+tensors, its plain version for CPU tensors.  Training differentiates
+through attention, and no kernel has a backward (neither has the TPU
+kernel), so the loss runs :func:`blockwise_attention`, the reference's
+online-softmax scan in plain PyTorch, as the reference's loss runs it in
+XLA.  The decode functions are plain PyTorch, as they are XLA code in the
+reference; :func:`full_attention` is a test oracle only.
 
 Layout: q (B, S, H, dh); k, v (B, T, K, dh) with H = K * G (GQA).
 Numerical scheme: finite masking (-1e30, never -inf) keeps fully masked
@@ -17,11 +21,12 @@ rows NaN-free.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from .layers import f32_einsum
 
-__all__ = ["prefill_attention", "decode_attention",
+__all__ = ["blockwise_attention", "prefill_attention", "decode_attention",
            "decode_attention_two_tier", "full_attention"]
 
 _NEG = -1e30
@@ -36,6 +41,63 @@ def _mask_bias(q_pos, kv_pos, *, causal: bool, window: int | None,
     if window is not None:
         m = m & (q_pos[:, None] - kv_pos[None, :] < window)
     return torch.where(m, 0.0, _NEG)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        q_offset: int = 0, q_block: int = 512,
+                        kv_block: int = 1024,
+                        scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention, differentiable (the reference's
+    ``blockwise_attention``: the same blocks, masks and casts).
+
+    q: (B, S, H, dh); k, v: (B, T, K, dh) with H = K * G (GQA).
+    ``q_offset``: absolute position of q[0].  Returns (B, S, H, dh) in
+    q.dtype.  No S x T score tensor is made: one (q block, kv block) tile
+    at a time.  A causal kv block that starts after a q block's last
+    position is skipped: every one of its scores is masked, so its
+    probabilities are exactly 0 and the scan leaves the carry as it was.
+    """
+    B, S, H, dh = q.shape
+    _, T, K, dhv = v.shape
+    G = H // K
+    scale = dh ** -0.5 if scale is None else scale
+    qb = min(q_block, max(16, S))
+    kb = min(kv_block, max(16, T))
+    nq, nk = -(-S // qb), -(-T // kb)
+    q_p = F.pad(q, (0, 0, 0, 0, 0, nq * qb - S))
+    k_p = F.pad(k, (0, 0, 0, 0, 0, nk * kb - T))
+    v_p = F.pad(v, (0, 0, 0, 0, 0, nk * kb - T))
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        q_pos = q_offset + qi * qb + torch.arange(qb, device=dev)
+        qblk = q_p[:, qi * qb:(qi + 1) * qb].reshape(B, qb, K, G, dh)
+        qs = qblk * torch.tensor(scale, dtype=qblk.dtype)
+        m = torch.full((B, qb, K, G), _NEG, dtype=torch.float32, device=dev)
+        num = torch.zeros((B, qb, K, G, dhv), dtype=torch.float32, device=dev)
+        den = torch.zeros((B, qb, K, G), dtype=torch.float32, device=dev)
+        for kj in range(nk):
+            lo = kj * kb
+            if causal and lo > q_offset + (qi + 1) * qb - 1:
+                break
+            kj_, vj = k_p[:, lo:lo + kb], v_p[:, lo:lo + kb]
+            kv_pos = lo + torch.arange(kb, device=dev)
+            s = f32_einsum("bqkgd,btkd->bqkgt", qs, kj_)
+            s = s + _mask_bias(q_pos, kv_pos, causal=causal, window=window,
+                               t_actual=T)[None, :, None, None, :]
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            num = num * alpha[..., None] + f32_einsum(
+                "bqkgt,btkd->bqkgd", p.to(vj.dtype), vj)
+            den = den * alpha + p.sum(dim=-1)
+            m = m_new
+        # cast per block: the stacked output stays in q.dtype
+        outs.append((num / torch.clamp(den, min=1e-30)[..., None])
+                    .to(q.dtype))
+    out = torch.stack(outs, dim=1).reshape(B, nq * qb, H, dhv)[:, :S]
+    return out.to(q.dtype)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -3,7 +3,7 @@
 The counterpart of ``repro.models.griffin``, cast for cast.  The gated
 linear recurrence h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t) is
 elementwise, so the gates (which depend only on x_t) come from two float32
-matrix products (TF32 off: :func:`repro_torch.serve.exact_float32`), and
+matrix products (TF32 off: :func:`repro_torch.convert.exact_float32`), and
 the recurrence itself is the ``rg_lru`` kernel
 (:func:`repro_torch.kernels.ops.rg_lru_scan`: the CUDA kernel for CUDA
 tensors, its plain sequential version for CPU tensors).  The reference's

@@ -1,13 +1,16 @@
 """Language model assembly for the dense, SSM and hybrid families: specs,
-prefill, decode.
+loss, prefill, decode.
 
 The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks,
 Mamba-2 ``ssm`` blocks and RecurrentGemma's ``rglru`` and ``local_attn``
 blocks: ``param_specs``, ``init_cache_specs``, the prefill and decode
 forwards and their factories; names, shapes, dtypes, logical axes and init
-kinds are the reference's.  The loss (training), and the MoE, MLA,
-encoder-decoder and VLM blocks wait for later slices (ROADMAP queue A);
-asking for one raises ``NotImplementedError`` naming its item.
+kinds are the reference's.  ``make_loss_fn`` (training) covers dense
+``attn`` blocks: it runs :func:`~.attention.blockwise_attention`, as the
+reference's loss does, and autograd differentiates it.  Training of the
+other ported kinds, and the MoE, MLA, encoder-decoder and VLM blocks, wait
+for later slices (ROADMAP queue A); asking for one raises
+``NotImplementedError`` naming its item.
 
 Conventions: params and caches are flat dicts ``g{gi}/p{pj}/<name>`` with
 a leading "layers" axis of length ``reps``; the reference's scan over that
@@ -43,17 +46,21 @@ order does not matter to the softmax.
 
 from __future__ import annotations
 
-import torch
+import functools
 
-from .attention import (decode_attention, decode_attention_two_tier,
-                        prefill_attention)
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from .attention import (blockwise_attention, decode_attention,
+                        decode_attention_two_tier, prefill_attention)
 from .config import ModelConfig
 from .griffin import griffin_decode_step, griffin_forward
 from .layers import mlp, rms_norm, rope
 from .spec import ParamSpec, sub
 from .ssm import mamba2_decode_step, mamba2_forward
 
-__all__ = ["param_specs", "init_cache_specs", "cast_params",
+__all__ = ["param_specs", "init_cache_specs", "cast_params", "make_loss_fn",
            "make_prefill_fn", "make_decode_fn"]
 
 # parameters kept in f32 inside the (bf16) forward pass
@@ -65,6 +72,8 @@ _UNPORTED = {
     "xattn": "item 12 (frontends)", "enc_attn": "item 12 (frontends)",
 }
 _PORTED = {"attn", "ssm", "rglru", "local_attn"}
+# the kinds whose training forward is ported
+_TRAINED = {"attn"}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -90,9 +99,10 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def cast_params(cfg: ModelConfig, params):
     """Cast matmul weights to the compute dtype (norms/gates stay f32); the
-    reference's ``_cast_params``.  The factories below take parameters
-    cast by this, once, by their caller (``Engine`` does it at
-    construction)."""
+    reference's ``_cast_params``.  The prefill and decode factories take
+    parameters cast by this, once, by their caller (``Engine`` does it at
+    construction); the loss casts inside, out of place, so autograd sees
+    the cast and the gradients come back in the parameters' dtype."""
     dt = getattr(torch, cfg.dtype)
 
     def cast(name, a):
@@ -388,7 +398,10 @@ def _layers(cfg, params, cache):
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, tokens):
-    x = params["embed/tok"][tokens].to(getattr(torch, cfg.dtype))
+    # index_select: its backward is deterministic on the card under
+    # torch.use_deterministic_algorithms (indexing's need not be)
+    x = params["embed/tok"].index_select(0, tokens.reshape(-1)).reshape(
+        *tokens.shape, -1).to(getattr(torch, cfg.dtype))
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -403,6 +416,106 @@ def _logits(cfg, params, x):
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Training forward (dense ``attn`` blocks)
+# ---------------------------------------------------------------------------
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    _check_ported(cfg)
+    kinds = {kind for _, pattern in cfg.groups() for kind in pattern}
+    untrained = sorted(kinds - _TRAINED)
+    if untrained:
+        raise _unported(f"training of {untrained[0]!r} blocks",
+                        "item 16 (training of ssm, rglru and local_attn "
+                        "blocks)")
+
+
+def _block_train(cfg, p, x, positions):
+    """Full-sequence block application (train): the reference's
+    ``_block_train`` for ``attn`` blocks (the only trained kind; with no
+    MoE block, the reference's ``aux`` loss stays 0)."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, h, positions)
+    B, S = x.shape[:2]
+    o = blockwise_attention(q, k, v, causal=True)
+    x = x + o.reshape(B, S, -1) @ p["wo"]
+    return _mlp_res(cfg, p, x)
+
+
+# the products that remat="dots" keeps (the reference's
+# checkpoint_dots_with_no_batch_dims): plain matrix products; the batched
+# ones of attention are recomputed with everything else
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """The reference's ``_remat``: ``"full"`` recomputes the layer in the
+    backward, ``"dots"`` saves its plain matrix products and recomputes the
+    rest, ``"none"`` saves everything."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_dots)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
+
+
+def _scan_group_train(cfg, params, gi, reps, pattern, x, positions):
+    """The reference's scan over a group's stacked layers, as a loop; each
+    layer is one remat unit."""
+    gp = sub(params, f"g{gi}")
+
+    def body(x, layer_params):
+        for pj in range(len(pattern)):
+            x = _block_train(cfg, sub(layer_params, f"p{pj}"), x, positions)
+        return x
+
+    body = _remat(cfg, body)
+    for layer in range(reps):
+        x = body(x, {k: t[layer] for k, t in gp.items()})
+    return x
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """Returns loss(params, batch) -> (loss, metrics).
+
+    ``params``: the parameter tree as :func:`param_specs` gives it (not
+    cast).  batch: inputs (B,S) and targets (B,S) integer tensors on the
+    parameters' device (-1 = masked).  Masked next-token cross-entropy in
+    float32 through ``logsumexp``; metrics ``ce``, ``aux`` (0: no MoE) and
+    ``ntok``.
+    """
+    _check_trainable(cfg)
+
+    def loss_fn(params, batch):
+        params = cast_params(cfg, params)
+        x = _embed(cfg, params, batch["inputs"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        for gi, (reps, pattern) in enumerate(cfg.groups()):
+            x = _scan_group_train(cfg, params, gi, reps, pattern, x,
+                                  positions)
+        logits = _logits(cfg, params, x)
+        targets = batch["targets"]
+        mask = (targets >= 0).float()
+        tgt = torch.clamp(targets, min=0).long()
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
+        ce = (lse - tl.float()) * mask
+        ntok = torch.clamp(mask.sum(), min=1.0)
+        loss = ce.sum() / ntok
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return loss, {"ce": ce.sum() / ntok, "aux": aux, "ntok": ntok}
+
+    return loss_fn
 
 
 # ---------------------------------------------------------------------------

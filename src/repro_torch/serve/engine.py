@@ -16,14 +16,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..convert import resolve_device, tensor_from_stored, tree_to_numpy
+from ..convert import (exact_float32, resolve_device, tensor_from_stored,
+                       tree_to_numpy)
 from ..core.comm import Communicator
 from ..core.offload import WindowedPyTree
 from ..models import (cast_params, init_cache_specs, make_decode_fn,
                       make_prefill_fn)
 from ..models.config import ModelConfig
 
-__all__ = ["Engine", "SessionStore", "exact_float32"]
+__all__ = ["Engine", "SessionStore"]
 
 TOKENS_OUT = 4096  # the generated-token ring of a session
 
@@ -64,15 +65,6 @@ class SessionStore:
 
     def free(self):
         self.wt.free()
-
-
-def exact_float32() -> None:
-    """This slice's start: float32 products stay float32 on the card.  TF32
-    keeps about three decimal digits, which would break the float32 parity
-    with the reference (PyTorch turns TF32 off for matmul but on for cuDNN
-    by default; both are set here, for the whole process)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 class Engine:

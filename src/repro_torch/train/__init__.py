@@ -1,11 +1,10 @@
-"""Training state in storage windows: the out-of-core AdamW.
+"""Training: the Trainer with window checkpoints, on-device AdamW, and the
+out-of-core AdamW whose state lives in storage windows."""
 
-``OutOfCoreAdamW`` (:mod:`.offload_opt`) and the schedule it uses
-(:mod:`.optimizer`).  The Trainer and the fused on-device AdamW are a later
-slice of this package.
-"""
-
+from .loop import TrainConfig, Trainer
 from .offload_opt import OutOfCoreAdamW
-from .optimizer import AdamWConfig, cosine_schedule
+from .optimizer import (AdamWConfig, adamw_update, cosine_schedule,
+                        global_norm, init_opt_state)
 
-__all__ = ["OutOfCoreAdamW", "AdamWConfig", "cosine_schedule"]
+__all__ = ["OutOfCoreAdamW", "AdamWConfig", "cosine_schedule", "TrainConfig",
+           "Trainer", "adamw_update", "global_norm", "init_opt_state"]

@@ -32,7 +32,7 @@ from ..core.comm import Communicator
 from ..core.offload import WindowedPyTree
 from ..core.storage import mark_span
 from ..core.window import Request
-from .optimizer import AdamWConfig, cosine_schedule
+from .optimizer import AdamWConfig, _decayable, cosine_schedule
 
 __all__ = ["OutOfCoreAdamW"]
 
@@ -236,8 +236,3 @@ class OutOfCoreAdamW:
     def free(self) -> None:
         self.state.free()
 
-
-def _decayable(name: str) -> bool:
-    leaf = name.split("/")[-1]
-    return not ("norm" in leaf or leaf.startswith("b")
-                or leaf in ("A_log", "D", "dt_bias", "lam"))

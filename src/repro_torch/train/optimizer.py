@@ -1,25 +1,33 @@
-"""AdamW configuration and the warmup-cosine learning-rate schedule.
+"""AdamW with warmup-cosine schedule and global-norm clipping.
 
-The counterpart of ``repro.train.optimizer`` (``optimizer.py:16-34``),
-trimmed to what the out-of-core optimizer uses.  The reference computes the
-schedule in float32 (jnp arrays with weakly typed Python scalars), so this
-one does too, with each Python constant rounded to float32 where the
-reference rounds it.  PyTorch's float32 ``cos`` and XLA's can differ in the
-last place, so the learning rate may differ by one float32 ulp from the
-reference's at some steps.  ``adamw_update``, ``global_norm`` and
-``init_opt_state`` wait for the Trainer slice.
+The counterpart of ``repro.train.optimizer``.  The reference computes in
+float32 (jnp arrays with weakly typed Python scalars), so this module does
+too, with each Python constant rounded to float32 where the reference
+rounds it.  PyTorch's float32 ``cos`` and ``pow`` and XLA's can differ in
+the last place, so the learning rate and the bias corrections may differ by
+one float32 ulp from the reference's at some steps.
+
+The scalars of a step (learning rate, bias corrections) are computed on the
+host from the step count and enter the update as 0-d tensors on the
+parameters' device.  A division by one is a true division there: PyTorch's
+CUDA kernels multiply by the reciprocal of a host scalar divisor, and
+``scalar / tensor`` is a reciprocal times the scalar on every device, which
+the reference does not do.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Mapping
 
+import numpy as np
 import torch
 
 from ..convert import resolve_device
 
-__all__ = ["AdamWConfig", "cosine_schedule"]
+__all__ = ["AdamWConfig", "cosine_schedule", "init_opt_state", "adamw_update",
+           "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,3 +53,60 @@ def cosine_schedule(cfg: AdamWConfig, step,
                     / max(1, cfg.total_steps - cfg.warmup_steps), 0.0, 1.0)
     cos = 0.5 * (1 + torch.cos(math.pi * t))
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
+
+
+def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(g.float().square().sum() for g in tree.values()))
+
+
+def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
+    dev = next(iter(params.values())).device
+    return {
+        "m": {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+              for k, v in params.items()},
+        "v": {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+              for k, v in params.items()},
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def _decayable(name: str) -> bool:
+    leaf = name.split("/")[-1]
+    return not ("norm" in leaf or leaf.startswith("b")
+                or leaf in ("A_log", "D", "dt_bias", "lam"))
+
+
+def _f32(value, device) -> torch.Tensor:
+    """A float32 value as a 0-d tensor on ``device`` (filled there: no
+    host-to-device copy)."""
+    return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, cfg: AdamWConfig):
+    """One AdamW step on flat dicts.  Returns (params', state', stats); the
+    inputs are not modified."""
+    dev = state["step"].device
+    t = int(state["step"])
+    step = state["step"] + 1
+    lr = _f32(cosine_schedule(cfg, t, device="cpu"), dev)
+    gn = global_norm(grads)
+    scale = (torch.clamp(_f32(cfg.clip_norm, dev)
+                         / torch.clamp(gn, min=1e-12), max=1.0)
+             if cfg.clip_norm else 1.0)
+    n = np.float32(t + 1)
+    b1c = _f32(np.float32(1) - np.float32(cfg.b1) ** n, dev)
+    b2c = _f32(np.float32(1) - np.float32(cfg.b2) ** n, dev)
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        g = grads[k].float() * scale
+        m = cfg.b1 * state["m"][k] + (1 - cfg.b1) * g
+        v = cfg.b2 * state["v"][k] + (1 - cfg.b2) * g.square()
+        upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+        if cfg.weight_decay and _decayable(k):
+            upd = upd + cfg.weight_decay * p.float()
+        new_p[k] = (p.float() - lr * upd).to(p.dtype)
+        new_m[k] = m
+        new_v[k] = v
+    return new_p, {"m": new_m, "v": new_v, "step": step}, {"lr": lr,
+                                                           "gnorm": gn}

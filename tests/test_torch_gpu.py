@@ -35,7 +35,21 @@ that wraps its ring of stages many times (same bits twice), and at
 recurrentgemma-2b's prefill shape with a in Griffin's range; the first
 RG-LRU kernel (``rg_lru``), on no path now, is held the same way as a
 comparator.
+
+The training path runs no kernel of the package; its tests here hold the
+``Trainer`` on the card at smoke widths under
+``torch.use_deterministic_algorithms`` (whose cuBLAS products need
+``CUBLAS_WORKSPACE_CONFIG``, set below before CUDA starts): two identical
+fused steps give the same bits, a kill, restore and continue equals the
+uninterrupted run bit for bit, and the compression and offload modes run
+and lower the loss on a fixed batch.  One test runs here too: the
+``Trainer`` raises when CUDA is asked for and absent, and runs with
+``device="cpu"``.
 """
+
+import os
+
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import pytest
@@ -47,6 +61,9 @@ from repro_torch.kernels import (dirty_diff, flash_attention,
                                  ops, pack_diff, ref, rg_lru, ssd_scan,
                                  ssd_scan_tc, ssd_scan_tc32)
 from repro_torch.models.attention import prefill_attention
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticLM
+from repro_torch.train import AdamWConfig, TrainConfig, Trainer
 
 PAGE = 4096
 
@@ -655,3 +672,87 @@ def test_ssd_scan_comparator_matches_plain_version(cuda, shape):
     torch.cuda.synchronize()
     assert ssd_scan.launches == n0 + 1
     assert _rel(y, want) < 1e-4 and _rel(h, want_h) < 1e-4
+
+
+# -- the Trainer on the card ---------------------------------------------------
+
+@pytest.fixture
+def deterministic():
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _train(tcfg, device, data=None, **run):
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    ds = SyntheticLM(cfg, batch=2, seq=32, microbatches=tcfg.microbatches,
+                     seed=1)
+    fixed = ds.batch_at(0)
+    start = run.pop("start", 0)
+
+    class Stream:
+        step = start
+
+        def __next__(self):
+            Stream.step += 1
+            return fixed if data == "fixed" else ds.batch_at(Stream.step - 1)
+
+    tr = Trainer(cfg, AdamWConfig(lr=2e-3, warmup_steps=0, total_steps=100,
+                                  weight_decay=0.0), tcfg, device=device)
+    p, o = tr.run(Stream(), **run)
+    losses = [m["loss"] for m in tr.metrics_log]
+    restored = tr.restored_step
+    tr.close()
+    return p, o, losses, restored
+
+
+@pytest.mark.gpu
+def test_trainer_steps_are_deterministic(cuda, deterministic):
+    tc = TrainConfig(steps=2, microbatches=2, log_every=0)
+    p1, o1, l1, _ = _train(tc, cuda)
+    p2, o2, l2, _ = _train(tc, cuda)
+    assert l1 == l2
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]) and torch.equal(o1["m"][k],
+                                                         o2["m"][k]), k
+
+
+@pytest.mark.gpu
+def test_trainer_kill_restore_continue_is_exact(cuda, deterministic,
+                                                tmp_path):
+    pA, oA, lA, _ = _train(TrainConfig(steps=6, log_every=0), cuda)
+    tcB = TrainConfig(steps=6, log_every=0, ckpt_dir=str(tmp_path / "ck"),
+                      ckpt_every=2, ckpt_async=True)
+    _train(tcB, cuda, stop_after=4)
+    pC, oC, lC, restored = _train(tcB, cuda, start=4)
+    assert restored == 4 and lC == lA[4:]
+    for k in pA:
+        assert torch.equal(pA[k], pC[k]), k
+        assert torch.equal(oA["m"][k], oC["m"][k]), k
+        assert torch.equal(oA["v"][k], oC["v"][k]), k
+    assert torch.equal(oA["step"], oC["step"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["compression", "offload"])
+def test_trainer_modes_learn_a_fixed_batch(cuda, tmp_path, mode):
+    tc = (TrainConfig(steps=20, compression=True, log_every=0)
+          if mode == "compression" else
+          TrainConfig(steps=10, mode="offload", log_every=0,
+                      ckpt_dir=str(tmp_path / "oo"), ckpt_every=5))
+    p, _, losses, _ = _train(tc, cuda, data="fixed")
+    # the reference's limits (tests/test_train_serve.py)
+    assert losses[-1] < losses[0] - (0.5 if mode == "compression" else 0.0), \
+        losses
+    assert all(v.device.type == "cuda" for v in p.values())
+
+
+def test_trainer_needs_cuda_unless_cpu_is_asked():
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    tc = TrainConfig(steps=1, log_every=0)
+    if torch.cuda.is_available():
+        assert Trainer(cfg, AdamWConfig(), tc).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Trainer(cfg, AdamWConfig(), tc)
+    assert Trainer(cfg, AdamWConfig(), tc, device="cpu").device.type == "cpu"

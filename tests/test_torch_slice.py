@@ -134,6 +134,22 @@ def test_convert_roundtrip_keeps_bits():
         assert back[k].tobytes() == tree[k].tobytes()
 
 
+def test_tensor_from_stored_keeps_one_host_copy():
+    """A window read is already private: on the CPU the tensor shares it
+    (a restored tree is held once), with shape and bits kept, bfloat16
+    slots included."""
+    from repro_torch.convert import tensor_from_stored
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    t = tensor_from_stored(a, "float32", "cpu")
+    assert t.data_ptr() == a.ctypes.data and t.shape == (2, 3)
+    bits = np.array([0x3F80, 0xC000], dtype=np.uint16)  # 1.0, -2.0
+    t = tensor_from_stored(bits, "bfloat16", "cpu")
+    assert t.dtype == torch.bfloat16 and t.tolist() == [1.0, -2.0]
+    assert t.data_ptr() == bits.ctypes.data
+    s = tensor_from_stored(np.array(7, dtype=np.int32), "int32", "cpu")
+    assert s.shape == () and int(s) == 7
+
+
 def test_entry_points_default_to_cuda():
     """Allocating entry points default to the card and raise without one
     instead of falling back to the CPU."""
