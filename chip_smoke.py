@@ -133,13 +133,32 @@ into ``build/repro_torch``), and then:
   kernel of the package may launch in phase 6: the reference's training
   path runs none (its loss runs ``blockwise_attention`` in XLA, and no
   kernel has a backward).  Both windows are removed at the end.
+* phase 7 drives the MPI layer across processes, with the card as the
+  origin.  7a runs phase 2's configuration and traffic with the 6.06 GB
+  window owned by a spawned worker (``Communicator(1, transport="mp")``):
+  phase 2's checks, plus exactly one control message per sync reaching
+  the owner (a ``wsync`` with spans and mask when a page changed, a bare
+  ``sync`` when none did).  7b splits the masters by tensor into three
+  groups of about equal bytes, puts each into the storage window of one
+  of ranks 1-3 of ``Communicator(4, transport="mp")`` and syncs each
+  group's first phase-2 change there with ``sync_shards_from_device``
+  (flushed bytes = that rank's changed pages x 4096, one ``wsync`` each);
+  7c fills a 4 x 16,384-slot storage DHT to 80% with random keys
+  (``benchmarks/dht_bench.py``'s traffic; ``items()`` must equal a dict of
+  the keys); 7d runs ``MapReduce1S`` with a checkpoint a task over
+  ``benchmarks/mapreduce_bench.py``'s 24 tasks of 20,000 words (the
+  result must equal ``wordcount_reduce``).  7b-7d run under inproc and mp,
+  whose window files must be byte-identical.  A worker that cannot start
+  or a ``TransportError`` ends the run; nothing falls back to inproc.
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
 times, phase 6's step times, step profile and per-save split (host copy,
-staging, flush), and one JSON line ``{"kernels": [...]}`` with each of the seven
+staging, flush), phase 7's mp and inproc times, wire bytes and host
+memory, and one JSON line ``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
-library times (B3 and B4 have a bf16 and a float32 tensor-core kernel
+library times (B1 and B2 launch in phases 2, 7a and 7b: their launches
+are the sum, split in ``launches_by_phase``; B3 and B4 have a bf16 and a float32 tensor-core kernel
 each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
 with its launches in phases 3 to 5, counted there and required to be 0;
@@ -352,13 +371,17 @@ class _Timed:
 
 
 def run_main_path(cfg, *, device, directory: Path, seed: int = 0,
-                  on_sync=None, log=print) -> dict:
+                  on_sync=None, log=print, transport: str = "inproc") -> dict:
     """Phase 2: ``OutOfCoreAdamW`` over ``param_specs(cfg)`` with masters on
     ``device``; three ``sync_masters_from_device`` calls, each checked.
 
-    ``on_sync(i, change, masters, snapshot)`` runs after sync ``i`` and
-    before the snapshot takes the new masters.  Returns the counts and
-    per-sync records."""
+    ``transport`` is the one-rank communicator's: ``inproc`` (phase 2) or
+    ``mp`` (phase 7a), where a spawned worker process owns the storage
+    window and each sync must reach it as exactly one control message (a
+    ``wsync`` carrying spans and mask, or a bare ``sync`` when nothing
+    changed).  ``on_sync(i, change, masters, snapshot)`` runs after sync
+    ``i`` and before the snapshot takes the new masters.  Returns the
+    counts and per-sync records."""
     from repro_torch.configs import get_config
     from repro_torch.core import Communicator
     from repro_torch.kernels import dirty_diff, pack_diff
@@ -375,7 +398,13 @@ def run_main_path(cfg, *, device, directory: Path, seed: int = 0,
         f"{nparams * 4} bytes of float32 masters on {dev}, "
         f"{nparams * 12} bytes of optimizer window")
     masters = make_masters(cfg, seed, dev)
-    comm = Communicator(1)
+    t0 = time.perf_counter()
+    comm = Communicator(1, transport=transport)
+    world_s = time.perf_counter() - t0
+    channel = ChannelCount(comm.transport) if transport == "mp" else None
+    # the owner's resident set (its page cache lives there), sampled
+    owners = ([PeakRss(pid=comm.transport._procs[0].pid).__enter__()]
+              if transport == "mp" else [])
     opt = OutOfCoreAdamW(comm, {k: (s, np.float32) for k, s in shapes.items()},
                          str(directory), AdamWConfig())
     path = Path(directory) / "optstate.bin"
@@ -395,6 +424,9 @@ def run_main_path(cfg, *, device, directory: Path, seed: int = 0,
             apply_mutation(masters, change)
             want = changed_pages(slots, shapes, change) * PAGE
             timed.seconds = 0.0
+            wire0 = comm.transport.wire_stats_snapshot()
+            if channel is not None:
+                channel.clear()
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             # count only the main path's launches: 0 just before, read
@@ -413,6 +445,22 @@ def run_main_path(cfg, *, device, directory: Path, seed: int = 0,
                    "dirty_diff_launches": dirty_diff.launches,
                    "diff_pack_launches": pack_diff.launches,
                    "stats": st}
+            if channel is not None:
+                wire1 = comm.transport.wire_stats_snapshot()
+                rec["messages"] = list(channel.ops)
+                rec["spans_logical_bytes"] = (wire1["spans_logical_bytes"]
+                                              - wire0["spans_logical_bytes"])
+                rec["spans_wire_bytes"] = (wire1["spans_wire_bytes"]
+                                           - wire0["spans_wire_bytes"])
+                # the roofline policy's state after this sync: its encode
+                # rate and save ratio, moving averages of what it measured
+                rec["codec_policy"] = comm.transport.codec_policy.snapshot()
+                # one control message per sync reaches the owner: a wsync
+                # with spans and mask, or a bare sync when nothing changed
+                want_msgs = [(0, "wsync" if change else "sync")]
+                check(rec["messages"] == want_msgs,
+                      f"sync {i + 1}: control messages {rec['messages']}, "
+                      f"want {want_msgs}")
             check(flushed == want,
                   f"sync {i + 1}: flushed {flushed} bytes, changed pages "
                   f"give {want}")
@@ -437,9 +485,43 @@ def run_main_path(cfg, *, device, directory: Path, seed: int = 0,
             log("sync " + json.dumps({k: v for k, v in rec.items()
                                       if k != "stats"}))
     finally:
+        for o in owners:
+            o.__exit__(None, None, None)
+        if channel is not None:
+            channel.close()
         opt.free()
         comm.close()
-    return {"records": records, "launches": launches, "nparams": nparams}
+    return {"records": records, "launches": launches, "nparams": nparams,
+            "world_s": world_s,
+            "owner_peak_rss_bytes": [o.peak for o in owners] or None}
+
+
+class ChannelCount:
+    """The ``(rank, op)`` of every control-channel message an mp transport
+    sends, counted as ``tests/test_transport.py`` counts them: its
+    ``_call`` and ``_post`` are wrapped on the instance until
+    :meth:`close`."""
+
+    def __init__(self, transport):
+        self.ops: list[tuple[int, str]] = []
+        call, post = transport._call, transport._post
+        self._restore = (transport, call, post)
+
+        def counted_call(rank, msg):
+            self.ops.append((rank, msg[0]))
+            return call(rank, msg)
+
+        def counted_post(rank, msg):
+            self.ops.append((rank, msg[0]))
+            return post(rank, msg)
+
+        transport._call, transport._post = counted_call, counted_post
+
+    def clear(self) -> None:
+        self.ops.clear()
+
+    def close(self) -> None:
+        transport, transport._call, transport._post = self._restore
 
 
 # -- phase 1: kernels against their plain versions ----------------------------
@@ -1379,14 +1461,15 @@ def window_equal(path: Path, slots: dict, host: dict) -> bool:
 
 
 class PeakRss:
-    """The largest resident set of this process (``VmRSS``) seen while the
-    context is open, sampled every ``interval`` seconds by a thread.
-    ``start`` is the resident set on entry; :meth:`mark` closes an
-    interval: ``marks`` keeps, for each, its label, its peak and the
-    resident set at its end."""
+    """The largest resident set (``VmRSS``) of this process, or of process
+    ``pid``, seen while the context is open, sampled every ``interval``
+    seconds by a thread.  ``start`` is the resident set on entry;
+    :meth:`mark` closes an interval: ``marks`` keeps, for each, its label,
+    its peak and the resident set at its end."""
 
-    def __init__(self, interval: float = 0.05):
+    def __init__(self, interval: float = 0.05, pid: int | str = "self"):
         import threading
+        self.status = Path(f"/proc/{pid}/status")
         self.interval = interval
         self.peak = 0
         self.marks: list[dict] = []
@@ -1394,12 +1477,11 @@ class PeakRss:
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
-    @staticmethod
-    def rss() -> int:
-        for line in Path("/proc/self/status").read_text().splitlines():
+    def rss(self) -> int:
+        for line in self.status.read_text().splitlines():
             if line.startswith("VmRSS:"):
                 return int(line.split()[1]) * 1024
-        raise RuntimeError("no VmRSS in /proc/self/status")
+        raise RuntimeError(f"no VmRSS in {self.status}")
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -1667,6 +1749,299 @@ def training_phase(dev, log=print) -> dict:
                               for name, mod in zip(BUILD, mods)}
     check(not any(out["kernel_launches"].values()),
           f"the training path launched a kernel: {out['kernel_launches']}")
+    return out
+
+
+# -- phase 7: the MPI layer across processes ----------------------------------
+
+MP_DIR = WORKDIR / "mp"
+# 7c: benchmarks/dht_bench.py's traffic (random keys from seed 0, op "sum",
+# 80% of the slots) at a larger table; 7d: benchmarks/mapreduce_bench.py's
+# 24 tasks of 20,000 words over its 20-word vocabulary
+MP_DHT = dict(ranks=4, lv_entries=1 << 14, fill=0.8)
+# host memory phase 7 may take, checked for this process's growth over
+# its start of the phase and for the peak of 7a's window owner: a quarter
+# of a 96 GiB host each, four times the 6.06 GB window.  A codec that
+# built its run arrays over a 758 MB incompressible sync took 39 GB here
+MP_HOST_LIMIT = 24_000_000_000
+MP_MR = dict(ranks=4, lv_entries=1 << 12, tasks=24, words=20000,
+             vocab=("alpha beta gamma delta epsilon zeta eta theta iota "
+                    "kappa lambda mu nu xi omicron pi rho sigma tau "
+                    "upsilon").split())
+
+
+def shard_groups(shapes: dict, n: int = 3) -> list[list[str]]:
+    """The masters split by tensor, in ``param_specs`` order, into ``n``
+    groups of about equal bytes: a tensor goes to the group whose share of
+    the running total holds its midpoint."""
+    names = sorted(shapes)
+    nbytes = {k: int(np.prod(shapes[k])) * 4 for k in names}
+    total = sum(nbytes.values())
+    groups, cum = [[] for _ in range(n)], 0
+    for k in names:
+        groups[min(n - 1, (2 * cum + nbytes[k]) * n // (2 * total))].append(k)
+        cum += nbytes[k]
+    check(all(groups), f"an empty shard group: {groups}")
+    return groups
+
+
+def shard_layout(group: list[str], shapes: dict) -> dict:
+    """Page-aligned byte offsets of a group's tensors in its rank's window,
+    as ``changed_pages`` reads them (``slots["master/<k>"].offset``)."""
+    slots, off = {}, 0
+    for k in group:
+        slots[f"master/{k}"] = SimpleNamespace(offset=off)
+        off += -(-int(np.prod(shapes[k])) * 4 // PAGE) * PAGE
+    return {"slots": slots, "bytes": off}
+
+
+def run_shards(cfg, comm, *, device, directory: Path, seed: int = 0,
+               log=print) -> dict:
+    """Phase 7b over ``comm`` (4 ranks): ranks 1-3 each own a storage
+    window holding one group of the masters; each group's first phase-2
+    change goes to its rank with ``sync_shards_from_device``.  Checks
+    every rank's flushed bytes against its changed pages (and one
+    ``wsync`` per rank under mp)."""
+    from repro_torch.core import Window
+    from repro_torch.kernels import dirty_diff, pack_diff
+    from repro_torch.models import param_specs
+    kind = comm.transport.kind
+    shapes = {k: s.shape for k, s in param_specs(cfg).items()}
+    groups = shard_groups(shapes)
+    layouts = [shard_layout(g, shapes) for g in groups]
+    size = max(lay["bytes"] for lay in layouts)
+    change = mutation_plan(shapes, seed)[0]
+    masters = make_masters(cfg, seed, device)
+    snapshot = {k: v.clone() for k, v in masters.items()}
+    channel = ChannelCount(comm.transport) if kind == "mp" else None
+    win = Window.allocate(comm, size, info={
+        "alloc_type": "storage",
+        "storage_alloc_filename": str(directory / "shards.bin")})
+    out = {"window_bytes": size, "ranks": []}
+    try:
+        t0 = time.perf_counter()
+        for r, (g, lay) in enumerate(zip(groups, layouts), start=1):
+            for k in g:
+                host = snapshot[k].detach().to("cpu").numpy().reshape(-1)
+                win.put(host, r, lay["slots"][f"master/{k}"].offset)
+            win.sync(r)
+        out["baseline_s"] = time.perf_counter() - t0
+        apply_mutation(masters, change)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wire0 = comm.transport.wire_stats_snapshot()
+        for r, (g, lay) in enumerate(zip(groups, layouts), start=1):
+            sub = {k: change[k] for k in g}
+            want = changed_pages(lay["slots"], shapes, sub) * PAGE
+            if channel is not None:
+                channel.clear()
+            dirty_diff.launches = 0
+            pack_diff.launches = 0
+            t0 = time.perf_counter()
+            flushed = win.sync_shards_from_device(r, [
+                (masters[k], snapshot[k], lay["slots"][f"master/{k}"].offset)
+                for k in g], blocking=True)
+            rec = {"rank": r, "tensors": len(g),
+                   "group_bytes": sum(int(np.prod(shapes[k])) * 4
+                                      for k in g),
+                   "flushed_bytes": flushed, "expected_bytes": want,
+                   "sync_ms": (time.perf_counter() - t0) * 1e3,
+                   "dirty_diff_launches": dirty_diff.launches,
+                   "diff_pack_launches": pack_diff.launches}
+            check(flushed == want,
+                  f"7b {kind} rank {r}: flushed {flushed}, changed pages "
+                  f"give {want}")
+            if device.type == "cuda":
+                check(rec["dirty_diff_launches"] > 0
+                      and rec["diff_pack_launches"] > 0,
+                      f"7b {kind} rank {r}: kernels not launched: {rec}")
+            if channel is not None:
+                check(channel.ops == [(r, "wsync")],
+                      f"7b rank {r}: control messages {channel.ops}")
+            out["ranks"].append(rec)
+        wire1 = comm.transport.wire_stats_snapshot()
+        out["wire"] = {k: wire1[k] - wire0[k] for k in wire1}
+    finally:
+        if channel is not None:
+            channel.close()
+        win.free()
+    log(f"7b {kind}: " + json.dumps(out))
+    return out
+
+
+def dht_run(comm, directory: Path, spec: dict = MP_DHT) -> dict:
+    """Phase 7c over ``comm``: fill 80% of a storage-window DHT with random
+    keys, check ``items()`` against a dict of the same keys, sync."""
+    from collections import Counter
+
+    from repro_torch.core import DistributedHashTable
+    n = int(comm.size * spec["lv_entries"] * spec["fill"])
+    keys = np.random.default_rng(0).integers(1, 1 << 40, n)
+    dht = DistributedHashTable(comm, spec["lv_entries"], info={
+        "alloc_type": "storage",
+        "storage_alloc_filename": str(directory / "dht.bin")})
+    try:
+        t0 = time.perf_counter()
+        for k in keys:
+            dht.insert(int(k), 1, op="sum")
+        dt = time.perf_counter() - t0
+        items = dht.items()
+        check(dict(items) == dict(Counter(int(k) for k in keys)),
+              f"7c {comm.transport.kind}: items() differs from a dict of "
+              "the same keys")
+        t0 = time.perf_counter()
+        flushed = dht.sync()
+        sync_s = time.perf_counter() - t0
+        heap = [dht.heap_used(r) for r in range(comm.size)]
+    finally:
+        dht.free()
+    return {"inserts": n, "insert_s": dt, "inserts_per_s": n / dt,
+            "conflicts": dht.insert_conflicts, "heap_used": heap,
+            "sync_s": sync_s, "flushed_bytes": flushed, "items": items}
+
+
+def mapreduce_run(comm, directory: Path, spec: dict = MP_MR) -> dict:
+    """Phase 7d over ``comm``: MapReduce1S with a checkpoint per task over
+    the benchmark's tasks; the result must equal ``wordcount_reduce``."""
+    from repro_torch.core import MapReduce1S
+    from repro_torch.core.mapreduce import wordcount_map, wordcount_reduce
+    rng = np.random.default_rng(0)
+    tasks = [" ".join(rng.choice(spec["vocab"], spec["words"]))
+             for _ in range(spec["tasks"])]
+    mr = MapReduce1S(comm, spec["lv_entries"], info={
+        "alloc_type": "storage",
+        "storage_alloc_filename": str(directory / "mr.bin")})
+    try:
+        t0 = time.perf_counter()
+        mr.run(tasks)
+        dt = time.perf_counter() - t0
+        result = mr.result()
+        check(result == wordcount_reduce(wordcount_map(t) for t in tasks),
+              f"7d {comm.transport.kind}: result differs from "
+              "wordcount_reduce")
+        check(mr.completed_tasks() == len(tasks) == mr.ckpt_count,
+              f"7d: {mr.completed_tasks()} tasks done, "
+              f"{mr.ckpt_count} checkpoints")
+    finally:
+        mr.free()
+    return {"tasks": len(tasks), "seconds": dt, "ckpt_bytes": mr.ckpt_bytes,
+            "words": len(result)}
+
+
+def same_files(a: Path, b: Path) -> list[str]:
+    """The names of the files in ``a``; raises unless ``b`` holds the same
+    names with byte-identical contents."""
+    import filecmp
+    names = sorted(p.name for p in a.iterdir())
+    check(names == sorted(p.name for p in b.iterdir()) and names,
+          f"file sets differ: {a} {b}")
+    for n in names:
+        check(filecmp.cmp(a / n, b / n, shallow=False),
+              f"{a / n} and {b / n} differ")
+    return names
+
+
+def _over_worlds(cfg, dev, worlds: dict, directory: Path, dht: dict,
+                 mr: dict, log) -> dict:
+    """Phases 7b-7d in each of ``worlds`` (``inproc``, ``mp``): the same
+    flushed bytes, items and results, and byte-identical files."""
+    out = {}
+    runs = {}
+    for kind, comm in worlds.items():
+        d = directory / f"shards_{kind}"
+        d.mkdir(parents=True)
+        runs[kind] = run_shards(cfg, comm, device=dev, directory=d, log=log)
+    files = same_files(directory / "shards_inproc", directory / "shards_mp")
+    check([r["flushed_bytes"] for r in runs["mp"]["ranks"]]
+          == [r["flushed_bytes"] for r in runs["inproc"]["ranks"]],
+          "7b: flushed bytes differ between inproc and mp")
+    out["7b"] = {"files_identical": files, **runs}
+    out["7b"]["launches"] = {
+        name: sum(rec[f"{name}_launches"] for r in runs.values()
+                  for rec in r["ranks"])
+        for name in ("dirty_diff", "diff_pack")}
+    shutil.rmtree(directory)
+    runs = {}
+    for kind, comm in worlds.items():
+        d = directory / f"dht_{kind}"
+        d.mkdir(parents=True)
+        runs[kind] = dht_run(comm, d, dht)
+    check(runs["mp"].pop("items") == runs["inproc"].pop("items"),
+          "7c: items() differ between inproc and mp")
+    out["7c"] = {"files_identical": same_files(directory / "dht_inproc",
+                                               directory / "dht_mp"),
+                 **runs}
+    runs = {}
+    for kind, comm in worlds.items():
+        d = directory / f"mr_{kind}"
+        d.mkdir(parents=True)
+        runs[kind] = mapreduce_run(comm, d, mr)
+    out["7d"] = {"files_identical": same_files(directory / "mr_inproc",
+                                               directory / "mr_mp"),
+                 **runs}
+    return out
+
+
+def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
+             dht: dict = MP_DHT, mr: dict = MP_MR, log=print,
+             mark=lambda label: None) -> dict:
+    """Phase 7: the MPI layer across processes, with the card as origin.
+
+    7a runs phase 2's main path with the storage window owned by a spawned
+    worker (``Communicator(1, transport="mp")``); 7b sends each of three
+    groups of the masters to the rank (1-3) that owns it under mp and
+    under inproc, whose files must be byte-identical; 7c and 7d run the
+    paper's DHT and MapReduce under inproc and mp, with the same items,
+    results and files.  ``phase2`` is phase 2's result (its per-sync
+    times are printed beside 7a's); everything is written under
+    ``directory``, which is removed at the end.  ``mark(label)`` runs at
+    the end of 7a and of 7b-7d (``PeakRss.mark``)."""
+    from repro_torch.core import Communicator
+    out = {}
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    try:
+        a = run_main_path(cfg, device=dev, directory=directory,
+                          transport="mp",
+                          log=lambda m: log("7a " + m))
+        check(torch.device(dev).type != "cuda"
+              or all(v > 0 for v in a["launches"].values()),
+              f"7a: a kernel of the main path never launched: "
+              f"{a['launches']}")
+        check(max(a["owner_peak_rss_bytes"]) <= MP_HOST_LIMIT,
+              f"7a: the window's owner peaked at "
+              f"{a['owner_peak_rss_bytes']} B, over {MP_HOST_LIMIT}")
+        out["7a"] = {"world_s": a["world_s"], "launches": a["launches"],
+                     "owner_peak_rss_bytes": a["owner_peak_rss_bytes"],
+                     "syncs": [{
+                         "sync": r["sync"], "flushed_bytes":
+                         r["flushed_bytes"], "mp_sync_ms": r["sync_ms"],
+                         "mp_flush_ms": r["flush_ms"],
+                         "inproc_sync_ms": p["sync_ms"],
+                         "inproc_flush_ms": p["flush_ms"],
+                         "spans_logical_bytes": r["spans_logical_bytes"],
+                         "spans_wire_bytes": r["spans_wire_bytes"],
+                         "codec_policy": r["codec_policy"],
+                         "messages": r["messages"]}
+                         for r, p in zip(a["records"], phase2["records"])]}
+        mark("7a")
+        shutil.rmtree(directory)  # free the 6 GB window file before 7b
+        # 7b-7d: one 4-rank world per transport; the mp world's workers
+        # start once (each also imports this script's modules)
+        t0 = time.perf_counter()
+        worlds = {"inproc": Communicator(4),
+                  "mp": Communicator(4, transport="mp")}
+        mp_world_s = time.perf_counter() - t0
+        try:
+            out.update(_over_worlds(cfg, dev, worlds, directory, dht, mr,
+                                    log))
+        finally:
+            for comm in worlds.values():
+                comm.close()
+        out["7b"]["mp_world_s"] = mp_world_s
+        mark("7b-7d")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
     return out
 
 
@@ -1944,10 +2319,37 @@ def main() -> int:
           f"microbatches + AdamW ({card}): " + json.dumps(prof))
     print(f"train saves ({card}): " + json.dumps(saves))
     marks.append(time.perf_counter())
+
+    # phase 7: the MPI layer across processes.  A failure to spawn a worker
+    # or a TransportError ends the run: nothing falls back to inproc
+    with PeakRss() as rss:
+        mp = mp_phase(cfg, dev, result, MP_DIR, mark=rss.mark)
+    print(f"mp host memory, this process ({card}): " + json.dumps(
+        {"start_bytes": rss.start, "peak_bytes": rss.peak,
+         "stretches": rss.marks,
+         "phase_6_peak_bytes": train["peak_host_rss_bytes"]}))
+    check(rss.peak - rss.start <= MP_HOST_LIMIT,
+          f"phase 7 took this process from {rss.start} to {rss.peak} B, "
+          f"more than {MP_HOST_LIMIT} over its start: {rss.marks}")
+    print(f"mp 7a, the main path into a worker-owned window, beside phase "
+          f"2's inproc numbers ({card}): " + json.dumps(mp["7a"]))
+    print(f"mp 7b, ranks 1-3 as targets ({card}): " + json.dumps(mp["7b"]))
+    print(f"mp 7c, DHT ({card}): " + json.dumps(mp["7c"]))
+    print(f"mp 7d, MapReduce ({card}): " + json.dumps(mp["7d"]))
+    # B1/B2 run on three paths: phase 2, 7a and 7b, each counted from 0
+    for row in kernels[:2]:
+        by_phase = {"2": launches[row["name"]],
+                    "7a": mp["7a"]["launches"][row["name"]],
+                    "7b": mp["7b"]["launches"][row["name"]]}
+        check(all(by_phase.values()),
+              f"{row['name']} never launched on a path: {by_phase}")
+        row["launches"] = sum(by_phase.values())
+        row["launches_by_phase"] = by_phase
+    marks.append(time.perf_counter())
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(
             ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
-             "phase 5", "phase 6"), marks, marks[1:])}))
+             "phase 5", "phase 6", "phase 7"), marks, marks[1:])}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

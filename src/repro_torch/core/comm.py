@@ -8,18 +8,20 @@ In the paper, windows are collective objects over an MPI communicator.  A
   ranks).
 * **a transport** -- the pluggable backend (``repro_torch.core.transport``)
   that decides where each rank's window segments physically live and how
-  one-sided operations and collectives reach them.  ``inproc`` (the only
-  backend ported so far) keeps every rank in this process, exactly the
-  original single-controller semantics.
+  one-sided operations and collectives reach them.  ``inproc`` (default)
+  keeps every rank in this process, exactly the original single-controller
+  semantics; ``mp`` maps ranks onto real spawned worker processes with
+  shared-memory / file-backed segments and passive-target progress threads;
+  ``ranklocal`` is one externally launched rank's view of its own partition.
 
-Selection: ``Communicator(n, transport="inproc")`` explicitly, or via the
+Selection: ``Communicator(n, transport="mp")`` explicitly, or via the
 environment (``REPRO_TRANSPORT`` / ``REPRO_NRANKS`` / ``REPRO_RANK``) with
 :meth:`Communicator.from_env` -- the launcher's rank bootstrap.  Collectives
-(``barrier``/``allreduce``/``bcast``) delegate to the transport.
-Liveness (``dead_ranks``, ``probe``, ``mark_dead``, ``mark_alive``) is the
-reference's: it feeds :class:`~repro_torch.core.resilience.FailureDetector`.
-Replicated windows and ``rebuild_rank`` are not ported yet (ROADMAP queue
-A, resilience).
+(``barrier``/``allreduce``/``bcast``) delegate to the transport, so under
+``mp`` they are real cross-process operations.  Liveness (``dead_ranks``,
+``probe``, ``mark_dead``, ``mark_alive``) is the reference's: it feeds
+:class:`~repro_torch.core.resilience.FailureDetector`.  Replicated windows
+and ``rebuild_rank`` are not ported yet (ROADMAP queue A, A3 resilience).
 """
 
 from __future__ import annotations
@@ -69,15 +71,20 @@ class Communicator:
         ``Communicator(default_size)``.
 
         Rank-symmetric: a nonzero ``REPRO_RANK`` never assumes driver
-        identity; it needs the rank-local view, which is not ported yet, so
-        :func:`~repro_torch.core.transport.make_transport` raises.
+        identity -- the returned communicator is this worker rank's
+        rank-local view (see ``repro_torch.core.transport
+        .RankLocalTransport``), materializing only its own window
+        partitions with the shared on-disk naming.  Requesting the
+        (driver-only, world-spawning) ``mp`` transport from a nonzero rank
+        raises.
         """
         size = nranks if nranks is not None else env_nranks(default_size)
         return cls(size, rank=env_rank(0), transport=transport)
 
     # -- collectives (delegated to the transport) ---------------------------
     def barrier(self) -> None:
-        """Collective barrier."""
+        """Collective barrier.  Under ``mp`` every worker acks its control
+        channel, which (channel FIFO) also completes all earlier traffic."""
         self.transport.barrier()
         self.barrier_count += 1
 

@@ -29,8 +29,9 @@ module defines that boundary: a :class:`Transport` owns
 * **collectives** -- ``barrier``, ``allreduce``, ``bcast``, ``split``.
 
 :class:`~repro_torch.core.window.Window` programs exclusively against this
-interface; adding the multiprocess and TCP backends (later slices of this
-package, see ROADMAP) changes no window or checkpoint code.
+interface; swapping ``InprocTransport`` for ``MultiprocessTransport`` (or
+the TCP backend, a later slice of this package, see ROADMAP) changes no
+window, DHT, MapReduce or checkpoint code.
 
 Batched op wire form
 --------------------
@@ -52,34 +53,74 @@ Only result-free kinds (``put``/``acc`` -- :data:`DEFERRABLE_OPS`) may be
 posted notified; a batch containing any reading op always takes the
 reply form so its results travel back on the same round trip.
 
-In-process backends (this base implementation and ``inproc``, the only
-backend of this package so far) apply every payload raw: there is no wire
-to encode for.
+On remote backends the batched train and the masked-span payload may
+additionally ride the lossless wire codec (:mod:`repro_torch.core.codec`):
+the origin replaces the raw payload with a tagged
+``("encops1"|"enc1", codec_id, header, blob)`` tuple when the roofline
+policy predicts a win, and the owner decodes *before* applying -- segment
+state and on-disk layout are byte-identical either way.  In-process
+backends (this base implementation, ``inproc``, ``ranklocal``,
+shared-memory handles) never see encoded payloads.
 """
 
 from __future__ import annotations
 
 import abc
+import os
 
 import numpy as np
 
+from ..codec import WireStats
+
 __all__ = ["Transport", "TransportError", "ACC_OPS", "BATCH_OPS",
-           "DEFERRABLE_OPS", "WIRE_STATS_KEYS", "apply_accumulate",
+           "DEFERRABLE_OPS", "ENV_TIMEOUTS", "apply_accumulate",
            "apply_get_accumulate", "apply_compare_and_swap",
-           "apply_masked_spans", "apply_op_batch", "reduce_values"]
+           "apply_masked_spans", "apply_op_batch", "env_timeout_s",
+           "reduce_values"]
 
 
 class TransportError(RuntimeError):
     """A transport-level failure (e.g. an unreachable/crashed rank worker)."""
 
 
-#: Logical-vs-wire byte counters of an encoding transport, in the order the
-#: JAX package's ``repro.core.codec.WireStats`` reports them.  No backend of
-#: this package encodes yet, so :meth:`Transport.wire_stats_snapshot` returns
-#: them all zero.
-WIRE_STATS_KEYS = ("spans_logical_bytes", "spans_wire_bytes", "spans_msgs",
-                   "spans_encoded_msgs", "ops_logical_bytes", "ops_wire_bytes",
-                   "ops_msgs", "ops_encoded_msgs")
+#: Every transport timeout env knob of this package, with its default
+#: (seconds).  All backends resolve these through :func:`env_timeout_s` --
+#: one table to read, one table to document -- instead of scattered
+#: ``os.environ`` lookups.  The names and defaults are the JAX package's;
+#: the tcp backend's knobs arrive with that backend:
+#:
+#: ==========================  =======  ===================================
+#: knob                        default  governs
+#: ==========================  =======  ===================================
+#: REPRO_MP_TIMEOUT            120      mp control-channel reply wait
+#:                                      (0 disables; on expiry the channel
+#:                                      is poisoned -- its reply stream is
+#:                                      off by one)
+#: REPRO_MP_PROBE_TIMEOUT      5        mp liveness-ping reply wait
+#: ==========================  =======  ===================================
+ENV_TIMEOUTS = {
+    "REPRO_MP_TIMEOUT": 120.0,
+    "REPRO_MP_PROBE_TIMEOUT": 5.0,
+}
+
+
+def env_timeout_s(name: str) -> float:
+    """Resolve a transport timeout knob: env override or documented default.
+
+    ``name`` must be a key of :data:`ENV_TIMEOUTS` -- an unknown knob is a
+    programming error and raises ``KeyError`` rather than silently
+    returning a made-up default.  Empty/whitespace values fall back to the
+    default; malformed numbers raise ``ValueError`` naming the variable.
+    """
+    default = ENV_TIMEOUTS[name]
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        return float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a number "
+                         f"(seconds; default {default})") from None
 
 
 #: MPI_Accumulate reduction ops shared by every backend (and by the
@@ -283,6 +324,14 @@ class Transport(abc.ABC):
             raise ValueError("transport size must be >= 1")
         self.size = size
         self.rank = rank
+        #: lossless wire-codec negotiation state
+        #: (:class:`repro_torch.core.codec.CodecPolicy`); remote backends
+        #: install one, in-process backends leave ``None`` -- there is no
+        #: wire to save, so their payloads always ship (and apply) raw.
+        self.codec_policy = None
+        #: logical-vs-wire byte telemetry
+        #: (:class:`repro_torch.core.codec.WireStats`) on encoding backends.
+        self.wire_stats = None
 
     def wire_stats_snapshot(self) -> dict:
         """Logical vs wire byte counters (always a well-formed snapshot).
@@ -292,10 +341,9 @@ class Transport(abc.ABC):
         -- stats plumbing (``Window.pool_stats()["wire"]``, benchmark
         reports) never has to branch on the backend kind.
         """
-        out = {k: 0 for k in WIRE_STATS_KEYS}
-        out["logical_bytes"] = 0
-        out["wire_bytes"] = 0
-        return out
+        if self.wire_stats is None:
+            return WireStats().snapshot()
+        return self.wire_stats.snapshot()
 
     # -- segment lifecycle -------------------------------------------------
     @abc.abstractmethod
@@ -307,6 +355,48 @@ class Transport(abc.ABC):
         ``page_size``, ``cache_bytes``, ``writeback_interval``,
         ``compare_on_write``).  Returns segment handles indexed by rank.
         """
+
+    def allocate_segment(self, rank: int, size: int, hints, spec: dict, *,
+                         name_rank: int, name_nranks: int):
+        """Allocate (or re-map) ONE segment hosted by ``rank``.
+
+        Unlike the collective :meth:`allocate_segments`, this is a targeted
+        call: ``name_rank``/``name_nranks`` feed the transport-invariant
+        file naming policy, so the segment maps the same on-disk bytes
+        whichever rank hosts it (the hook the resilience layer places
+        replicas and rebuilds a respawned rank with).
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support targeted segment "
+            "allocation (required for replication/rebuild)")
+
+    # -- liveness ----------------------------------------------------------
+    def probe(self, rank: int, timeout: float | None = None) -> bool:
+        """Liveness probe: is ``rank`` able to make progress?
+
+        Returns True when the rank is alive (or liveness cannot be
+        determined without blocking behind in-flight traffic), False when
+        its process is known dead or its control channel is unresponsive.
+        Never raises for a dead rank -- failure detectors want a boolean;
+        the mp backend converts its internal timeout ``TransportError``
+        into False.  In-process ranks cannot die: the default is True.
+        """
+        if rank < 0 or rank >= self.size:
+            raise ValueError(
+                f"probe rank {rank} outside transport of size {self.size}")
+        return True
+
+    def kill_rank(self, rank: int, timeout: float = 10.0) -> None:
+        """SIGKILL ``rank``'s worker (fault injection for failure drills).
+
+        The public alternative to reaching into backend privates:
+        process-backed transports (mp) kill and join the worker; backends
+        with no killable worker process refuse.
+        """
+        raise TransportError(
+            f"{self.kind} transport has no worker process to kill "
+            f"(rank {rank}); fault injection needs a process-backed "
+            "transport (mp)")
 
     # -- one-sided data movement ------------------------------------------
     def put(self, seg, offset: int, data: np.ndarray) -> None:
@@ -418,17 +508,6 @@ class Transport(abc.ABC):
     def split(self, color: int, ranks: list[int]) -> "Transport":
         """Transport for a sub-group; local rank ``i`` maps to parent
         ``ranks[i]``."""
-
-    # -- liveness ----------------------------------------------------------
-    def probe(self, rank: int) -> bool:
-        """Is ``rank`` able to make progress?  Never raises for a dead rank:
-        failure detectors want a boolean.  In-process ranks cannot die on
-        their own, so this default (the ``inproc`` backend's) is True; the
-        communicator reports a rank dead once it is marked so."""
-        if rank < 0 or rank >= self.size:
-            raise ValueError(
-                f"probe rank {rank} outside transport of size {self.size}")
-        return True
 
     # -- capabilities / lifecycle -----------------------------------------
     @property

@@ -7,7 +7,8 @@ accumulates are atomic under the window's target lock) are preserved
 exactly.  It exists so the higher layers can program against the
 :class:`~repro_torch.core.transport.base.Transport` interface with **zero
 behavior change** for existing code, while the multiprocess backend slots
-in behind the same calls (in a later slice of this package).
+in behind the same calls.  :class:`RankLocalTransport` is its one-rank
+view for externally launched rank processes.
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ import numpy as np
 from ..combined import CombinedSegment
 from ..hints import WindowHints
 from ..storage import make_backing
-from .base import (Transport, apply_accumulate, apply_compare_and_swap,
-                   apply_get_accumulate, reduce_values)
+from .base import (Transport, TransportError, apply_accumulate,
+                   apply_compare_and_swap, apply_get_accumulate,
+                   reduce_values)
 
-__all__ = ["InprocTransport", "_MemorySegment", "_StorageSegment",
-           "_make_segment"]
+__all__ = ["InprocTransport", "RankLocalTransport", "_MemorySegment",
+           "_StorageSegment", "_make_segment"]
 
 
 class _MemorySegment:
@@ -133,6 +135,12 @@ class InprocTransport(Transport):
         return [_make_segment(size, hints, r, self.size, **spec)
                 for r in range(self.size)]
 
+    def allocate_segment(self, rank: int, size: int, hints, spec: dict, *,
+                         name_rank: int, name_nranks: int):
+        # every rank lives here: the hosting rank only matters for the mp
+        # backend's process placement, the naming policy is shared
+        return _make_segment(size, hints, name_rank, name_nranks, **spec)
+
     # Atomicity of the RMW ops comes from the window's target lock (the
     # caller holds it exclusively): every origin is a thread of this
     # process, so a process-local lock serializes them all.
@@ -164,3 +172,77 @@ class InprocTransport(Transport):
     @property
     def is_local(self) -> bool:
         return True
+
+
+class RankLocalTransport(InprocTransport):
+    """One externally-launched rank's own slice of an n-rank window world.
+
+    For deployments where a scheduler starts the rank processes: each
+    process sets ``REPRO_RANK``/``REPRO_NRANKS`` and gets a communicator
+    whose windows materialize *only its own partition* -- same file naming
+    as every other transport (``<file>.<rank>``), so n independent
+    processes produce the exact on-disk layout of one driver-origin run.
+    Peer partitions are ``None`` placeholders: this transport carries no
+    control channel, so cross-rank data ops raise :class:`TransportError`
+    (use the mp transport when ranks must address each other) and
+    collectives are rank-local no-ops like the inproc transport's.
+    """
+
+    kind = "ranklocal"
+
+    #: window layer: replicate/allocate only what this rank can host
+    single_rank_view = True
+
+    def allocate_segments(self, size: int, hints, spec: dict) -> list:
+        return [_make_segment(size, hints, r, self.size, **spec)
+                if r == self.rank else None
+                for r in range(self.size)]
+
+    def allocate_segment(self, rank: int, size: int, hints, spec: dict, *,
+                         name_rank: int, name_nranks: int):
+        if rank != self.rank:
+            raise TransportError(
+                f"rank-local transport (rank {self.rank}) cannot host a "
+                f"segment on rank {rank}")
+        return _make_segment(size, hints, name_rank, name_nranks, **spec)
+
+    @staticmethod
+    def _own(seg, what: str):
+        if seg is None:
+            raise TransportError(
+                f"rank-local transport: {what} targets a partition owned "
+                "by another externally-launched rank (no control channel; "
+                "run under the mp transport for cross-rank ops)")
+        return seg
+
+    def put(self, seg, offset: int, data) -> None:
+        self._own(seg, "put").write(offset, data)
+
+    def get(self, seg, offset: int, nbytes: int):
+        return self._own(seg, "get").read(offset, nbytes)
+
+    def write_spans_masked(self, seg, spans, mask):
+        return super().write_spans_masked(self._own(seg, "write_spans"),
+                                          spans, mask)
+
+    def accumulate(self, seg, offset, data, op):
+        apply_accumulate(self._own(seg, "accumulate"), offset, data, op)
+
+    def get_accumulate(self, seg, offset, data, op):
+        return apply_get_accumulate(self._own(seg, "get_accumulate"),
+                                    offset, data, op)
+
+    def compare_and_swap(self, seg, offset, value, compare, dtype):
+        return apply_compare_and_swap(self._own(seg, "compare_and_swap"),
+                                      offset, value, compare, dtype)
+
+    def op_batch(self, seg, ops, defer: bool = False):
+        return super().op_batch(self._own(seg, "op_batch"), ops, defer=defer)
+
+    def op_complete(self, seg) -> int:
+        return super().op_complete(self._own(seg, "op_complete"))
+
+    def split(self, color: int, ranks: list[int]) -> "RankLocalTransport":
+        return RankLocalTransport(len(ranks),
+                                  ranks.index(self.rank)
+                                  if self.rank in ranks else 0)

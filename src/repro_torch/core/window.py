@@ -343,7 +343,9 @@ class Window:
         ``size`` is the per-rank window size in bytes (like MPI, each rank
         passes its own size; we use a uniform size for the common case).
         Segment placement is the communicator's *transport's* decision:
-        ``inproc`` builds local segments.  ``async_workers`` sizes the background
+        ``inproc`` builds local segments, ``mp`` has each rank's worker
+        process build (and own) its segment and hands back shared-memory
+        views / remote proxies, ``ranklocal`` builds only this rank's.  ``async_workers`` sizes the background
         write-back pool used by the request-based (rput/rget/flush_async)
         layer; the pool's threads only start on first nonblocking use.
         ``max_inflight_bytes`` / ``low_watermark`` bound the pool's queued
@@ -367,11 +369,15 @@ class Window:
         # one copy.
         k = (hints.replication
              if hints.is_storage and not hints.is_combined else 1)
+        if getattr(comm.transport, "single_rank_view", False):
+            # rank-local transports materialize only this rank's
+            # partition: there is no peer to host a replica on
+            k = 1
         if min(k, comm.size) > 1:
             raise WindowError(
                 f"storage_alloc_replication={hints.replication} needs the "
                 "resilience layer, which is not ported to repro_torch yet: "
-                "see ROADMAP.md queue A, 'resilience'")
+                "see ROADMAP.md queue A, A3 'resilience'")
         segments = comm.transport.allocate_segments(size, hints, spec)
         return cls(comm, segments, hints, disp_unit=disp_unit, flavor=flavor,
                    async_workers=async_workers,
@@ -872,14 +878,18 @@ class Window:
                     # before measuring the sync
                     self._agg_complete(r)
                     # time only the I/O (lock waits would deflate the
-                    # adaptive-watermark throughput estimate)
+                    # adaptive-watermark throughput estimate); remote
+                    # segments report the owner-measured I/O time, which
+                    # also excludes control-channel queueing
                     n = 0
                     k = pool.begin_flush_sample()
                     t0 = time.monotonic()
                     try:
                         n = self._sync_rank_segs(r, full, mask, spans=spans)
                     finally:
-                        pool.end_flush_sample(n, time.monotonic() - t0, k)
+                        dt = time.monotonic() - t0
+                        pool.end_flush_sample(
+                            n, self._rank_sync_io(r, dt), k)
                 finally:
                     if exclusive:
                         self._locks[r].release()
@@ -910,6 +920,18 @@ class Window:
             return self.segments[rank]
         return [self.segments[rank]]
 
+    def _rank_sync_io(self, rank: int, measured: float) -> float:
+        """I/O seconds of the rank's just-completed sync: the owner-side
+        measurement when every segment reports one (mp transport), else the
+        caller's wall measurement (local segments have no channel wait)."""
+        total = 0.0
+        for seg in self._rank_segs_for_io(rank):
+            io = getattr(seg, "last_sync_io", None)
+            if io is None:
+                return measured
+            total += io
+        return total
+
     def _flush_charge(self, rank: int, full: bool,
                       mask: np.ndarray | None) -> int:
         """Backpressure byte charge for one rank's queued flush: the (masked)
@@ -917,7 +939,10 @@ class Window:
         submit and execution flush too but are charged to *their* tickets.
         Only bytes a flush can actually write count: memory segments (and
         the pinned memory part of combined windows) charge nothing.  Only
-        computed for a bounded pool."""
+        computed for a bounded pool, and remote segments answer from their
+        origin-side ``dirty_bytes_estimate`` -- an exact cross-process
+        ``dirty_bytes`` query would serialize behind an in-flight sync on
+        the same rank's channel."""
         segs = self._rank_segs_for_io(rank)
         total = 0
         for seg in segs:
@@ -926,6 +951,8 @@ class Window:
             if full:
                 total += (seg.sto_bytes if hasattr(seg, "sto_bytes")
                           else getattr(seg, "size", 0))
+            elif hasattr(seg, "dirty_bytes_estimate"):
+                total += seg.dirty_bytes_estimate(mask=mask)
             else:
                 total += (seg.dirty_bytes() if mask is None
                           else seg.dirty_bytes(mask=mask))

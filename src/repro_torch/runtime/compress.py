@@ -1,9 +1,16 @@
-"""Lossy gradient compression: int8 quantization with error feedback.
+"""Compression entry points: lossy gradient quantization + lossless wire codec.
 
-The counterpart of ``repro.runtime.compress``, trimmed to what the Trainer
-uses.  The reference's module also re-exports the lossless wire codec of
-``repro.core.codec`` for its remote transports; the port has neither yet
-(ROADMAP.md queue A, A2 rides with A1).
+The counterpart of ``repro.runtime.compress``.  Two distinct compression
+families live behind this module:
+
+* **Lossy** int8 gradient quantization with error feedback (below), as the
+  Trainer uses it.
+* **Lossless** span/op-train wire codec (re-exported from
+  ``repro_torch.core.codec``) used by the mp transport to cut
+  control-channel bytes: zero-run suppression, byte RLE, and byte-shuffle
+  + RLE, selected per message by a roofline-driven ``CodecPolicy``.  See
+  ``repro_torch/core/codec.py`` for the wire format and threshold
+  heuristic.
 
 Error feedback keeps the quantization residual locally and re-injects it
 next step, which preserves convergence (Karimireddy et al.).  The float32
@@ -18,8 +25,17 @@ from typing import Mapping
 
 import torch
 
+from ..core.codec import (CODEC_NAMES, CODEC_RAW, CODEC_RLE, CODEC_SHUF_RLE,
+                          CODEC_ZRLE, CodecPolicy, decode_bytes, decode_ops,
+                          decode_spans, encode_bytes, encode_ops,
+                          encode_spans)
+
 __all__ = ["quantize_int8", "dequantize_int8", "init_error_feedback",
-           "compress_with_feedback"]
+           "compress_with_feedback",
+           # lossless wire codec (shared entry points; impl in core/codec.py)
+           "CODEC_NAMES", "CODEC_RAW", "CODEC_RLE", "CODEC_SHUF_RLE",
+           "CODEC_ZRLE", "CodecPolicy", "encode_bytes", "decode_bytes",
+           "encode_spans", "decode_spans", "encode_ops", "decode_ops"]
 
 
 def quantize_int8(x: torch.Tensor, axis: int | None = None):

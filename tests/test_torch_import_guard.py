@@ -39,6 +39,26 @@ def test_every_module_imports_with_jax_blocked():
     assert int(r.stdout.strip()) >= 20  # every module was walked
 
 
+_WORKER_CHAIN = """
+import sys
+import repro_torch.core.transport.multiproc
+import repro_torch.core.codec  # noqa: F401
+heavy = sorted(m for m in ("torch", "jax", "repro") if m in sys.modules)
+assert not heavy, heavy
+"""
+
+
+def test_mp_worker_import_chain_has_no_torch():
+    """An mp worker imports the module of its entry point and its parents
+    (``repro_torch``, ``repro_torch.core``): none of them may pull in
+    ``torch``, or every spawned worker pays for it."""
+    r = subprocess.run([sys.executable, "-c", _WORKER_CHAIN],
+                       env={"PYTHONPATH": str(ROOT / "src"),
+                            "PATH": "/usr/bin:/bin"},
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def _imported_roots(path: Path) -> set[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     out = set()

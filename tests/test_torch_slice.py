@@ -76,6 +76,41 @@ def test_main_path_matches_reference(tmp_path, chip_smoke):
     assert out["nparams"] == sum(int(np.prod(s)) for s in shapes.values())
 
 
+def test_mp_phase_at_smoke_widths(tmp_path, chip_smoke):
+    """Phase 7's routine at the small size on the CPU: the main path into
+    a worker-owned window flushes what phase 2 flushes, one control message
+    per sync; the shard groups, the DHT and MapReduce give byte-identical
+    files under inproc and mp (checked inside, exact)."""
+    cfg = chip_smoke.smoke_config(1, **SMALL)
+    (tmp_path / "p2").mkdir()
+    quiet = dict(log=lambda *_: None)
+    phase2 = chip_smoke.run_main_path(cfg, device="cpu",
+                                      directory=tmp_path / "p2", **quiet)
+    out = chip_smoke.mp_phase(
+        cfg, torch.device("cpu"), phase2, tmp_path / "mp",
+        dht=dict(chip_smoke.MP_DHT, lv_entries=128),
+        mr=dict(chip_smoke.MP_MR, tasks=6, words=300), **quiet)
+    a = out["7a"]["syncs"]
+    assert [s["flushed_bytes"] for s in a] \
+        == [r["flushed_bytes"] for r in phase2["records"]]
+    assert [s["messages"] for s in a] \
+        == [[(0, "wsync")], [(0, "wsync")], [(0, "sync")]]
+    assert a[0]["spans_logical_bytes"] == a[0]["flushed_bytes"]
+    groups = chip_smoke.shard_groups(
+        {k: s.shape for k, s in param_specs(cfg).items()})
+    assert sorted(sum(groups, [])) == sorted(param_specs(cfg))
+    b = out["7b"]
+    assert b["files_identical"] == [f"shards.bin.{r}" for r in range(4)]
+    assert [r["rank"] for r in b["mp"]["ranks"]] == [1, 2, 3]
+    assert all(r["flushed_bytes"] > 0 for r in b["mp"]["ranks"])
+    c = out["7c"]
+    assert c["mp"]["inserts"] == c["inproc"]["inserts"] == int(4 * 128 * 0.8)
+    assert c["files_identical"] == [f"dht.bin.{r}" for r in range(4)]
+    d = out["7d"]
+    assert d["mp"]["tasks"] == 6 and len(d["files_identical"]) == 8
+    assert not (tmp_path / "mp").exists()
+
+
 def test_param_specs_match_reference_internlm2_1p8b():
     """Names, shapes, dtypes, logical axes and init kinds of the full
     internlm2-1.8b tree equal the reference's."""
