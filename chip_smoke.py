@@ -150,14 +150,41 @@ into ``build/repro_torch``), and then:
   result must equal ``wordcount_reduce``).  7b-7d run under inproc and mp,
   whose window files must be byte-identical.  A worker that cannot start
   or a ``TransportError`` ends the run; nothing falls back to inproc.
+* phase 8 drives fault tolerance with the card as the origin.  8a puts
+  7b's three groups into a storage window with
+  ``storage_alloc_replication=2`` (rank r's copy on rank r + 1, rank 3's
+  on rank 0; 6.06 GB of files), under inproc (a death is ``mark_dead``)
+  and mp (a real ``kill_rank``): the baseline put and sync, after which
+  every ``shards.bin.rep1.<r>`` must equal ``shards.bin.<r>``; phase 2's
+  change 1 from the card (flushed bytes = changed pages x 4096, replicas
+  equal again); rank 2's worker killed and phase 2's changes 1 and 2
+  together synced into rank 2 (non-blocking: the failover runs in a pool
+  task), then ranks 1 and 3 -- under mp rank 2's own op must find the
+  death, flushed bytes stay exact, rank 1's mirror to rank 2 must leave its
+  spans pending, and every tensor read back through the window must equal
+  the masters; ``comm.rebuild_rank(2)``, which must copy exactly the pages
+  ranks 1 and 2 changed meanwhile; a clean sync, after which every primary
+  must equal its replica; the inproc and mp files must be byte-identical.
+  8b runs ``repro_torch.launch.replicated_failover`` under mp at 7c's table
+  size (4 x 16,384 slots, on 8a's mp world) with 1,024 inserts a rank
+  (``benchmarks/dht_bench.py``'s keys; cut from 4,096 for time):
+  rank 1 killed after a sync, reported dead by the ``FailureDetector`` and
+  its monitor, every synced key served, 1,000 more inserts, a rebuild
+  bit-exact with the replica and every key served again.  8c saves 7b's
+  second group of the masters (503 MB, ten tensors) twice, the second
+  selective, through ``CheckpointManager(..., replication=2)`` over a
+  2-rank mp world, kills rank 0's worker, and ``restore()`` must return
+  step 2 equal to the masters, bit for bit.
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
 times, phase 6's step times, step profile and per-save split (host copy,
 staging, flush), phase 7's mp and inproc times, wire bytes and host
-memory, and one JSON line ``{"kernels": [...]}`` with each of the seven
+memory, phase 8's sync ms per step beside 7b's, control messages, respawn
+and rebuild seconds, DHT rates and checkpoint times, and one JSON line
+``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
-library times (B1 and B2 launch in phases 2, 7a and 7b: their launches
+library times (B1 and B2 launch in phases 2, 7a, 7b and 8a: their launches
 are the sum, split in ``launches_by_phase``; B3 and B4 have a bf16 and a float32 tensor-core kernel
 each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
@@ -2045,6 +2072,328 @@ def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
     return out
 
 
+# -- phase 8: fault tolerance, with the card as the origin --------------------
+
+REP_DIR = WORKDIR / "rep"
+# 8a: the rank whose worker dies; its partition fails over to rank 3
+REP_VICTIM = 2
+# 8b: examples/replicated_failover.py's path at 7c's table size (4 x 16,384
+# slots, on 8a's 4-rank mp world) with benchmarks/dht_bench.py's keys (seed
+# 0); 1,024 inserts a rank, cut from 4,096 for the run's time limit
+REP_DHT = dict(lv_entries=MP_DHT["lv_entries"], keys=4 * 1024, more=1000)
+
+
+def replicas_equal(directory: Path, name: str, nranks: int) -> None:
+    """Raises unless every ``<name>.rep1.<r>`` equals ``<name>.<r>``."""
+    import filecmp
+    for r in range(nranks):
+        prim, rep = directory / f"{name}.{r}", directory / f"{name}.rep1.{r}"
+        check(filecmp.cmp(prim, rep, shallow=False),
+              f"{rep.name} differs from {prim.name}")
+
+
+def _op_counts(ops: list) -> dict:
+    """Control messages by ``rank:op``, from a :class:`ChannelCount`."""
+    from collections import Counter
+    return dict(sorted(Counter(f"{r}:{op}" for r, op in ops).items()))
+
+
+def rep_shards(cfg, comm, *, device, directory: Path, seed: int = 0,
+               log=print, on_step=None) -> dict:
+    """Phase 8a over ``comm`` (4 ranks): phase 7b's groups in a storage
+    window with ``storage_alloc_replication=2`` (rank r's copy on rank
+    r + 1, rank 3's on rank 0), then
+
+    1. the baseline put and sync: every replica file equals its primary;
+    2. phase 2's change 1 from the device (``sync_shards_from_device``):
+       exact flushed bytes, replicas equal again;
+    3. rank 2 dies (``kill_rank`` under mp, nothing marked; ``mark_dead``
+       in process), and phase 2's changes 1 and 2 together go to rank 2
+       first (a non-blocking sync: its failover runs in a pool task), then
+       ranks 1 and 3: under mp rank 2's op finds the death itself; flushed
+       bytes exact; rank 1's mirror to rank 2 skipped, its spans pending;
+       every tensor read back through the window equals the masters;
+    4. ``comm.rebuild_rank(2)``: the rank probes alive, and the bytes it
+       copies are the delta: the pages ranks 1 and 2 changed in step 3;
+    5. a clean sync (no change) replays the pending mirrors: every
+       primary file equals its replica.
+
+    ``on_step(name, rank, value)``, if given, sees each operation with its
+    host data and result (a test replays them on the JAX package)."""
+    from repro_torch.core import Window
+    from repro_torch.kernels import dirty_diff, pack_diff
+    from repro_torch.models import param_specs
+    kind = comm.transport.kind
+    shapes = {k: s.shape for k, s in param_specs(cfg).items()}
+    groups = shard_groups(shapes)
+    layouts = [shard_layout(g, shapes) for g in groups]
+    size = max(lay["bytes"] for lay in layouts)
+    plan = mutation_plan(shapes, seed)
+    changes = [plan[0], {**plan[0], **plan[1]}, {}]
+    masters = make_masters(cfg, seed, device)
+    snapshot = {k: v.clone() for k, v in masters.items()}
+    channel = ChannelCount(comm.transport) if kind == "mp" else None
+    win = Window.allocate(comm, size, info={
+        "alloc_type": "storage",
+        "storage_alloc_filename": str(directory / "shards.bin"),
+        "storage_alloc_replication": "2"})
+    out = {"window_bytes": size, "replication": win.replication,
+           "steps": []}
+    launches = {"dirty_diff": 0, "diff_pack": 0}
+
+    def host(k):
+        return snapshot[k].detach().to("cpu").numpy().reshape(-1)
+
+    def device_syncs(label, change, order, blocking=True):
+        """Each rank's share of ``change``, synced from the device."""
+        apply_mutation(masters, change)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wire0 = comm.transport.wire_stats_snapshot()
+        recs = []
+        for r in order:
+            g, lay = groups[r - 1], layouts[r - 1]
+            sub = {k: change[k] for k in g if k in change}
+            want = changed_pages(lay["slots"], shapes, sub) * PAGE
+            shards = [(masters[k], snapshot[k],
+                       lay["slots"][f"master/{k}"].offset) for k in g]
+            if channel is not None:
+                channel.clear()
+            dead_before = r in comm.dead_ranks
+            dirty_diff.launches = 0
+            pack_diff.launches = 0
+            t0 = time.perf_counter()
+            got = win.sync_shards_from_device(r, shards, blocking=blocking)
+            flushed = got if blocking else got.wait()
+            rec = {"rank": r, "flushed_bytes": flushed,
+                   "expected_bytes": want,
+                   "sync_ms": (time.perf_counter() - t0) * 1e3,
+                   "dead_before": dead_before,
+                   "dead_after": r in comm.dead_ranks,
+                   "mirror_pending_pages": win._mirror_pending[r].dirty_count,
+                   "dirty_diff_launches": dirty_diff.launches,
+                   "diff_pack_launches": pack_diff.launches}
+            launches["dirty_diff"] += dirty_diff.launches
+            launches["diff_pack"] += pack_diff.launches
+            if channel is not None:
+                rec["messages"] = _op_counts(channel.ops)
+            check(flushed == want,
+                  f"8a {kind} {label} rank {r}: flushed {flushed}, changed "
+                  f"pages give {want}")
+            if device.type == "cuda":
+                check(rec["dirty_diff_launches"] > 0
+                      and rec["diff_pack_launches"] > 0,
+                      f"8a {kind} {label} rank {r}: kernels not launched: "
+                      f"{rec}")
+            if on_step is not None:
+                on_step("device_sync", r, (
+                    [(c.cpu().numpy(), s.cpu().numpy(), off)
+                     for c, s, off in shards], flushed))
+            recs.append(rec)
+        for k in change:
+            snapshot[k].copy_(masters[k])
+        wire1 = comm.transport.wire_stats_snapshot()
+        out["steps"].append({"step": label, "ranks": recs,
+                             "wire": {k: wire1[k] - wire0[k] for k in wire1}})
+        return {rec["rank"]: rec for rec in recs}
+
+    try:
+        t0 = time.perf_counter()
+        for r, (g, lay) in enumerate(zip(groups, layouts), start=1):
+            for k in g:
+                off = lay["slots"][f"master/{k}"].offset
+                win.put(host(k), r, off)
+                if on_step is not None:
+                    on_step("put", r, (off, host(k)))
+            flushed = win.sync(r)
+            if on_step is not None:
+                on_step("sync", r, flushed)
+        out["baseline_s"] = time.perf_counter() - t0
+        replicas_equal(directory, "shards.bin", comm.size)
+
+        device_syncs("change 1", changes[0], (1, 2, 3))
+        replicas_equal(directory, "shards.bin", comm.size)
+
+        # step 3: the victim's worker dies; nothing is marked under mp
+        if kind == "mp":
+            comm.transport.kill_rank(REP_VICTIM)
+        else:
+            comm.mark_dead(REP_VICTIM)
+        if on_step is not None:
+            on_step("kill", REP_VICTIM, None)
+        recs = device_syncs("changes 1 and 2, rank 2 dead", changes[1],
+                            (REP_VICTIM, 1, 3), blocking=False)
+        v = recs[REP_VICTIM]
+        check(v["dead_after"] and v["dead_before"] == (kind != "mp"),
+              f"8a {kind}: rank {REP_VICTIM}'s death was not found by its "
+              f"own sync: {v}")
+        check(recs[1]["mirror_pending_pages"] > 0,
+              f"8a {kind}: rank 1's mirror to the dead rank 2 left nothing "
+              f"pending: {recs[1]}")
+        t0 = time.perf_counter()
+        for r, (g, lay) in enumerate(zip(groups, layouts), start=1):
+            for k in g:
+                t = masters[k]
+                got = win.get(r, lay["slots"][f"master/{k}"].offset,
+                              t.numel(), np.float32)
+                check(np.array_equal(
+                    got.view(np.uint32),
+                    t.detach().cpu().numpy().reshape(-1).view(np.uint32)),
+                    f"8a {kind}: {k} read back from rank {r} differs from "
+                    "the masters")
+        out["read_back_s"] = time.perf_counter() - t0
+
+        # step 4: respawn (mp) and rebuild; only the delta is copied
+        respawn = None
+        if kind == "mp":
+            respawn = _Timed(comm.transport.respawn_rank)
+            comm.transport.respawn_rank = respawn
+        t0 = time.perf_counter()
+        try:
+            copied = comm.rebuild_rank(REP_VICTIM)
+        finally:
+            if respawn is not None:
+                del comm.transport.respawn_rank
+        out["rebuild_s"] = time.perf_counter() - t0
+        out["respawn_s"] = respawn.seconds if respawn is not None else None
+        out["rebuild_bytes"] = copied
+        if on_step is not None:
+            on_step("rebuild", REP_VICTIM, copied)
+        want = sum(recs[r]["flushed_bytes"] for r in (1, REP_VICTIM))
+        check(comm.probe(REP_VICTIM),
+              f"8a {kind}: rank {REP_VICTIM} did not come back")
+        check(copied == want,
+              f"8a {kind}: the rebuild copied {copied} B, not the delta "
+              f"{want} B (what ranks 1 and {REP_VICTIM} changed while it "
+              "was dead)")
+
+        device_syncs("clean", changes[2], (1, 2, 3))
+        replicas_equal(directory, "shards.bin", comm.size)
+    finally:
+        if channel is not None:
+            channel.close()
+        win.free()
+    out["launches"] = launches
+    log(f"8a {kind}: " + json.dumps(out))
+    return out
+
+
+def ckpt_survives(cfg, comm, *, device, directory: Path, seed: int = 0,
+                  log=print) -> dict:
+    """Phase 8c over ``comm`` (2 ranks, mp): ``CheckpointManager(...,
+    replication=2)`` over 7b's second group of the masters (503 MB, ten
+    tensors; the whole tree is cut for the run's time limit), one window
+    (each save diffs against the last); the baseline save, then phase 2's
+    change 1, whose save is selective; rank 0's worker is SIGKILLed, and
+    ``restore()`` must return step 2 with a tree equal to the masters, bit
+    for bit, served from the replica with no restart."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.models import param_specs
+    every = {k: s.shape for k, s in param_specs(cfg).items()}
+    shapes = {k: every[k] for k in shard_groups(every)[1]}
+    masters = {k: t for k, t in make_masters(cfg, seed, device).items()
+               if k in shapes}
+    cm = CheckpointManager(str(directory), comm,
+                           {k: (s, np.float32) for k, s in shapes.items()},
+                           double_buffer=False, replication=2)
+    try:
+        cm.save(1, masters)
+        change = {k: idx for k, idx in
+                  mutation_plan(every, seed)[0].items() if k in shapes}
+        apply_mutation(masters, change)
+        slots = {f"master/{k}": s for k, s in cm.windows["a"].slots.items()}
+        want = changed_pages(slots, shapes, change) * PAGE
+        cm.save(2, masters)
+        saves = [dict(r) for r in cm.records]
+        check(saves[1]["bytes"] == want,
+              f"8c: the selective save flushed {saves[1]['bytes']} B, the "
+              f"changed pages give {want}")
+        comm.transport.kill_rank(0)
+        res = cm.restore()
+        check(res is not None and res.step == 2,
+              f"8c: restore gave {res and res.step}, not step 2")
+        check(not comm.probe(0), "8c: rank 0 was alive during the restore")
+        for k, t in masters.items():
+            check(np.array_equal(
+                res.tree[k].reshape(-1).view(np.uint32),
+                t.detach().cpu().numpy().reshape(-1).view(np.uint32)),
+                f"8c: restored {k} differs from the masters")
+        out = {"tree_bytes": sum(t.numel() * 4 for t in masters.values()),
+               "saves": saves, "restore": cm.restore_records[-1]}
+    finally:
+        cm.close()
+    log("8c: " + json.dumps(out))
+    return out
+
+
+def replicated_phase(cfg, dev, shards7b: dict, directory: Path, *,
+                     dht: dict = REP_DHT, log=print,
+                     mark=lambda label: None) -> dict:
+    """Phase 8: fault tolerance with the card as the origin.
+
+    8a runs :func:`rep_shards` under inproc and mp (files byte-identical;
+    each step's sync ms beside 7b's unreplicated ones, from ``shards7b``);
+    8b runs ``repro_torch.launch.replicated_failover`` on the same 4-rank
+    mp world (whole again after 8a's rebuild) at 7c's table size; 8c
+    :func:`ckpt_survives` over a 2-rank mp world.  Everything is written
+    under ``directory``, removed at the end."""
+    from repro_torch.core import Communicator
+    from repro_torch.launch import replicated_failover
+    out = {}
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    try:
+        t0 = time.perf_counter()
+        worlds = {"inproc": Communicator(4),
+                  "mp": Communicator(4, transport="mp")}
+        out["mp_world_s"] = time.perf_counter() - t0
+        runs = {}
+        try:
+            for kind, comm in worlds.items():
+                d = directory / f"rep_{kind}"
+                d.mkdir()
+                runs[kind] = rep_shards(cfg, comm, device=dev, directory=d,
+                                        log=log)
+            worlds.pop("inproc").close()
+            files = same_files(directory / "rep_inproc",
+                               directory / "rep_mp")
+            check(runs["mp"]["rebuild_bytes"]
+                  == runs["inproc"]["rebuild_bytes"],
+                  "8a: rebuild bytes differ between inproc and mp")
+            out["8a"] = {"files_identical": files, **runs,
+                         "unreplicated_7b_sync_ms": {
+                             kind: [r["sync_ms"]
+                                    for r in shards7b[kind]["ranks"]]
+                             for kind in ("inproc", "mp")}}
+            out["8a"]["launches"] = {
+                name: sum(r["launches"][name] for r in runs.values())
+                for name in ("dirty_diff", "diff_pack")}
+            mark("8a")
+            shutil.rmtree(directory)
+            directory.mkdir()
+            out["8b"] = replicated_failover.run(
+                worlds["mp"], directory, lv_entries=dht["lv_entries"],
+                keys=dht["keys"], more=dht["more"],
+                log=lambda m: log("8b " + m))
+        finally:
+            for comm in worlds.values():
+                comm.close()
+        mark("8b")
+        shutil.rmtree(directory)
+        directory.mkdir()
+
+        comm = Communicator(2, transport="mp")
+        try:
+            out["8c"] = ckpt_survives(cfg, comm, device=dev,
+                                      directory=directory, log=log)
+        finally:
+            comm.close()
+        mark("8c")
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return out
+
+
 # -- measurements ----------------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -2336,11 +2685,30 @@ def main() -> int:
     print(f"mp 7b, ranks 1-3 as targets ({card}): " + json.dumps(mp["7b"]))
     print(f"mp 7c, DHT ({card}): " + json.dumps(mp["7c"]))
     print(f"mp 7d, MapReduce ({card}): " + json.dumps(mp["7d"]))
-    # B1/B2 run on three paths: phase 2, 7a and 7b, each counted from 0
+    marks.append(time.perf_counter())
+
+    # phase 8: fault tolerance.  A worker that cannot start, or a failover
+    # that raises, ends the run
+    with PeakRss() as rss:
+        rep = replicated_phase(cfg, dev, mp["7b"], REP_DIR, mark=rss.mark)
+    print(f"rep host memory, this process ({card}): " + json.dumps(
+        {"start_bytes": rss.start, "peak_bytes": rss.peak,
+         "stretches": rss.marks}))
+    check(rss.peak - rss.start <= MP_HOST_LIMIT,
+          f"phase 8 took this process from {rss.start} to {rss.peak} B, "
+          f"more than {MP_HOST_LIMIT} over its start: {rss.marks}")
+    print(f"rep 8a, replicated device syncs through a SIGKILL, beside 7b's "
+          f"unreplicated syncs ({card}): " + json.dumps(rep["8a"]))
+    print(f"rep 8b, replicated DHT through a SIGKILL ({card}): "
+          + json.dumps(rep["8b"]))
+    print(f"rep 8c, a checkpoint restored with its owner dead ({card}): "
+          + json.dumps(rep["8c"]))
+    # B1/B2 run on four paths: phase 2, 7a, 7b and 8a, each counted from 0
     for row in kernels[:2]:
         by_phase = {"2": launches[row["name"]],
                     "7a": mp["7a"]["launches"][row["name"]],
-                    "7b": mp["7b"]["launches"][row["name"]]}
+                    "7b": mp["7b"]["launches"][row["name"]],
+                    "8a": rep["8a"]["launches"][row["name"]]}
         check(all(by_phase.values()),
               f"{row['name']} never launched on a path: {by_phase}")
         row["launches"] = sum(by_phase.values())
@@ -2349,7 +2717,7 @@ def main() -> int:
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(
             ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
-             "phase 5", "phase 6", "phase 7"), marks, marks[1:])}))
+             "phase 5", "phase 6", "phase 7", "phase 8"), marks, marks[1:])}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2358,4 +2726,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # spawn re-runs the main script in every mp worker unless the main
+    # module's spec is named "__main__" (as for ``python -m pkg``); the
+    # workers call nothing of this file, and its torch import would cost
+    # each start (world or respawn) seconds
+    from importlib.machinery import ModuleSpec
+    __spec__ = ModuleSpec("__main__", None)
     sys.exit(main())

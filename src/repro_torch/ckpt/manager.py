@@ -126,9 +126,6 @@ class CheckpointManager:
         ``restore`` whose primary rank died reads transparently from a
         replica -- the checkpoint survives rank death without a restart.
         Requires ``comm.size >= k`` (clamped otherwise, like every hint).
-        This package has no replicated windows yet: a window the reference
-        would replicate is refused by ``Window.allocate``, naming ROADMAP
-        queue A's A3 (resilience).
         """
         self.directory = directory
         self.comm = comm

@@ -17,6 +17,10 @@ This package's own copy of ``repro.core``.  Public API:
     CombinedSegment                   heterogeneous memory+storage allocation
     DirtyTracker / backings           user-level page cache + selective sync
     WindowedArray / WindowedPyTree    out-of-core arrays and trees
+    ReplicaPlacement / FailureDetector  resilience: replicated partitions,
+                                      probe-driven failure detection,
+                                      failover reads/writes, live rebuild
+                                      (repro_torch.core.resilience)
     DistributedHashTable              paper §3.3 reference application
     MapReduce1S                       paper §3.5.2 reference application
 
@@ -25,7 +29,7 @@ imported lazily, on first use: an ``mp`` worker process imports this
 package on its way to its entry point and must stay free of ``torch``.
 
 Not ported yet (ROADMAP.md queue A): the tcp transport and SPMD launch,
-resilience (replication, failover, rebuild) and the sanitizer.
+and the sanitizer.
 """
 
 from .comm import Communicator
@@ -42,6 +46,7 @@ from .storage import (
     make_backing,
 )
 from .combined import CombinedSegment
+from .resilience import FailureDetector, ReplicaPlacement
 
 #: public names imported on first use, by module: these modules import torch
 _LAZY = {
@@ -84,6 +89,8 @@ __all__ = [
     "WritebackPool",
     "make_backing",
     "CombinedSegment",
+    "FailureDetector",
+    "ReplicaPlacement",
     "LOCK_EXCLUSIVE",
     "LOCK_SHARED",
     "Request",

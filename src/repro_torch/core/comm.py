@@ -19,9 +19,9 @@ environment (``REPRO_TRANSPORT`` / ``REPRO_NRANKS`` / ``REPRO_RANK``) with
 :meth:`Communicator.from_env` -- the launcher's rank bootstrap.  Collectives
 (``barrier``/``allreduce``/``bcast``) delegate to the transport, so under
 ``mp`` they are real cross-process operations.  Liveness (``dead_ranks``,
-``probe``, ``mark_dead``, ``mark_alive``) is the reference's: it feeds
-:class:`~repro_torch.core.resilience.FailureDetector`.  Replicated windows
-and ``rebuild_rank`` are not ported yet (ROADMAP queue A, A3 resilience).
+``probe``, ``mark_dead``, ``mark_alive``) feeds
+:class:`~repro_torch.core.resilience.FailureDetector` and the failover
+routing of replicated windows; ``rebuild_rank`` brings a dead rank back.
 """
 
 from __future__ import annotations
@@ -53,7 +53,8 @@ class Communicator:
             self._owns_transport = True
         self._windows: list = []
         self.barrier_count = 0
-        # ranks known dead (probe- or error-detected, or marked by a test)
+        # ranks known dead (probe- or error-detected); replicated windows
+        # consult this set to fail reads/writes over to live replicas
         self._dead: set[int] = set()
         # sub-communicator bookkeeping (identity mapping at the top level)
         self.color: int | None = None
@@ -141,7 +142,7 @@ class Communicator:
         except ValueError:
             return None
 
-    # -- liveness -------------------------------------------------------------
+    # -- liveness / resilience ----------------------------------------------
     @property
     def dead_ranks(self) -> set[int]:
         """Ranks currently considered dead."""
@@ -150,7 +151,8 @@ class Communicator:
     def probe(self, rank: int) -> bool:
         """Liveness of ``rank``: False once marked dead, else the
         transport's :meth:`~repro_torch.core.transport.base.Transport.probe`.
-        A failed probe marks the rank dead."""
+        A failed probe marks the rank dead, flipping every replicated
+        window into failover routing before the first hung call."""
         if rank < 0 or rank >= self.size:
             raise ValueError(
                 f"probe rank {rank} outside communicator of size {self.size}")
@@ -165,7 +167,8 @@ class Communicator:
 
     def mark_dead(self, rank: int) -> None:
         """Record ``rank`` as dead (error- or probe-detected, or a simulated
-        failure in tests) until :meth:`mark_alive`."""
+        failure in tests): replicated windows stop routing to it until
+        :meth:`mark_alive` / :meth:`rebuild_rank`."""
         if 0 <= rank < self.size:
             self._dead.add(rank)
 
@@ -173,11 +176,24 @@ class Communicator:
         self._dead.discard(rank)
 
     def rebuild_rank(self, rank: int) -> int:
-        """Not ported: rebuilding a rank from replicas needs replicated
-        windows."""
-        raise NotImplementedError(
-            "Communicator.rebuild_rank is not ported to repro_torch yet: see "
-            "ROADMAP.md queue A, A3 'resilience'")
+        """Bring a dead rank back: respawn its worker (transports that can),
+        rebuild everything it hosted in every registered window from the
+        live replicas (page-diff granular), then mark it alive -- traffic
+        routes back to the primary.  Returns bytes copied while
+        reconciling.  See :mod:`repro_torch.core.resilience`.
+        """
+        if rank < 0 or rank >= self.size:
+            raise ValueError(
+                f"rebuild rank {rank} outside communicator of size {self.size}")
+        t = self.transport
+        if hasattr(t, "respawn_rank") and not t.probe(rank):
+            t.respawn_rank(rank)
+        self._dead.add(rank)  # exclude it from acting-holder resolution
+        copied = 0
+        for w in list(self._windows):
+            copied += w.rebuild_rank(rank, mark_alive=False)
+        self.mark_alive(rank)
+        return copied
 
     # -- window registry ----------------------------------------------------
     def _register(self, win) -> None:

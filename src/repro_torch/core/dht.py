@@ -14,9 +14,11 @@ structure runs in memory, on storage, or on a combined allocation
 (out-of-core, §3.4) without touching this file.  The same is true of the
 *transport*: under ``REPRO_TRANSPORT=mp`` the owners are real worker
 processes and every CAS/accumulate executes atomically in the owner's
-progress thread -- still without touching this file.  (Replicated tables,
-``replication=k``, need the resilience layer, which this package does not
-port yet: ROADMAP queue A, A3; the window layer refuses them.)
+progress thread -- still without touching this file.  And the same again
+for *resilience*: with ``replication=k`` the window layer mirrors each
+local volume to k-1 replica ranks at every sync and transparently fails
+``get``/``put``/CAS over to a live replica when the owner dies, so the
+table keeps serving through rank death (``repro_torch.core.resilience``).
 
 Entry layout (3 int64 words): [key, value, next]
     key   == EMPTY sentinel -> slot unused (CAS target for claiming)
@@ -61,10 +63,11 @@ class DistributedHashTable:
         storage windows whose files already exist.
 
         ``replication=k`` (storage tables only; shorthand for the
-        ``storage_alloc_replication`` info hint) asks for ``k`` copies of
-        every rank's local volume; with ``k > 1`` the window layer raises
-        ``WindowError`` until the resilience layer is ported (ROADMAP
-        queue A, A3)."""
+        ``storage_alloc_replication`` info hint) keeps ``k`` copies of
+        every rank's local volume: a ``sync`` then means ``k`` durable
+        copies, and a dead rank's partition keeps serving ``get``/``put``/
+        CAS traffic from its replicas instead of raising
+        ``TransportError`` -- see ``repro_torch.core.resilience``."""
         if lv_entries < 1:
             raise ValueError("lv_entries must be >= 1")
         if replication > 1:

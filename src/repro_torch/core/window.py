@@ -15,9 +15,11 @@ extended routines, with the device-sync half rewritten over torch tensors.
 
 "Ranks" are logical positions of a :class:`~repro_torch.core.comm.Communicator`,
 and *where a rank's segment physically lives is the communicator's
-transport's decision* (``repro_torch.core.transport``): the ``inproc``
-backend, the only one ported so far, keeps every segment addressable in this
-process.  ``Window`` never touches segment internals for data movement:
+transport's decision* (``repro_torch.core.transport``): ``inproc`` keeps
+every segment addressable in this process, ``mp`` maps each rank onto a
+spawned worker process that owns its segments and page cache, and
+``ranklocal`` holds one externally launched rank's own partition.
+``Window`` never touches segment internals for data movement:
 ``put``/``get`` and the ``accumulate`` family route through
 ``comm.transport``.  What stays local to the *origin* is the nonblocking
 machinery -- ``Request`` bookkeeping and the ``WritebackPool``.
@@ -72,6 +74,8 @@ travel together through ``Transport.write_spans_masked`` to the rank's page
 cache.  ``sync_shards_from_device(rank, [(cur, snap, target_disp), ...])``
 extends this to sharded device state with one merged mask and one flush.
 CPU tensors take the kernels' plain PyTorch versions; nothing else differs.
+On a replicated window both route through the partition's acting holder
+like ``put``.
 
 Write-back backpressure (bounded in-flight bytes)
 -------------------------------------------------
@@ -82,13 +86,33 @@ watermark blocks the caller until completions drain to the low watermark.
 A thread submitting from inside its own lock epoch bypasses the stall
 (deadlock avoidance); its bytes are still charged.
 
-Not ported yet
---------------
+Replication, failover and rebuild (resilience)
+----------------------------------------------
 
-Replicated windows (``storage_alloc_replication``), failover and
-``rebuild_rank`` belong to the resilience layer, a later slice of this
-package (ROADMAP.md queue A): a window the reference would replicate is
-refused with ``WindowError``.
+A pure storage window allocated with the ``storage_alloc_replication=k``
+hint keeps ``k`` total copies of every rank's partition: the primary on the
+rank itself plus ``k-1`` replica segments on the following ranks in a
+rotating chain (:class:`~repro_torch.core.resilience.ReplicaPlacement`),
+each backed by its own file (``<filename>.rep<j>.<rank>``) owned by the
+*holder*'s process.
+
+* Writes and atomics target the partition's **acting holder**, the first
+  live rank in chain order (the primary while it lives); reads rotate over
+  the live holders unless the rank has un-mirrored writes.
+* **Mirroring rides the flush path**: every ``sync(rank)`` /
+  ``flush_async(rank)`` forwards the spans written since the last mirror
+  from the acting holder to every other live holder and syncs them there,
+  so a completed epoch means *k durable copies*.  Mirror failures re-mark
+  the spans (replay, never skip).
+* A ``TransportError`` from any window operation (device syncs included)
+  marks the holder dead on the communicator and replays the whole operation
+  on the next live holder; ``comm.mark_dead`` / ``Transport.probe`` /
+  ``FailureDetector`` do the same ahead of time.
+* ``rebuild_rank`` (or ``comm.rebuild_rank``, which also respawns the
+  worker) re-maps the rank's segments over its backing files and
+  reconciles them page-diff-granularly from the acting holders.
+
+See :mod:`repro_torch.core.resilience` for the failure-model table.
 
 Epoch & lock discipline
 -----------------------
@@ -103,6 +127,8 @@ errors of posted trains surface at the next flush, so complete before
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import itertools
 import threading
 import time
 from typing import Any
@@ -114,8 +140,10 @@ from ..kernels.dirty_diff import changed_elem_spans
 from ..kernels.ops import dirty_blocks, dirty_pack
 from ..kernels.pack_diff import packed_run_layout
 from .hints import Info, WindowHints
-from .storage import DEFAULT_PAGE_SIZE, WritebackPool, dirty_runs, mark_span
-from .transport.base import ACC_OPS, DEFERRABLE_OPS
+from .resilience.placement import ReplicaPlacement
+from .storage import (DEFAULT_PAGE_SIZE, DirtyTracker, WritebackPool,
+                      dirty_runs, mark_span)
+from .transport.base import ACC_OPS, DEFERRABLE_OPS, TransportError
 from .transport.local import _make_segment
 
 __all__ = ["Window", "WindowError", "Request", "LOCK_SHARED",
@@ -280,7 +308,12 @@ class Window:
                  flavor: str, dynamic: bool = False, async_workers: int = 2,
                  max_inflight_bytes: int | None = None,
                  low_watermark: int | None = None,
-                 target_flush_latency: float | None = None):
+                 target_flush_latency: float | None = None,
+                 placement: ReplicaPlacement | None = None,
+                 replica_segs: dict | None = None,
+                 mirror_page_size: int = DEFAULT_PAGE_SIZE,
+                 alloc_size: int | None = None,
+                 alloc_spec: dict | None = None):
         self.comm = comm
         self.segments = segments  # list, one per rank (dynamic: list of lists)
         self.hints = hints
@@ -288,6 +321,18 @@ class Window:
         self.flavor = flavor
         self.dynamic = dynamic
         self.freed = False
+        # resilience: chain placement + replica segments, keyed (rank, copy)
+        # for copy in 1..k-1, plus per-rank mirror-pending span trackers
+        self.placement = placement
+        self.replica_segs = replica_segs or {}
+        self.replication = placement.k if placement is not None else 1
+        self._mirror_pending = (
+            {r: DirtyTracker(segments[r].size, mirror_page_size)
+             for r in range(comm.size)}
+            if placement is not None else {})
+        # remembered allocation geometry (rebuild re-creates segments with it)
+        self._alloc_size = alloc_size
+        self._alloc_spec = dict(alloc_spec) if alloc_spec is not None else {}
         self._locks = [_RWLock() for _ in range(comm.size)]
         self._epoch_depth = [0] * comm.size
         # thread ident -> number of lock epochs it holds on this window
@@ -308,7 +353,7 @@ class Window:
         # of (wire_op, ticket) coalesced until a dispatch boundary, plus the
         # notified-access ledger of already-POSTED batches awaiting their
         # target-side completion read at the next flush/sync boundary
-        # (lists of op trains, per rank)
+        # ((holder, op train) pairs, per rank)
         self._agg_lock = threading.Lock()
         self._agg_ops: dict[int, list] = {}
         self._agg_nbytes: dict[int, int] = {}
@@ -317,6 +362,12 @@ class Window:
         # execution order) must match buffer drain order, and pool.submit may
         # block on backpressure so _agg_lock cannot be held across it
         self._agg_dispatch_locks = [threading.Lock() for _ in range(comm.size)]
+        # replica read balancing: rotate reads across live holders (only
+        # when no mirror-pending writes -- read-your-writes stickiness);
+        # _mirror_inflight pins reads to the acting holder while a mirror
+        # pass is copying already-cleared spans out to the replicas
+        self._read_rr = itertools.count()
+        self._mirror_inflight: dict[int, int] = {}
         # MPI attribute caching (paper: metadata on the window object)
         self.attrs: dict[str, Any] = {
             "alloc_type": hints.alloc_type,
@@ -360,30 +411,36 @@ class Window:
             mechanism=mechanism, page_size=page_size, cache_bytes=cache_bytes,
             writeback_interval=writeback_interval,
             compare_on_write=compare_on_write)
+        segments = comm.transport.allocate_segments(size, hints, spec)
         flavor = ("combined" if hints.is_combined else
                   "storage" if hints.is_storage else "memory")
-        # replication is advisory, like every hint: the JAX package keeps
-        # k copies of a pure storage window, clamped to the communicator
-        # size.  This package has no resilience layer yet, so a window the
-        # reference would replicate is refused instead of silently keeping
-        # one copy.
+        # replication (advisory, like every hint): pure storage windows
+        # only -- replicas must be durable to add fault tolerance -- and
+        # clamped to the communicator size (each copy on a distinct rank)
         k = (hints.replication
              if hints.is_storage and not hints.is_combined else 1)
+        k = max(1, min(k, comm.size))
         if getattr(comm.transport, "single_rank_view", False):
             # rank-local transports materialize only this rank's
             # partition: there is no peer to host a replica on
             k = 1
-        if min(k, comm.size) > 1:
-            raise WindowError(
-                f"storage_alloc_replication={hints.replication} needs the "
-                "resilience layer, which is not ported to repro_torch yet: "
-                "see ROADMAP.md queue A, A3 'resilience'")
-        segments = comm.transport.allocate_segments(size, hints, spec)
+        placement = ReplicaPlacement(comm.size, k) if k > 1 else None
+        replica_segs: dict = {}
+        if placement is not None:
+            for j in range(1, k):
+                h_j = cls._replica_hints_for(hints, j)
+                for r in range(comm.size):
+                    replica_segs[(r, j)] = comm.transport.allocate_segment(
+                        placement.holders(r)[j], size, h_j, spec,
+                        name_rank=r, name_nranks=comm.size)
         return cls(comm, segments, hints, disp_unit=disp_unit, flavor=flavor,
                    async_workers=async_workers,
                    max_inflight_bytes=max_inflight_bytes,
                    low_watermark=low_watermark,
-                   target_flush_latency=target_flush_latency)
+                   target_flush_latency=target_flush_latency,
+                   placement=placement, replica_segs=replica_segs,
+                   mirror_page_size=page_size, alloc_size=size,
+                   alloc_spec=spec)
 
     @classmethod
     def allocate_shared(cls, comm, size: int, **kw) -> "Window":
@@ -444,25 +501,134 @@ class Window:
             return seg
         return self.segments[rank]
 
+    # -- replication / failover routing --------------------------------------
+    @property
+    def replicated(self) -> bool:
+        return self.placement is not None
+
+    @staticmethod
+    def _replica_hints_for(hints: WindowHints, j: int) -> WindowHints:
+        """Hints for replica generation ``j``: same window, distinct file
+        namespace (the transport's naming policy then appends the *home*
+        rank, so copy ``j`` of rank ``r`` is ``<file>.rep<j>.<r>``)."""
+        return dataclasses.replace(hints, filename=f"{hints.filename}.rep{j}")
+
+    def _replica_hints(self, j: int) -> WindowHints:
+        return self._replica_hints_for(self.hints, j)
+
+    def _live_holders(self, rank: int) -> list[int]:
+        """``rank``'s live holders in chain order; raises when none is left."""
+        dead = self.comm.dead_ranks
+        live = [h for h in self.placement.holders(rank) if h not in dead]
+        if not live:
+            raise WindowError(
+                f"no live holder for rank {rank}'s partition "
+                f"(k={self.replication}, dead={sorted(dead)})")
+        return live
+
+    def _holder_of(self, rank: int) -> int:
+        """Acting holder of ``rank``'s partition: the first live rank in
+        chain order (primary first).  Every origin resolves this from the
+        communicator's shared dead set, so they agree without coordination."""
+        if self.placement is None:
+            return rank
+        return self._live_holders(rank)[0]
+
+    def _seg_at(self, rank: int, holder: int):
+        """The segment through which ``holder`` serves ``rank``'s bytes."""
+        if holder == rank:
+            return self.segments[rank]
+        return self.replica_segs[(rank, self.placement.copy_index(rank, holder))]
+
+    def _route(self, rank: int, handle: int | None = None):
+        """(segment, acting holder) for ``rank``'s partition; validates
+        freed/rank/handle exactly like :meth:`_seg`."""
+        seg = self._seg(rank, handle)
+        if self.placement is None:
+            return seg, rank
+        holder = self._holder_of(rank)
+        return self._seg_at(rank, holder), holder
+
+    def _failover(self, rank: int, fn, *, handle: int | None = None):
+        """Run ``fn(segment)`` against the acting holder; a TransportError
+        marks the holder dead and retries on the next live replica
+        (primary -> chain order).  Non-replicated windows propagate the
+        error unchanged.  The loop terminates: every retry removes a
+        holder, and ``_route`` raises WindowError once none is left."""
+        while True:
+            seg, holder = self._route(rank, handle)
+            try:
+                return fn(seg)
+            except TransportError:
+                if self.placement is None:
+                    raise
+                self.comm.mark_dead(holder)
+
+    def _read_holder_of(self, rank: int) -> int:
+        """Holder to serve a READ of ``rank``'s partition.
+
+        Writes always land on the acting holder (:meth:`_holder_of`), but
+        every synced copy holds the same bytes -- so reads rotate across
+        the live holders to spread traffic, *except* while the rank has
+        mirror-pending spans (or a mirror pass in flight): those exist only
+        on the acting holder until the mirror lands, so reads stick there
+        (read-your-writes).  The rotation seeds from the origin's rank and
+        advances per read.
+        """
+        if self.placement is None:
+            return rank
+        live = self._live_holders(rank)
+        if (len(live) == 1 or self._mirror_pending[rank].dirty_count
+                or self._mirror_inflight.get(rank, 0)):
+            return live[0]
+        return live[(self.comm.rank + next(self._read_rr)) % len(live)]
+
+    def _failover_read(self, rank: int, fn, *, handle: int | None = None):
+        """:meth:`_failover` for reads: routes via :meth:`_read_holder_of`
+        (load-spread across replicas) instead of the acting holder."""
+        while True:
+            seg = self._seg(rank, handle)  # freed/rank/handle validation
+            if self.placement is None:  # incl. dynamic: handle addressing
+                return fn(seg)
+            holder = self._read_holder_of(rank)
+            try:
+                return fn(self._seg_at(rank, holder))
+            except TransportError:
+                self.comm.mark_dead(holder)
+
+    def _note_write(self, rank: int, offset: int, nbytes: int) -> None:
+        """Record a written span for mirroring at the next sync/flush."""
+        if self.placement is not None and nbytes > 0:
+            self._mirror_pending[rank].mark(offset, nbytes)
+
     # -- one-sided operations ------------------------------------------------
     def put(self, data: np.ndarray, target_rank: int, target_disp: int = 0,
             *, handle: int | None = None) -> None:
         """MPI_Put: write ``data`` into the target rank's window.
 
         Only the memory copy (page cache) is updated -- storage consistency
-        requires a subsequent ``sync`` (paper §2.1.1).
+        requires a subsequent ``sync`` (paper §2.1.1).  On a replicated
+        window the write targets the partition's acting holder and its span
+        is recorded for mirroring at the next sync.
         """
         buf = np.ascontiguousarray(data).view(np.uint8).ravel()
         off = target_disp * self.disp_unit
-        self.comm.transport.put(self._seg(target_rank, handle), off, buf)
+        self._failover(target_rank,
+                       lambda seg: self.comm.transport.put(seg, off, buf),
+                       handle=handle)
+        self._note_write(target_rank, off, buf.nbytes)
 
     def get(self, target_rank: int, target_disp: int, count: int,
             dtype=np.uint8, *, handle: int | None = None) -> np.ndarray:
-        """MPI_Get: read ``count`` items of ``dtype`` from the target."""
+        """MPI_Get: read ``count`` items of ``dtype`` from the target (on a
+        replicated window, from any live holder of the synced partition;
+        see :meth:`_read_holder_of`)."""
         dt = np.dtype(dtype)
         off = target_disp * self.disp_unit
-        raw = self.comm.transport.get(self._seg(target_rank, handle), off,
-                                      count * dt.itemsize)
+        raw = self._failover_read(
+            target_rank,
+            lambda seg: self.comm.transport.get(seg, off, count * dt.itemsize),
+            handle=handle)
         return raw.view(dt)[:count].copy()
 
     # kept as an alias: the op table now lives with the transport layer so
@@ -487,8 +653,11 @@ class Window:
         lock = self._locks[target_rank]
         lock.acquire(exclusive=True)
         try:
-            self.comm.transport.accumulate(self._seg(target_rank, handle), off,
-                                           data, op)
+            self._failover(
+                target_rank,
+                lambda seg: self.comm.transport.accumulate(seg, off, data, op),
+                handle=handle)
+            self._note_write(target_rank, off, data.nbytes)
         finally:
             lock.release()
 
@@ -503,8 +672,14 @@ class Window:
         lock = self._locks[target_rank]
         lock.acquire(exclusive=True)
         try:
-            return self.comm.transport.get_accumulate(
-                self._seg(target_rank, handle), off, data, op)
+            old = self._failover(
+                target_rank,
+                lambda seg: self.comm.transport.get_accumulate(
+                    seg, off, data, op),
+                handle=handle)
+            if op != "no_op":
+                self._note_write(target_rank, off, data.nbytes)
+            return old
         finally:
             lock.release()
 
@@ -524,8 +699,13 @@ class Window:
         lock = self._locks[target_rank]
         lock.acquire(exclusive=True)
         try:
-            return self.comm.transport.compare_and_swap(
-                self._seg(target_rank, handle), off, value, compare, dt)
+            old = self._failover(
+                target_rank,
+                lambda seg: self.comm.transport.compare_and_swap(
+                    seg, off, value, compare, dt),
+                handle=handle)
+            self._note_write(target_rank, off, dt.itemsize)
+            return old
         finally:
             lock.release()
 
@@ -629,6 +809,20 @@ class Window:
     AGG_MAX_OPS = 128
     AGG_MAX_BYTES = 1 << 20
 
+    @staticmethod
+    def _op_write_span(op) -> tuple[int, int]:
+        """(offset, nbytes) a batch sub-op writes (0 for reads)."""
+        kind = op[0]
+        if kind == "put":
+            data = op[2]
+            return op[1], (data.nbytes if hasattr(data, "nbytes")
+                           else len(data))
+        if kind in ("acc", "gacc"):
+            return op[1], np.ascontiguousarray(op[2]).nbytes
+        if kind == "cas":
+            return op[1], np.dtype(op[4]).itemsize
+        return op[1], 0  # get
+
     def _agg_submit(self, rank: int, op: tuple, nbytes: int = 0) -> Request:
         """Buffer one wire op for ``rank`` and return its Request.
 
@@ -683,8 +877,16 @@ class Window:
                 lock = self._locks[rank]
                 lock.acquire(exclusive=exclusive)
                 try:
-                    res = self.comm.transport.op_batch(
-                        self.segments[rank], ops, defer=deferrable)
+                    while True:
+                        seg, holder = self._route(rank)
+                        try:
+                            res = self.comm.transport.op_batch(
+                                seg, ops, defer=deferrable)
+                            break
+                        except TransportError:
+                            if self.placement is None:
+                                raise
+                            self.comm.mark_dead(holder)
                 except BaseException as e:
                     for t in tickets:
                         t.fail(e)
@@ -696,17 +898,21 @@ class Window:
                         # posted: MPI local completion -- tickets complete
                         # now, target-side completion (and error surfacing)
                         # at the next flush/sync boundary's notify read
+                        for op in ops:
+                            self._note_write(rank, *self._op_write_span(op))
                         with self._agg_lock:
-                            self._agg_posted.setdefault(rank, []).append(ops)
+                            self._agg_posted.setdefault(rank, []).append(
+                                (holder, ops))
                         for t in tickets:
                             t.complete(None)
                     else:
                         # per-op results; a failed sub-op ships its
                         # exception in its slot and fails only its ticket
-                        for t, r in zip(tickets, res):
+                        for op, t, r in zip(ops, tickets, res):
                             if isinstance(r, BaseException):
                                 t.fail(r)
                                 continue
+                            self._note_write(rank, *self._op_write_span(op))
                             t.complete(r)
                 except BaseException as e:
                     for t in tickets:
@@ -717,17 +923,45 @@ class Window:
                                     force=self._caller_in_lock_epoch())
 
     def _agg_complete(self, rank: int) -> int:
-        """Notified-access completion: one ``op_complete`` read confirms
-        every batch posted to ``rank`` since the last boundary.  Returns the
-        confirmed op count; deferred application errors surface here,
-        MPI-flush-style.
+        """Notified-access completion: one ``op_complete`` read per holder
+        confirms every batch posted to it since the last boundary.  A dead
+        holder's unconfirmed trains are replayed (reply form) on the next
+        live replica -- safe because the replacement never saw the posted
+        originals (replay-never-skip).  Returns confirmed+replayed op count;
+        deferred application errors surface here, MPI-flush-style.
         """
         with self._agg_lock:
             posted = self._agg_posted.pop(rank, None)
         if not posted:
             return 0
-        self.comm.transport.op_complete(self.segments[rank])
-        return sum(len(ops) for ops in posted)
+        # consecutive same-holder trains share one completion read
+        groups: list[list] = []
+        for holder, ops in posted:
+            if groups and groups[-1][0] == holder:
+                groups[-1][1].extend(ops)
+            else:
+                groups.append([holder, list(ops)])
+        done = 0
+        replay: list = []
+        for holder, ops in groups:
+            try:
+                self.comm.transport.op_complete(self._seg_at(rank, holder))
+                done += len(ops)
+            except TransportError:
+                if self.placement is None:
+                    raise
+                self.comm.mark_dead(holder)
+                replay.extend(ops)
+        if replay:
+            res = self._failover(
+                rank, lambda seg: self.comm.transport.op_batch(seg, replay))
+            for op in replay:
+                self._note_write(rank, *self._op_write_span(op))
+            done += len(replay)
+            for r in res or ():
+                if isinstance(r, BaseException):
+                    raise r  # deferred op error: surface at the boundary
+        return done
 
     def rput(self, data: np.ndarray, target_rank: int, target_disp: int = 0,
              *, handle: int | None = None) -> Request:
@@ -885,11 +1119,20 @@ class Window:
                     k = pool.begin_flush_sample()
                     t0 = time.monotonic()
                     try:
-                        n = self._sync_rank_segs(r, full, mask, spans=spans)
+                        n = self._sync_rank_segs(r, full, mask,
+                                                 mirror=False, spans=spans)
                     finally:
                         dt = time.monotonic() - t0
                         pool.end_flush_sample(
                             n, self._rank_sync_io(r, dt), k)
+                    if self.placement is not None:
+                        # replica mirroring after the sample closes: its
+                        # seconds would otherwise be charged against
+                        # primary-only bytes.  Still inside the task (and
+                        # the exclusive epoch, if any): request completion
+                        # = k durable copies, and on_complete runs only
+                        # after the mirror.
+                        self._mirror_rank(r)
                 finally:
                     if exclusive:
                         self._locks[r].release()
@@ -915,10 +1158,11 @@ class Window:
         return self._register(Request(tickets, combine=sum), ranks)
 
     def _rank_segs_for_io(self, rank: int) -> list:
-        """Segments a sync of ``rank`` touches."""
+        """Segments a sync of ``rank`` touches (the acting holder's, on a
+        replicated window with the primary dead)."""
         if self.dynamic:
             return self.segments[rank]
-        return [self.segments[rank]]
+        return [self._route(rank)[0]]
 
     def _rank_sync_io(self, rank: int, measured: float) -> float:
         """I/O seconds of the rank's just-completed sync: the owner-side
@@ -972,8 +1216,9 @@ class Window:
     def baseptr(self, rank: int):
         """Local load/store pointer (memory windows and mmap storage windows
         return a zero-copy numpy view; cached storage and combined windows
-        return the segment itself, which supports read()/write())."""
-        seg = self._seg(rank)
+        return the segment itself, which supports read()/write()).  Stores
+        through it bypass the replication mirror's bookkeeping."""
+        seg, _ = self._route(rank)
         if hasattr(seg, "buf"):  # plain memory segment
             return seg.buf
         if hasattr(seg, "backing") and hasattr(seg.backing, "view"):
@@ -1167,7 +1412,7 @@ class Window:
         return out or None
 
     def _sync_rank_segs(self, rank: int, full: bool, mask,
-                        spans: list | None = None) -> int:
+                        mirror: bool = True, spans: list | None = None) -> int:
         """Sync every segment of one rank.  The mask kw is only forwarded
         when set: dynamically attached segments may be third-party objects
         whose sync() predates the mask parameter (mask is already rejected
@@ -1175,19 +1420,139 @@ class Window:
 
         ``spans`` switches to the masked span-write primitive: the spans
         and the mask go through ``Transport.write_spans_masked`` against
-        the rank's segment (one round trip per rank on remote transports).
+        the partition's acting holder (one round trip per rank on remote
+        transports), routed with the same failover as ``put`` -- a
+        ``TransportError`` marks the holder dead and replays the whole span
+        set, with its mask, on the next holder (never a partial epoch).
+
+        Replicated windows sync the partition's *acting* holder and then
+        piggyback the mirror (:meth:`_mirror_rank`), so the completed epoch
+        means ``k`` durable copies.  Returns the acting holder's bytes.
+        ``mirror=False`` skips the piggyback: the flush_async task mirrors
+        outside its throughput sample.
         """
         if spans:
-            return self.comm.transport.write_spans_masked(
-                self.segments[rank], spans, mask)
-        segs = (self.segments[rank] if self.dynamic
-                else [self.segments[rank]])
-        total = 0
-        for seg in segs:
-            if seg is not None and hasattr(seg, "sync"):
-                total += (seg.sync(full=full) if mask is None
-                          else seg.sync(full=full, mask=mask))
+            total = self._failover(
+                rank,
+                lambda seg: self.comm.transport.write_spans_masked(
+                    seg, spans, mask))
+            for offset, data in spans:
+                self._note_write(rank, offset, data.nbytes)
+        elif self.dynamic or self.placement is None:
+            segs = (self.segments[rank] if self.dynamic
+                    else [self.segments[rank]])
+            total = 0
+            for seg in segs:
+                if seg is not None and hasattr(seg, "sync"):
+                    total += (seg.sync(full=full) if mask is None
+                              else seg.sync(full=full, mask=mask))
+        else:
+            total = self._failover(
+                rank, lambda seg: (seg.sync(full=full) if mask is None
+                                   else seg.sync(full=full, mask=mask)))
+        if mirror and self.placement is not None:
+            self._mirror_rank(rank)
         return total
+
+    #: bytes of mirror spans read off the acting holder in one train
+    MIRROR_CHUNK = 4 << 20
+
+    def _mirror_trains(self, take: np.ndarray, page_size: int,
+                       size: int) -> list[list[tuple[int, int]]]:
+        """The dirty runs of ``take`` as ``(offset, nbytes)`` pieces, cut at
+        :attr:`MIRROR_CHUNK` and grouped into trains of at most that many
+        bytes: one read and one posted write a train, however fragmented
+        the dirty set (a page-spread change is one run a page)."""
+        trains: list[list[tuple[int, int]]] = []
+        train: list[tuple[int, int]] = []
+        nbytes = 0
+        for b0, b1 in dirty_runs(take):
+            lo, hi = b0 * page_size, min(b1 * page_size, size)
+            while lo < hi:
+                n = min(hi - lo, self.MIRROR_CHUNK)
+                if train and nbytes + n > self.MIRROR_CHUNK:
+                    trains.append(train)
+                    train, nbytes = [], 0
+                train.append((lo, n))
+                nbytes += n
+                lo += n
+        if train:
+            trains.append(train)
+        return trains
+
+    def _mirror_rank(self, rank: int) -> int:
+        """Forward the spans written since the last mirror from ``rank``'s
+        acting holder to every other live holder, then sync them there.
+
+        Piggybacked on the flush path (the caller just synced the acting
+        holder).  The source is the acting holder's *memory copy*, which is
+        at least as new as its disk.  The spans travel in trains
+        (:meth:`_mirror_trains`): one reply-form ``op_batch`` of gets off
+        the acting holder and one posted ``op_batch`` of puts to each
+        replica a train, where the JAX package sends one get and one post
+        a run -- the same bytes in far fewer round trips.  Failures re-mark
+        the taken spans so the next sync replays them (never skips); a
+        holder dying mid-mirror is marked dead and skipped.  Returns bytes
+        made durable on the replicas.
+        """
+        tracker = self._mirror_pending[rank]
+        take = tracker.snapshot_and_clear()
+        if not take.any():
+            return 0
+        dead = self.comm.dead_ranks
+        acting = self._holder_of(rank)
+        src = self._seg_at(rank, acting)
+        live = {h: self._seg_at(rank, h)
+                for h in self.placement.holders(rank)
+                if h != acting and h not in dead}
+        if not live:
+            tracker.restore(take)  # degraded: keep pending for the rebuild
+            return 0
+        partial = False
+        mirrored = 0
+        with self._agg_lock:
+            self._mirror_inflight[rank] = \
+                self._mirror_inflight.get(rank, 0) + 1
+        try:
+            for train in self._mirror_trains(take, tracker.page_size,
+                                             tracker.size):
+                got = self.comm.transport.op_batch(
+                    src, [("get", lo, n) for lo, n in train])
+                for r in got:
+                    if isinstance(r, BaseException):
+                        raise r
+                puts = [("put", lo, data)
+                        for (lo, _), data in zip(train, got)]
+                for h in list(live):
+                    try:
+                        # notified post: the op_complete below is the
+                        # one completion read for the whole mirror
+                        self.comm.transport.op_batch(live[h], puts,
+                                                     defer=True)
+                    except TransportError:
+                        self.comm.mark_dead(h)
+                        live.pop(h)
+                        partial = True
+            for h in list(live):
+                try:
+                    self.comm.transport.op_complete(live[h])
+                    mirrored += live[h].sync()
+                except TransportError:
+                    self.comm.mark_dead(h)
+                    live.pop(h)
+                    partial = True
+        except BaseException:
+            # reading the acting holder failed (or a replica sync raised a
+            # non-transport error): this epoch is not k-durable -- re-mark
+            # and surface so the flush's caller sees it
+            tracker.restore(take)
+            raise
+        finally:
+            with self._agg_lock:
+                self._mirror_inflight[rank] -= 1
+        if partial or not live:
+            tracker.restore(take)
+        return mirrored
 
     # -- device-side selective sync -----------------------------------------
     def _device_page_geometry(self, rank: int,
@@ -1440,6 +1805,23 @@ class Window:
             base += int(f.sum()) * block_elems * itemsize
         return spans, mask
 
+    # -- resilience: live rebuild -------------------------------------------
+    def rebuild_rank(self, rank: int, *, mark_alive: bool = True) -> int:
+        """Restore a dead rank's state in this window from live replicas.
+
+        Re-maps the rank's segments (on transports whose workers can be
+        respawned -- call ``comm.rebuild_rank`` to also respawn), then
+        reconciles its partition and the replica copies it hosts with a
+        page-diff-granular copy from each partition's acting holder.  With
+        ``mark_alive`` (default) the rank is returned to service, routing
+        traffic back to the primary.  Returns bytes copied.
+        """
+        from .resilience.rebuild import rebuild_window_rank
+        copied = rebuild_window_rank(self, rank)
+        if mark_alive:
+            self.comm.mark_alive(rank)
+        return copied
+
     # -- teardown -----------------------------------------------------------
     def free(self) -> None:
         """Collective MPI_Win_free; honors unlink/discard hints.
@@ -1447,7 +1829,11 @@ class Window:
         Drains the nonblocking layer first: every pending request and queued
         ``flush_async`` completes before segments close, so fire-and-forget
         flushes are durable once free() returns.  Errors raised by pending
-        background operations re-raise here after teardown finishes.
+        background operations re-raise here after teardown finishes --
+        except on a replicated window where every error is a
+        ``TransportError`` and every partition still has a live holder: the
+        death was already observable and no data is at risk, so a job that
+        kept serving through the failure also shuts down through it.
         """
         if self.freed:
             return
@@ -1455,8 +1841,9 @@ class Window:
         try:
             self.comm.barrier()
         except BaseException as e:
-            # a failing barrier must not abort teardown: keep draining and
-            # closing so the segments (and their files) shut down cleanly
+            # a dead rank must not abort teardown: keep draining and
+            # closing so the surviving segments (and their files) shut
+            # down cleanly
             errors.append(e)
         if self._pool is not None:
             for r in range(self.comm.size):
@@ -1473,12 +1860,22 @@ class Window:
                         errors.append(e)
             for r in range(self.comm.size):
                 try:
-                    self._agg_complete(r)  # confirm posted trains
+                    self._agg_complete(r)  # confirm/replay posted trains
                 except BaseException as e:
                     errors.append(e)
             self._pool.shutdown()
             self._pool = None
-        for rank_seg in self.segments:
+        if self.placement is not None and not self.hints.discard:
+            # final mirror: closing a segment flushes its holder's own page
+            # cache, but only a mirror pass carries the last un-synced spans
+            # to the replicas
+            for r in range(self.comm.size):
+                try:
+                    self._mirror_rank(r)
+                except BaseException as e:
+                    errors.append(e)
+        # dynamic windows never replicate, so replica_segs is empty there
+        for rank_seg in list(self.segments) + list(self.replica_segs.values()):
             segs = rank_seg if self.dynamic else [rank_seg]
             for seg in segs:
                 if seg is not None:
@@ -1487,12 +1884,26 @@ class Window:
                                   discard=self.hints.discard)
                     except BaseException as e:
                         # close every remaining segment before surfacing:
-                        # one failing segment must not leak the others
+                        # one unreachable rank must not leak the others
                         errors.append(e)
         self.freed = True
         self.comm._unregister(self)
-        if errors:
+        if errors and not self._survivable_teardown(errors):
             raise errors[0]
+
+    def _survivable_teardown(self, errors) -> bool:
+        """True when free() may swallow its errors: replicated window,
+        transport-only failures, and a live holder for every partition."""
+        if self.placement is None:
+            return False
+        if not all(isinstance(e, TransportError) for e in errors):
+            return False
+        try:
+            for r in range(self.comm.size):
+                self._holder_of(r)
+        except WindowError:
+            return False
+        return True
 
     def __enter__(self):
         return self

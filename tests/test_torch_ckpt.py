@@ -34,7 +34,7 @@ from repro.train import Trainer as JTrainer
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy, tree_to_numpy
-from repro_torch.core import Communicator, WindowError
+from repro_torch.core import Communicator
 from repro_torch.train import AdamWConfig, TrainConfig, Trainer
 
 FILES = ("ckpt_a.bin", "ckpt_b.bin", "manifest.json", "manifest.prev.json")
@@ -206,11 +206,30 @@ def test_crash_restart_reopens_files(tmp_path):
 
 
 def test_replication_refused_naming_resilience(tmp_path):
-    comm = Communicator(2)
-    with pytest.raises(WindowError, match="resilience"):
-        CheckpointManager(str(tmp_path), comm, {"w": ((2048,), np.float32)},
-                          replication=2)
-    comm.close()
+    """Once refused, ``replication=2`` now works as the reference's: both
+    saves mirror to the replica before their manifests commit, and with the
+    saving rank dead ``restore`` serves the newest step from the replica;
+    files and the restored tree equal the reference manager's."""
+    spec = {"w": ((2048,), np.float32)}
+    w = np.random.default_rng(0).standard_normal(2048).astype(np.float32)
+    got = {}
+    for name, comm, cls in (("ref", JComm(2), JManager),
+                            ("port", Communicator(2), CheckpointManager)):
+        d = tmp_path / name
+        cm = cls(str(d), comm, spec, replication=2)
+        cm.save(1, {"w": w})
+        cm.save(2, {"w": w + 1})
+        comm.mark_dead(0)
+        r = cm.restore()
+        got[name] = (r.step, r.tree["w"].tobytes())
+        comm.mark_alive(0)
+        cm.close()
+        comm.close()
+        got[name + "_files"] = {p.name: p.read_bytes()
+                                for p in sorted(d.iterdir()) if "bin" in p.name}
+    assert got["port"] == got["ref"] == (2, (w + 1).tobytes())
+    assert got["port_files"] == got["ref_files"]
+    assert "ckpt_a.bin.rep1.0" in got["port_files"]
 
 
 # -- a checkpoint of the JAX Trainer, restored by the port's --------------------

@@ -15,12 +15,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
 import repro.core as jcore
+import repro_torch.core as tcore
 from repro.configs import get_config as j_get_config
 from repro.models.lm import param_specs as j_param_specs
 from repro.train.offload_opt import OutOfCoreAdamW as JAdamW
@@ -109,6 +111,119 @@ def test_mp_phase_at_smoke_widths(tmp_path, chip_smoke):
     d = out["7d"]
     assert d["mp"]["tasks"] == 6 and len(d["files_identical"]) == 8
     assert not (tmp_path / "mp").exists()
+
+
+class _RefTwin:
+    """Replays phase 8a's operations (``rep_shards``'s ``on_step``) on the
+    JAX package's in-process 4-rank world; every returned value must equal
+    the port's."""
+
+    def __init__(self, directory: Path, size: int):
+        self.comm = jcore.Communicator(4)
+        self.win = jcore.Window.allocate(self.comm, size, info={
+            "alloc_type": "storage",
+            "storage_alloc_filename": str(directory / "shards.bin"),
+            "storage_alloc_replication": "2"})
+        self.seen = []
+
+    def __call__(self, name, rank, value):
+        self.seen.append(name)
+        if name == "put":
+            self.win.put(value[1], rank, value[0])
+        elif name == "sync":
+            assert self.win.sync(rank) == value
+        elif name == "device_sync":
+            shards, flushed = value
+            assert self.win.sync_shards_from_device(
+                rank, [(jnp.asarray(c), jnp.asarray(s), off)
+                       for c, s, off in shards], blocking=True) == flushed
+        elif name == "kill":
+            self.comm.mark_dead(rank)
+        elif name == "rebuild":
+            assert self.comm.rebuild_rank(rank) == value
+
+    def close(self):
+        self.win.free()
+        self.comm.close()
+
+
+@pytest.mark.parametrize("transport", ["inproc", "mp"])
+def test_replicated_shards_match_reference(tmp_path, chip_smoke, transport):
+    """Phase 8a's routine at the small size (a real kill under mp), beside
+    the same puts, device syncs, death and rebuild through the JAX
+    package: equal flushed and rebuilt bytes, and byte-identical primary
+    and replica files."""
+    cfg = chip_smoke.smoke_config(1, **SMALL)
+    shapes = {k: s.shape for k, s in param_specs(cfg).items()}
+    size = max(chip_smoke.shard_layout(g, shapes)["bytes"]
+               for g in chip_smoke.shard_groups(shapes))
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "port").mkdir()
+    twin = _RefTwin(tmp_path / "ref", size)
+    comm = tcore.Communicator(4, transport=transport)
+    try:
+        out = chip_smoke.rep_shards(cfg, comm, device=torch.device("cpu"),
+                                    directory=tmp_path / "port",
+                                    on_step=twin, log=lambda *_: None)
+    finally:
+        comm.close()
+        twin.close()
+    assert twin.seen.count("device_sync") == 9 and "rebuild" in twin.seen
+    ref = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert ref == sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert len(ref) == 8
+    for name in ref:
+        assert (tmp_path / "port" / name).read_bytes() \
+            == (tmp_path / "ref" / name).read_bytes(), name
+    steps = out["steps"]
+    assert [s["step"] for s in steps] == [
+        "change 1", "changes 1 and 2, rank 2 dead", "clean"]
+    assert all(r["flushed_bytes"] == 0 for r in steps[2]["ranks"])
+    assert out["rebuild_bytes"] > 0
+
+
+def test_replicated_phase_at_smoke_widths(tmp_path, chip_smoke):
+    """Phase 8's routine at the small size on the CPU: 8a under inproc and
+    mp with byte-identical files, 8b's DHT through a SIGKILL, 8c's restore
+    with the saving rank dead (all checked inside, exact)."""
+    cfg = chip_smoke.smoke_config(1, **SMALL)
+    shards7b = {kind: {"ranks": [{"sync_ms": 1.0}] * 3}
+                for kind in ("inproc", "mp")}
+    out = chip_smoke.replicated_phase(
+        cfg, torch.device("cpu"), shards7b, tmp_path / "rep",
+        dht=dict(chip_smoke.REP_DHT, lv_entries=128, keys=200, more=50),
+        log=lambda *_: None)
+    a = out["8a"]
+    assert a["files_identical"] == sorted(
+        [f"shards.bin.{r}" for r in range(4)]
+        + [f"shards.bin.rep1.{r}" for r in range(4)])
+    assert a["mp"]["respawn_s"] > 0 and a["inproc"]["respawn_s"] is None
+    victim = [r for r in a["mp"]["steps"][1]["ranks"] if r["rank"] == 2][0]
+    assert not victim["dead_before"] and victim["dead_after"]
+    assert "2:wsync" in victim["messages"] and "3:wsync" in victim["messages"]
+    b = out["8b"]
+    assert b["lost_synced_keys"] == 0 and b["keys"] == 250
+    c = out["8c"]
+    assert c["restore"]["step"] == 2 and len(c["saves"]) == 2
+    assert 0 < c["saves"][1]["bytes"] < c["saves"][0]["bytes"]
+    assert not (tmp_path / "rep").exists()
+
+
+@pytest.mark.parametrize("transport", ["inproc", "mp"])
+def test_replicated_failover_launcher(tmp_path, transport):
+    """``python -m repro_torch.launch.replicated_failover`` under both
+    transports (a real SIGKILL under mp) passes its own checks."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_TRANSPORT=transport, REPRO_NRANKS="4",
+               REPRO_MP_TIMEOUT="60")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.replicated_failover",
+         "--dir", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    kill = "SIGKILL" if transport == "mp" else "simulated"
+    assert f"kill={kill}" in res.stdout and "0 synced keys lost" in res.stdout
+    assert res.stdout.rstrip().endswith("done")
 
 
 def test_param_specs_match_reference_internlm2_1p8b():

@@ -287,8 +287,12 @@ def test_failure_detector_equals_reference():
         comm.close()
     assert seen[0] == seen[1]
     assert seen[1][2] == [2]
-    with pytest.raises(NotImplementedError, match="resilience"):
-        Communicator(2).rebuild_rank(1)
+    # a world with no windows rebuilds nothing, as the reference's
+    for core in (JComm, Communicator):
+        comm = core(2)
+        comm.mark_dead(1)
+        assert comm.rebuild_rank(1) == 0 and 1 not in comm.dead_ranks
+        comm.close()
 
 
 # -- the Trainer ------------------------------------------------------------------

@@ -420,18 +420,34 @@ def test_sync_from_device_dtypes(tmp_path, route, dtype):
     assert n > 0 and st["logical_bytes"] > 0
 
 
-# -- what this package refuses ------------------------------------------------
+# -- replication and what this package refuses ---------------------------------
+
+def _replicated_alloc(pkg, d):
+    """A 4-rank window asking for 3 copies, one for 9 (clamped to 4),
+    and a one-rank window keeping its single copy."""
+    out = []
+    for name, k in (("w.bin", "3"), ("x.bin", "9")):
+        comm = pkg.core.Communicator(4)
+        win = pkg.core.Window.allocate(comm, PAGE, info=info(
+            d, name, storage_alloc_replication=k))
+        out.append((win.replication, sorted(win.replica_segs)))
+        win.free()
+        comm.close()
+    one = pkg.core.Window.allocate(pkg.core.Communicator(1), PAGE, info=info(
+        d, "one.bin", storage_alloc_replication="2"))
+    out.append((one.replication, one.replicated))
+    one.free()
+    return out, sorted(p.name for p in d.iterdir())
+
 
 def test_replicated_window_refused(tmp_path):
-    comm = tcore.Communicator(2)
-    with pytest.raises(tcore.WindowError, match="ROADMAP"):
-        tcore.Window.allocate(comm, PAGE, info=info(
-            tmp_path, storage_alloc_replication="2"))
-    # advisory like the reference: clamped to the communicator size, so a
-    # one-rank window keeps its single copy
-    one = tcore.Window.allocate(tcore.Communicator(1), PAGE, info=info(
-        tmp_path, "one.bin", storage_alloc_replication="2"))
-    one.free()
+    """Once refused, a replicated window now allocates as the reference's:
+    copy j of rank r in ``<file>.rep<j>.<r>``, replication advisory and
+    clamped to the communicator size, a one-rank window a single copy."""
+    (w, x, one), names = both(tmp_path, _replicated_alloc)
+    assert w == (3, [(r, j) for r in range(4) for j in (1, 2)])
+    assert x[0] == 4 and one == (1, False)
+    assert "w.bin.rep2.3" in names and "one.bin" in names
 
 
 @pytest.mark.parametrize("kind", ["mp", "tcp", "ranklocal"])
