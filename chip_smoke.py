@@ -133,6 +133,20 @@ into ``build/repro_torch``), and then:
   kernel of the package may launch in phase 6: the reference's training
   path runs none (its loss runs ``blockwise_attention`` in XLA, and no
   kernel has a backward).  Both windows are removed at the end.
+* phases 6b and 6c train the SSM and hybrid families through phase 6's
+  routine (``TRAIN_PHASES``) on the same shape and under deterministic
+  algorithms, with parameters from seed 0 in the published dynamics (as
+  in phases 4 and 5): 6b mamba2-2.7b at full widths, depth cut to 2
+  layers (209,141,728 parameters; the chunked SSD scan in plain torch),
+  runs A, B and C with C equal to A bit for bit and each save checked,
+  no offload run; 6c recurrentgemma-2b at full widths, depth cut to one
+  (rglru, rglru, local_attn) group (912,314,880 parameters; the RG-LRU
+  through the log-depth ``linear_scan``, the window of 2048 binding at
+  seq 4096), run A only (6 steps).  In both the losses must be finite,
+  step 0's bf16 loss within 2e-2 relative of the same loss in float32
+  (same parameters and batch; the tied, scaled head breaks phase 6's
+  ln V + 1/2 rule), and no kernel may launch: B3, B4 and B5 stay on the
+  prefills.
 * phase 7 drives the MPI layer across processes, with the card as the
   origin.  7a runs phase 2's configuration and traffic with the 6.06 GB
   window owned by a spawned worker (``Communicator(1, transport="mp")``):
@@ -181,11 +195,14 @@ power limit (``nvidia-smi``), build times, per-sync times, the serving
 times, phase 6's step times, step profile and per-save split (host copy,
 staging, flush), phase 7's mp and inproc times, wire bytes and host
 memory, phase 8's sync ms per step beside 7b's, control messages, respawn
-and rebuild seconds, DHT rates and checkpoint times, and one JSON line
+and rebuild seconds, DHT rates and checkpoint times, phases 6b's and 6c's
+step times, step profiles, saves and restore, the phase walls and the
+command's wall, and one JSON line
 ``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
 library times (B1 and B2 launch in phases 2, 7a, 7b and 8a: their launches
-are the sum, split in ``launches_by_phase``; B3 and B4 have a bf16 and a float32 tensor-core kernel
+are the sum; every row splits its launches by phase in
+``launches_by_phase``, the training phases 6, 6b and 6c at 0; B3 and B4 have a bf16 and a float32 tensor-core kernel
 each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
 with its launches in phases 3 to 5, counted there and required to be 0;
@@ -210,6 +227,8 @@ import sys
 import time
 from pathlib import Path
 from types import SimpleNamespace
+
+START = time.perf_counter()  # the command's wall is printed from here
 
 # phase 6 runs under torch.use_deterministic_algorithms, whose cuBLAS
 # products need this workspace setting before CUDA starts
@@ -269,6 +288,31 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
 # variance (lm_head at fan_in^-1/2 over a unit-rms input), so its
 # cross-entropy is about ln V + 1/2; held within TRAIN_LOSS0_TOL of that
 TRAIN_LOSS0_TOL = 0.5
+# phases 6b and 6c train the SSM and hybrid families through phase 6's
+# routine at full widths on TRAIN's shape.  A tied, scaled or soft-capped
+# head (theirs is tied and, for recurrentgemma-2b, scaled) breaks the
+# ln V + 1/2 rule, so such a model's step-0 bf16 loss is held to the same
+# loss in float32 (same params and batch) within TRAIN_F32_TOL.  Each
+# phase: its config and depth, why that depth, the runs it makes (A; B and
+# C: the kill and restore) and whether it adds the offload run.  All take
+# TRAIN's steps and microbatches (if the time limit forces a cut, the
+# order is 6c's steps 6 -> 3, then 6b's microbatches 2 -> 1)
+TRAIN_F32_TOL = 2e-2
+TRAIN_PHASES = {
+    "6": dict(arch="internlm2-1.8b", n_layers=SMOKE_LAYERS,
+              why="host memory: about five copies of the checkpoint tree at "
+                  "once, run time limit and disk",
+              runs="ABC", offload=True),
+    "6b": dict(arch="mamba2-2.7b", n_layers=2,
+               why="phase 6's budget: a 2.51 GB params, m and v window "
+                   "against phase 6's 6.06 GB",
+               runs="ABC", offload=False),
+    "6c": dict(arch="recurrentgemma-2b", n_layers=3,
+               why="one (rglru, rglru, local_attn) group; its 912 M "
+                   "parameters make a 10.95 GB window, whose kill and "
+                   "restore would hold about 71 GB on the host",
+               runs="A", offload=False),
+}
 
 KERNELS = {
     "dirty_diff": {"source": "src/repro_torch/csrc/dirty_diff.cu",
@@ -1590,23 +1634,30 @@ class SaveChecks:
 
 def run_training(cfg, *, device, directory: Path, seq: int,
                  batch: int = TRAIN["batch"],
-                 microbatches: int = TRAIN["microbatches"], log=print,
+                 microbatches: int = TRAIN["microbatches"],
+                 phase: str = "6", log=print,
                  mark=lambda label: None) -> dict:
-    """Phase 6: the ``Trainer`` on ``cfg`` (random parameters from seed 0,
-    made on ``device``) under deterministic algorithms.  Run A trains
-    TRAIN["steps"] fused steps; run B the same with asynchronous window
+    """Phase 6, 6b or 6c (``phase``, the entry of TRAIN_PHASES that sets
+    the runs): the ``Trainer`` on ``cfg`` (random parameters from seed 0
+    with the published dynamics, :func:`model_params`, made on
+    ``device``) under deterministic algorithms.  Run A trains
+    TRAIN["steps"] fused steps, its losses finite and step 0's near a
+    random model's (ln V + 1/2, or for a tied, scaled or soft-capped head
+    the float32 loss); run B the same with asynchronous window
     checkpoints every TRAIN["ckpt_every"] steps, stopped after
     TRAIN["kill_after"]; a fresh manager restores the newest checkpoint;
     run C, a fresh Trainer on the same directory, restores and continues.
-    C's final params, moments and step, and its losses, must equal A's bit
-    for bit.  Then TRAIN["offload_steps"] offload-mode steps.  ``mark``
-    is called with a label at the end of each stretch of the phase (the
-    host memory is read there).  Returns the measurements."""
+    C's final params, moments and step, and its losses, must equal A's
+    bit for bit.  Then, where the phase has it, TRAIN["offload_steps"]
+    offload-mode steps.  ``mark`` is called with a label at the end of
+    each stretch of the phase (the host memory is read there).  Returns
+    the measurements."""
     from repro_torch.data import SyntheticLM
-    from repro_torch.models import param_specs
+    from repro_torch.models import make_loss_fn, param_specs
     from repro_torch.train import (AdamWConfig, TrainConfig, Trainer,
                                    adamw_update)
 
+    spec = TRAIN_PHASES[phase]
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     opt = AdamWConfig(**TRAIN_OPT)
@@ -1644,8 +1695,9 @@ def run_training(cfg, *, device, directory: Path, seq: int,
         if cuda:
             torch.cuda.synchronize(dev)  # CUDA starts before the reset
             torch.cuda.reset_peak_memory_stats(dev)
+        params0 = model_params(cfg, 0, dev)
         trA = Trainer(cfg, opt, tcfg(), device=dev)
-        pA, oA = trA.run(Stream(), on_step=timed)
+        pA, oA = trA.run(Stream(), params0, on_step=timed)
         lossA = [m["loss"] for m in trA.metrics_log]
         step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
         out["losses"] = lossA
@@ -1660,113 +1712,144 @@ def run_training(cfg, *, device, directory: Path, seq: int,
                      for k, v in ds.batch_at(steps).items()}
             out["step_profile"] = device_profile(lambda: adamw_update(
                 pA, trA.loss_and_grads(pA, probe)[1], oA, opt))
-        want0 = math.log(cfg.vocab) + 0.5
-        check(abs(lossA[0] - want0) <= TRAIN_LOSS0_TOL,
-              f"step 0 loss {lossA[0]}, a random model's is about {want0}")
         check(all(math.isfinite(x) for x in lossA), f"losses {lossA}")
-
+        if not (cfg.tie_embeddings or cfg.scale_embeddings
+                or cfg.logit_softcap):
+            want0 = math.log(cfg.vocab) + 0.5
+            check(abs(lossA[0] - want0) <= TRAIN_LOSS0_TOL,
+                  f"step 0 loss {lossA[0]}, a random model's is about {want0}")
+        else:  # step 0's loss in float32: the same params, the same batch
+            loss_f32 = make_loss_fn(dataclasses.replace(cfg, dtype="float32"))
+            first = {k: torch.from_numpy(v).to(dev)
+                     for k, v in ds.batch_at(0).items()}
+            with torch.no_grad():
+                want0 = float(sum(loss_f32(params0, {k: v[i] for k, v in
+                                                     first.items()})[0]
+                                  for i in range(microbatches))
+                              / microbatches)
+            out["loss0_float32"] = want0
+            out["loss0_rel_err"] = abs(lossA[0] - want0) / abs(want0)
+            check(out["loss0_rel_err"] <= TRAIN_F32_TOL,
+                  f"step 0 loss {lossA[0]} in {cfg.dtype}, {want0} in "
+                  f"float32: {out['loss0_rel_err']} relative")
+            del first
         mark("run A")
 
-        # run B: the same, checkpointing, "killed" after KILL_AFTER steps
-        saves = SaveChecks(directory, mark)
-        tcB = tcfg(ckpt_dir=str(directory), ckpt_every=every,
-                   ckpt_async=True)
-        tr = Trainer(cfg, opt, tcB, device=dev)
-        tr.run(Stream(), stop_after=kill, on_save=saves.hook(tr, "run B"))
-        saves.verify()
-        check([m["loss"] for m in tr.metrics_log] == lossA[:kill],
-              "run B's losses differ from run A's")
-        tr.close()
-        mark("run B's last save, checked; run B closed")
+        if "B" in spec["runs"]:
+            # run B: the same, checkpointing, "killed" after KILL_AFTER steps
+            saves = SaveChecks(directory, mark)
+            tcB = tcfg(ckpt_dir=str(directory), ckpt_every=every,
+                       ckpt_async=True)
+            tr = Trainer(cfg, opt, tcB, device=dev)
+            tr.run(Stream(), params0, stop_after=kill,
+                   on_save=saves.hook(tr, "run B"))
+            saves.verify()
+            check([m["loss"] for m in tr.metrics_log] == lossA[:kill],
+                  "run B's losses differ from run A's")
+            tr.close()
+            mark("run B's last save, checked; run B closed")
 
-        # run C: a fresh Trainer on the same directory restores the newest
-        # manifest (its step and CRCs validate) and continues
-        tr = Trainer(cfg, opt, tcB, device=dev)
+            # run C: a fresh Trainer on the same directory restores the
+            # newest manifest (its step and CRCs validate) and continues
+            tr = Trainer(cfg, opt, tcB, device=dev)
 
-        def restored_mark(step, rec):
-            if step == kill:
-                mark("run C's restore and first step")
+            def restored_mark(step, rec):
+                if step == kill:
+                    mark("run C's restore and first step")
 
-        pC, oC = tr.run(Stream(kill), on_step=restored_mark,
-                        on_save=saves.hook(tr, "run C"))
-        saves.verify()
-        restored = tr.ckpt.restore_records
-        check(tr.restored_step == kill and len(restored) == 1
-              and not restored[0]["fell_back"],
-              f"run C restored {restored}, not step {kill}")
-        out["restore_ms"] = restored[0]["ms"]
-        lossC = [m["loss"] for m in tr.metrics_log]
-        check(lossC == lossA[kill:],
-              f"run C's losses {lossC} differ from run A's {lossA[kill:]}")
-        same = {k: torch.equal(pC[k], pA[k]) and torch.equal(oC["m"][k],
-                                                             oA["m"][k])
-                and torch.equal(oC["v"][k], oA["v"][k]) for k in pA}
-        check(all(same.values()),
-              "run C's params or moments differ from run A's: "
-              f"{sorted(k for k, v in same.items() if not v)}")
-        check(torch.equal(oC["step"], oA["step"]), "run C's step differs")
-        tr.close()
-        mark("run C's last save, checked; run C closed")
-        out["saves"] = saves.records
+            pC, oC = tr.run(Stream(kill), params0, on_step=restored_mark,
+                            on_save=saves.hook(tr, "run C"))
+            saves.verify()
+            restored = tr.ckpt.restore_records
+            check(tr.restored_step == kill and len(restored) == 1
+                  and not restored[0]["fell_back"],
+                  f"run C restored {restored}, not step {kill}")
+            out["restore_ms"] = restored[0]["ms"]
+            lossC = [m["loss"] for m in tr.metrics_log]
+            check(lossC == lossA[kill:],
+                  f"run C's losses {lossC} differ from run A's {lossA[kill:]}")
+            same = {k: torch.equal(pC[k], pA[k])
+                    and torch.equal(oC["m"][k], oA["m"][k])
+                    and torch.equal(oC["v"][k], oA["v"][k]) for k in pA}
+            check(all(same.values()),
+                  "run C's params or moments differ from run A's: "
+                  f"{sorted(k for k, v in same.items() if not v)}")
+            check(torch.equal(oC["step"], oA["step"]), "run C's step differs")
+            tr.close()
+            mark("run C's last save, checked; run C closed")
+            out["saves"] = saves.records
+            del pC, oC, tr
         if cuda:
             out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
-        del pA, oA, pC, oC, trA, tr
+        del pA, oA, trA, params0
 
-        # offload mode: bf16 params on the device, OutOfCoreAdamW walking
-        # its window on the host, synced at the last step
-        n_off = TRAIN["offload_steps"]
-        oo_dir = directory / "offload"
-        tr = Trainer(cfg, opt, TrainConfig(
-            steps=n_off, microbatches=microbatches, log_every=0,
-            mode="offload", ckpt_dir=str(oo_dir), ckpt_every=n_off),
-            device=dev)
-        t0 = time.perf_counter()
-        pO, _ = tr.run(Stream())
-        out["offload_s"] = time.perf_counter() - t0
-        out["offload_losses"] = [m["loss"] for m in tr.metrics_log]
-        check(all(math.isfinite(x) for x in out["offload_losses"]),
-              f"offload losses {out['offload_losses']}")
-        path = oo_dir / "optstate.bin"
-        check(path.exists(), f"{path} missing")
-        masters = tr.offload_opt.masters()
-        slots = tr.offload_opt.state.slots
-        check(window_equal(path, {k: slots[f"master/{k}"] for k in masters},
-                           {k: v.reshape(-1).view(np.uint8)
-                            for k, v in masters.items()}),
-              "offload: the window file differs from the masters")
-        check(all(torch.equal(torch.from_numpy(masters[k]).to(
-            dev, torch.bfloat16), v) for k, v in pO.items()),
-              "offload: the params are not the masters in bf16")
-        tr.close()
-        mark("offload")
+        if spec["offload"]:
+            # offload mode: bf16 params on the device, OutOfCoreAdamW
+            # walking its window on the host, synced at the last step
+            n_off = TRAIN["offload_steps"]
+            oo_dir = directory / "offload"
+            tr = Trainer(cfg, opt, TrainConfig(
+                steps=n_off, microbatches=microbatches, log_every=0,
+                mode="offload", ckpt_dir=str(oo_dir), ckpt_every=n_off),
+                device=dev)
+            t0 = time.perf_counter()
+            pO, _ = tr.run(Stream(), model_params(cfg, 0, dev))
+            out["offload_s"] = time.perf_counter() - t0
+            out["offload_losses"] = [m["loss"] for m in tr.metrics_log]
+            check(all(math.isfinite(x) for x in out["offload_losses"]),
+                  f"offload losses {out['offload_losses']}")
+            path = oo_dir / "optstate.bin"
+            check(path.exists(), f"{path} missing")
+            masters = tr.offload_opt.masters()
+            slots = tr.offload_opt.state.slots
+            check(window_equal(path, {k: slots[f"master/{k}"]
+                                      for k in masters},
+                               {k: v.reshape(-1).view(np.uint8)
+                                for k, v in masters.items()}),
+                  "offload: the window file differs from the masters")
+            check(all(torch.equal(torch.from_numpy(masters[k]).to(
+                dev, torch.bfloat16), v) for k, v in pO.items()),
+                  "offload: the params are not the masters in bf16")
+            tr.close()
+            mark("offload")
     finally:
         torch.use_deterministic_algorithms(False)
     return out
 
 
-def training_phase(dev, log=print) -> dict:
-    """Phase 6 at internlm2-1.8b's full widths (depth cut to SMOKE_LAYERS,
-    its own remat) on the train_4k shape cut to one card; no kernel of the
-    package may launch (the training path runs none)."""
+def train_config(phase: str):
+    """The config of a TRAIN_PHASES entry: full widths, depth cut."""
+    from repro_torch.configs import get_config
+    spec = TRAIN_PHASES[phase]
+    return dataclasses.replace(get_config(spec["arch"]),
+                               n_layers=spec["n_layers"])
+
+
+def training_phase(dev, phase: str = "6", log=print) -> dict:
+    """Phase 6, 6b or 6c (TRAIN_PHASES) at its config's full widths (depth
+    cut, its own remat) on the train_4k shape cut to one card; no kernel of
+    the package may launch (the training path runs none)."""
     from repro_torch.configs import SHAPES, get_config
     mods = [importlib.import_module(f"repro_torch.kernels.{name}")
             for name in BUILD]
     for mod in mods:
         mod.launches = 0
-    cfg = smoke_config()
+    spec = TRAIN_PHASES[phase]
+    cfg = train_config(phase)
     shape = SHAPES[TRAIN["shape"]]
     gbatch = TRAIN["batch"] * TRAIN["microbatches"]
-    log(f"reduced: n_layers {get_config(cfg.name).n_layers}->{cfg.n_layers} "
-        f"(host memory: about five copies of the checkpoint tree at once, "
-        f"run time limit and disk); {shape.name} global batch "
-        f"{shape.batch}->{gbatch} (one card: {TRAIN['batch']} sequences x "
-        f"{TRAIN['microbatches']} microbatches), seq {shape.seq}")
+    log(f"phase {phase}, {cfg.name}, reduced: n_layers "
+        f"{get_config(cfg.name).n_layers}->{cfg.n_layers} ({spec['why']}); "
+        f"{shape.name} global batch {shape.batch}->{gbatch} (one card: "
+        f"{TRAIN['batch']} sequences x {TRAIN['microbatches']} microbatches), "
+        f"seq {shape.seq}; steps {TRAIN['steps']}, runs {spec['runs']}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     TRAIN_DIR.mkdir(parents=True)
     try:
         with PeakRss() as rss:
             out = run_training(cfg, device=dev, directory=TRAIN_DIR,
-                               seq=shape.seq, log=log, mark=rss.mark)
+                               seq=shape.seq, phase=phase, log=log,
+                               mark=rss.mark)
     finally:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     out["peak_host_rss_bytes"] = rss.peak  # sampled every 50 ms
@@ -1775,7 +1858,8 @@ def training_phase(dev, log=print) -> dict:
     out["kernel_launches"] = {name: mod.launches
                               for name, mod in zip(BUILD, mods)}
     check(not any(out["kernel_launches"].values()),
-          f"the training path launched a kernel: {out['kernel_launches']}")
+          f"phase {phase}'s training path launched a kernel: "
+          f"{out['kernel_launches']}")
     return out
 
 
@@ -2658,16 +2742,23 @@ def main() -> int:
                                      on_paths["rg_lru"])})
     marks.append(time.perf_counter())
 
-    # phase 6: training with window checkpoints (no kernel of the package
-    # runs on this path; the counts are set to 0 here and must stay 0)
-    train = training_phase(dev)
-    prof = train.pop("step_profile")
-    saves = train.pop("saves")
-    print(f"train ({card}): " + json.dumps(train))
-    print(f"train step profile, accumulation over {TRAIN['microbatches']} "
-          f"microbatches + AdamW ({card}): " + json.dumps(prof))
-    print(f"train saves ({card}): " + json.dumps(saves))
-    marks.append(time.perf_counter())
+    # phases 6, 6b and 6c: training with window checkpoints (no kernel of
+    # the package runs on these paths; the counts are set to 0 before each
+    # and must stay 0)
+    trained = {}
+    for phase in TRAIN_PHASES:
+        out = trained[phase] = training_phase(dev, phase)
+        label = f"train {phase} {TRAIN_PHASES[phase]['arch']}"
+        prof = out.pop("step_profile")
+        saves = out.pop("saves", None)
+        print(f"{label} ({card}): " + json.dumps(out))
+        print(f"{label} step profile, accumulation over "
+              f"{TRAIN['microbatches']} microbatches + AdamW ({card}): "
+              + json.dumps(prof))
+        if saves is not None:
+            print(f"{label} saves ({card}): " + json.dumps(saves))
+        marks.append(time.perf_counter())
+    train = trained["6"]
 
     # phase 7: the MPI layer across processes.  A failure to spawn a worker
     # or a TransportError ends the run: nothing falls back to inproc
@@ -2713,11 +2804,26 @@ def main() -> int:
               f"{row['name']} never launched on a path: {by_phase}")
         row["launches"] = sum(by_phase.values())
         row["launches_by_phase"] = by_phase
+    # B3-B5 run in the serving phases' prefills (and float32 gates)
+    for row in kernels[2:]:
+        name, path = row["name"], ("float32_launches" if row["name"].endswith(
+            "32") else "launches")
+        row["launches_by_phase"] = {
+            ph: out[path][name] for ph, out in (("3", serve), ("4", ssm),
+                                                ("5", rg))
+            if name in out[path]}
+    # every kernel in the training phases: 0, checked there
+    for row in kernels:
+        stem = Path(KERNELS[row["name"]]["source"]).stem
+        row["launches_by_phase"].update(
+            {ph: out["kernel_launches"][stem] for ph, out in trained.items()})
     marks.append(time.perf_counter())
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(
             ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
-             "phase 5", "phase 6", "phase 7", "phase 8"), marks, marks[1:])}))
+             "phase 5", *(f"phase {ph}" for ph in TRAIN_PHASES), "phase 7",
+             "phase 8"), marks, marks[1:])}))
+    print(f"command wall (s): {time.perf_counter() - START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

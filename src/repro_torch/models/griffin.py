@@ -8,7 +8,10 @@ the recurrence itself is the ``rg_lru`` kernel
 (:func:`repro_torch.kernels.ops.rg_lru_scan`: the CUDA kernel for CUDA
 tensors, its plain sequential version for CPU tensors).  The reference's
 model path runs an associative scan in XLA instead and never calls its
-kernel; both compute the same recurrence.
+kernel; both compute the same recurrence.  Training runs
+:func:`linear_scan`, that associative scan's ``combine`` in plain torch
+and in log-depth, which autograd differentiates (the kernel has no
+backward, nor has the TPU kernel).
 
 Block structure (Griffin recurrent block):
     norm -> { y = gelu(x @ wy) ; r = rglru(conv1d(x @ wx)) } -> (y * r) @ wo
@@ -22,7 +25,8 @@ import torch.nn.functional as F
 from ..kernels import ops
 from .layers import causal_conv1d, gelu_tanh
 
-__all__ = ["rg_lru", "rg_lru_step", "griffin_forward", "griffin_decode_step"]
+__all__ = ["linear_scan", "rg_lru", "rg_lru_step", "griffin_forward",
+           "griffin_decode_step"]
 
 _C = 8.0  # Griffin's fixed gate sharpness
 
@@ -38,17 +42,36 @@ def _gates(p, x):
     return i_t, log_a
 
 
-def rg_lru(p, x, h0=None):
+def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t from h_{-1} = 0 along axis 1 of (B,S,W),
+    in ceil(log2 S) levels: at the level of stride d every position
+    combines the prefix d before it with its own by the reference's
+    ``combine(l, r) = (a_l * a_r, b_l * a_r + b_r)``, the positions before
+    the start taking the identity (1, 0).  Out of place (padding, never
+    slice assignment), so autograd differentiates it."""
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        b = F.pad(b[:, :-d], (0, 0, d, 0)) * a + b
+        if 2 * d < S:  # the last level needs no products of a
+            a = F.pad(a[:, :-d], (0, 0, d, 0), value=1.0) * a
+        d *= 2
+    return b
+
+
+def rg_lru(p, x, h0=None, *, train=False):
     """x: (B,S,W) -> (y (B,S,W) f32, h_last (B,W) f32) through the
-    ``rg_lru`` kernel; a given ``h0`` is folded into the first step's
-    additive term, as the reference does."""
+    ``rg_lru`` kernel, or with ``train`` through :func:`linear_scan`; a
+    given ``h0`` is folded into the first step's additive term, as the
+    reference does."""
     i_t, log_a = _gates(p, x)
     a = torch.exp(log_a)
     gate = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     b = gate * i_t * x.float()
     if h0 is not None:
-        b[:, 0] = b[:, 0] + a[:, 0] * h0.float()
-    h = ops.rg_lru_scan(a, b)
+        b = torch.cat([b[:, :1] + a[:, :1] * h0.float()[:, None], b[:, 1:]],
+                      dim=1)
+    h = linear_scan(a, b) if train else ops.rg_lru_scan(a, b)
     return h, h[:, -1]
 
 
@@ -61,14 +84,14 @@ def rg_lru_step(p, x_t, h):
     return h[:, None, :], h
 
 
-def griffin_forward(cfg, p, x, *, return_state=False):
+def griffin_forward(cfg, p, x, *, return_state=False, train=False):
     """Full-sequence recurrent block.  x: (B,S,D) -> (B,S,D); with
     ``return_state`` also ``(h_last (B,W) f32, conv_state)``, the decode
-    carry."""
+    carry; ``train`` runs the recurrence through :func:`linear_scan`."""
     y_branch = gelu_tanh(x @ p["wy"])
     r = x @ p["wx"]
     r, new_conv = causal_conv1d(r, p["conv_w"])
-    r_out, h_last = rg_lru(p, r)
+    r_out, h_last = rg_lru(p, r, train=train)
     out = (y_branch.float() * r_out).to(x.dtype) @ p["wo"]
     if return_state:
         return out, (h_last, new_conv)

@@ -5,12 +5,14 @@ The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks,
 Mamba-2 ``ssm`` blocks and RecurrentGemma's ``rglru`` and ``local_attn``
 blocks: ``param_specs``, ``init_cache_specs``, the prefill and decode
 forwards and their factories; names, shapes, dtypes, logical axes and init
-kinds are the reference's.  ``make_loss_fn`` (training) covers dense
-``attn`` blocks: it runs :func:`~.attention.blockwise_attention`, as the
-reference's loss does, and autograd differentiates it.  Training of the
-other ported kinds, and the MoE, MLA, encoder-decoder and VLM blocks, wait
-for later slices (ROADMAP queue A); asking for one raises
-``NotImplementedError`` naming its item.
+kinds are the reference's.  ``make_loss_fn`` (training) covers every
+ported kind with the reference's differentiable paths, which autograd
+differentiates: :func:`~.attention.blockwise_attention` for ``attn`` and
+(windowed) ``local_attn`` blocks, :func:`~.ssm.ssd_chunked` for ``ssm``
+blocks and :func:`~.griffin.linear_scan` for ``rglru`` blocks; no kernel
+of the package runs in it (none has a backward).  The MoE, MLA,
+encoder-decoder and VLM blocks wait for later slices (ROADMAP queue A);
+asking for one raises ``NotImplementedError`` naming its item.
 
 Conventions: params and caches are flat dicts ``g{gi}/p{pj}/<name>`` with
 a leading "layers" axis of length ``reps``; the reference's scan over that
@@ -72,8 +74,6 @@ _UNPORTED = {
     "xattn": "item 12 (frontends)", "enc_attn": "item 12 (frontends)",
 }
 _PORTED = {"attn", "ssm", "rglru", "local_attn"}
-# the kinds whose training forward is ported
-_TRAINED = {"attn"}
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -419,27 +419,23 @@ def _logits(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# Training forward (dense ``attn`` blocks)
+# Training forward (every ported kind)
 # ---------------------------------------------------------------------------
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    _check_ported(cfg)
-    kinds = {kind for _, pattern in cfg.groups() for kind in pattern}
-    untrained = sorted(kinds - _TRAINED)
-    if untrained:
-        raise _unported(f"training of {untrained[0]!r} blocks",
-                        "item 16 (training of ssm, rglru and local_attn "
-                        "blocks)")
-
-
-def _block_train(cfg, p, x, positions):
+def _block_train(cfg, kind, p, x, positions):
     """Full-sequence block application (train): the reference's
-    ``_block_train`` for ``attn`` blocks (the only trained kind; with no
-    MoE block, the reference's ``aux`` loss stays 0)."""
+    ``_block_train`` for the ported kinds (with no MoE block, the
+    reference's ``aux`` loss stays 0).  Only differentiable plain paths:
+    never a kernel of ``ops``."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if kind == "ssm":
+        return x + mamba2_forward(cfg, p, h, train=True)
+    if kind == "rglru":
+        return _mlp_res(cfg, p, x + griffin_forward(cfg, p, h, train=True))
     q, k, v = _qkv(cfg, p, h, positions)
     B, S = x.shape[:2]
-    o = blockwise_attention(q, k, v, causal=True)
+    window = cfg.window if kind == "local_attn" else None
+    o = blockwise_attention(q, k, v, causal=True, window=window)
     x = x + o.reshape(B, S, -1) @ p["wo"]
     return _mlp_res(cfg, p, x)
 
@@ -475,8 +471,9 @@ def _scan_group_train(cfg, params, gi, reps, pattern, x, positions):
     gp = sub(params, f"g{gi}")
 
     def body(x, layer_params):
-        for pj in range(len(pattern)):
-            x = _block_train(cfg, sub(layer_params, f"p{pj}"), x, positions)
+        for pj, kind in enumerate(pattern):
+            x = _block_train(cfg, kind, sub(layer_params, f"p{pj}"), x,
+                             positions)
         return x
 
     body = _remat(cfg, body)
@@ -494,7 +491,7 @@ def make_loss_fn(cfg: ModelConfig):
     float32 through ``logsumexp``; metrics ``ce``, ``aux`` (0: no MoE) and
     ``ntok``.
     """
-    _check_trainable(cfg)
+    _check_ported(cfg)
 
     def loss_fn(params, batch):
         params = cast_params(cfg, params)

@@ -8,8 +8,11 @@ which also returns the final state for the decode cache.  One intended
 difference follows: :func:`ssd_chunked` rounds ``xdt`` and the scores to
 the input dtype (bf16 on the model path) before its products, as the
 reference does; the kernel, like the TPU kernel, computes in float32.
-:func:`ssd_chunked` stays as the oracle of the chunked form and as the
-time to compare the kernel with.
+Training runs :func:`ssd_chunked` itself (``mamba2_forward(...,
+train=True)``), the reference's own math with those roundings: autograd
+differentiates it, and the kernel has no backward (nor has the TPU
+kernel).  It is also the oracle of the chunked form and the time to
+compare the kernel with.
 
 Block structure (Mamba-2):
     in_proj -> [z | xBC | dt]; causal depthwise conv on xBC; SSD(x, dt, A, B, C)
@@ -137,12 +140,13 @@ def _broadcast_groups(cfg, t):
     return t.reshape(B, S, H, N)
 
 
-def mamba2_forward(cfg, p, x, *, return_state=False):
+def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
     """Full-sequence Mamba-2 block.  x: (B,S,D) -> (B,S,D); with
     ``return_state`` also ``(h_last (B,H,N,P) f32, conv_state)``, the
     decode carry.  The scan is the ``ssd_scan`` kernel, which reads x, Bm
     and C as views of the conv output (no copies) and writes y in the
-    (B,S,H,P) layout."""
+    (B,S,H,P) layout; with ``train`` it is :func:`ssd_chunked` at
+    ``cfg.ssm_chunk``, which autograd differentiates."""
     B, S, D = x.shape
     H, P = cfg.ssm_heads, cfg.ssm_head_dim
     zxbcdt = x @ p["in_proj"]
@@ -155,10 +159,13 @@ def mamba2_forward(cfg, p, x, *, return_state=False):
     C = _broadcast_groups(cfg, C)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
-    y, h_last = ops.ssd_scan(xs.transpose(1, 2), dt.transpose(1, 2), A,
-                             Bm.transpose(1, 2), C.transpose(1, 2),
-                             return_state=True)
-    y = y.transpose(1, 2)                                   # (B,S,H,P)
+    if train:
+        y, h_last = ssd_chunked(xs, dt, A, Bm, C, chunk=cfg.ssm_chunk)
+    else:
+        y, h_last = ops.ssd_scan(xs.transpose(1, 2), dt.transpose(1, 2), A,
+                                 Bm.transpose(1, 2), C.transpose(1, 2),
+                                 return_state=True)
+        y = y.transpose(1, 2)                               # (B,S,H,P)
     y = y + xs.float() * p["D"].float()[None, None, :, None]
     y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
     y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)  # gated norm

@@ -56,7 +56,13 @@ def cosine_schedule(cfg: AdamWConfig, step,
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in tree.values()))
+    """The float32 norm over every tensor, the squares summed in sorted key
+    order: the order of the reference's jitted step, which flattens the
+    dict by key.  Insertion order would make the sum depend on how the
+    dict was built (a restored tree's order is not a fresh one's), and so
+    would the clipped update."""
+    return torch.sqrt(sum(tree[k].float().square().sum()
+                          for k in sorted(tree)))
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
