@@ -39,7 +39,14 @@ into ``build/repro_torch``), and then:
   and B 1, S 4096 with that window, where it binds; read through the model
   layout's strides, q and k drawn wide so the softmax is peaked) in
   float32 at 2e-5 and in bf16 at rtol 1e-2, atol 1e-4; both prefill
-  shapes must also give the same bits twice.
+  shapes must also give the same bits twice.  A value head dimension
+  unlike the query's goes through both kernels too: a sweep of dv in {8,
+  40, 128, 256} with d in {16, 192} (causal, full and window 24, at the
+  sweep's limits).  Phase 9's prefill shapes are held as the main shapes
+  are (q and k wide, at their limits, the same bits twice): gemma-7b's B
+  4, H = K 16, S 2000, d 256; qwen2-72b's H 64 and llama4-maverick's H 40
+  over K 8 at d 128; and deepseek-v2's MLA prefill, B 4, H = K 128, d 192
+  for q and k, dv 128.
 * phase 3 drives the serving path, ``Engine`` with a ``SessionStore``, at
   internlm2-1.8b's full widths and depth (24 layers, 1.89 B parameters
   made on the card from a seed, cast once to bf16): 4 requests of 2000
@@ -139,10 +146,11 @@ into ``build/repro_torch``), and then:
   in phases 4 and 5): 6b mamba2-2.7b at full widths, depth cut to 2
   layers (209,141,728 parameters; the chunked SSD scan in plain torch),
   runs A, B and C with C equal to A bit for bit and each save checked,
-  no offload run; 6c recurrentgemma-2b at full widths, depth cut to one
-  (rglru, rglru, local_attn) group (912,314,880 parameters; the RG-LRU
-  through the log-depth ``linear_scan``, the window of 2048 binding at
-  seq 4096), run A only (6 steps).  In both the losses must be finite,
+  one microbatch a step (cut for time), no offload run; 6c
+  recurrentgemma-2b at full widths, depth cut to one (rglru, rglru,
+  local_attn) group (912,314,880 parameters; the RG-LRU through the
+  log-depth ``linear_scan``, the window of 2048 binding at seq 4096), run
+  A only (3 steps, cut from 6 for time).  In both the losses must be finite,
   step 0's bf16 loss within 2e-2 relative of the same loss in float32
   (same parameters and batch; the tied, scaled head breaks phase 6's
   ln V + 1/2 rule), and no kernel may launch: B3, B4 and B5 stay on the
@@ -157,9 +165,9 @@ into ``build/repro_torch``), and then:
   of ranks 1-3 of ``Communicator(4, transport="mp")`` and syncs each
   group's first phase-2 change there with ``sync_shards_from_device``
   (flushed bytes = that rank's changed pages x 4096, one ``wsync`` each);
-  7c fills a 4 x 16,384-slot storage DHT to 80% with random keys
-  (``benchmarks/dht_bench.py``'s traffic; ``items()`` must equal a dict of
-  the keys); 7d runs ``MapReduce1S`` with a checkpoint a task over
+  7c fills a 4 x 4,096-slot storage DHT to 80% with random keys
+  (``benchmarks/dht_bench.py``'s traffic and table, cut from 4 x 16,384
+  slots for time; ``items()`` must equal a dict of the keys); 7d runs ``MapReduce1S`` with a checkpoint a task over
   ``benchmarks/mapreduce_bench.py``'s 24 tasks of 20,000 words (the
   result must equal ``wordcount_reduce``).  7b-7d run under inproc and mp,
   whose window files must be byte-identical.  A worker that cannot start
@@ -189,6 +197,31 @@ into ``build/repro_torch``), and then:
   selective, through ``CheckpointManager(..., replication=2)`` over a
   2-rank mp world, kills rank 0's worker, and ``restore()`` must return
   step 2 equal to the masters, bit for bit.
+* phase 9 serves the configurations added last (``PHASE9``) at their
+  published widths through phase 3's routine, random parameters from
+  seed 0 (float32 cast once to bf16, or bf16 where the config's
+  ``param_dtype`` is), SERVE's 4 x 2000-token prompts in a 4096-position
+  cache, depth cut only where the card's 80 GB forces it, each cut
+  printed with its reason: 9a gemma-7b at its 28 layers (8.5 B; MHA at
+  head_dim 256), 64 steps and no session, the bf16 reading on seed 0
+  under 0.02; 9b qwen2-72b cut to 4 layers (QKV bias), 64 steps, no
+  session; 9c deepseek-v2-236b cut to 3 layers (the dense first layer
+  and two MoE layers of 160 experts, top-6, MLA), 200 steps with the
+  session saved at token 100 and reopened (the latent tail merges at
+  2048); 9d llama4-maverick cut to one (attn, moe) pair (128 experts,
+  top-1), 200 steps and the session.  Resumed tokens and final cache
+  must equal the uninterrupted run's; ``flash_attention_tc`` must launch
+  once per layer in each prefill (``moe`` blocks and MLA count as
+  attention); float32 gates, with the float32 kernel, hold 9a and 9b at
+  4 layers and 9c at 3 (its prompt 500 and capacity factor E/k, so that
+  no assignment can drop: at the published 1.25 the capacity drops
+  different assignments for S and S + 1 tokens) within 1e-4.  The other
+  bf16 readings are printed, with each MoE config's routing line: how many
+  of the compared token's top-k sets differ between decode and prefill(S
+  + 1), and the assignments the capacity dropped.  No comparator and no
+  kernel but B3 may launch.  B3 is then timed at each config's prefill
+  shape in both dtypes against SDPA (``library_refused`` where SDPA does
+  not take the shape).
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
@@ -196,14 +229,16 @@ times, phase 6's step times, step profile and per-save split (host copy,
 staging, flush), phase 7's mp and inproc times, wire bytes and host
 memory, phase 8's sync ms per step beside 7b's, control messages, respawn
 and rebuild seconds, DHT rates and checkpoint times, phases 6b's and 6c's
-step times, step profiles, saves and restore, the phase walls and the
-command's wall, and one JSON line
+step times, step profiles, saves and restore, phase 9's serving times,
+readings and peak device bytes, the phase walls and the command's wall,
+and one JSON line
 ``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
 library times (B1 and B2 launch in phases 2, 7a, 7b and 8a: their launches
 are the sum; every row splits its launches by phase in
-``launches_by_phase``, the training phases 6, 6b and 6c at 0; B3 and B4 have a bf16 and a float32 tensor-core kernel
-each; the float32 B3 and B4 rows and the B5 row carry the earlier
+``launches_by_phase``, the training phases 6, 6b and 6c at 0, phase 9 at
+0 but for B3, whose rows carry phase 9's shapes under ``phase9``; B3 and
+B4 have a bf16 and a float32 tensor-core kernel each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
 with its launches in phases 3 to 5, counted there and required to be 0;
 B2 has no library time, as no one PyTorch call computes diff + pack, and
@@ -216,6 +251,7 @@ available or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -275,14 +311,14 @@ ATTN_RG_WRAP = (1, 10, 1, 4096, 256)
 # wrong cache
 F32_LAYERS = 4
 F32_LIMIT = 1e-4
-# phase 6: internlm2-1.8b trained on the repo's train_4k shape (seq 4096,
-# global batch 256) cut to one card: 2 sequences a microbatch, 2
-# microbatches (16,384 tokens a step); run A trains STEPS steps, run B the
-# same with a checkpoint every CKPT_EVERY steps and stops after KILL_AFTER,
-# run C restores and continues to STEPS; the offload run takes
-# OFFLOAD_STEPS steps
-TRAIN = dict(shape="train_4k", batch=2, microbatches=2, steps=6,
-             ckpt_every=2, kill_after=4, offload_steps=2)
+# phases 6, 6b and 6c: trained on the repo's train_4k shape (seq 4096,
+# global batch 256) cut to one card: 2 sequences a microbatch and each
+# phase's microbatches a step (phase 6: 2, 16,384 tokens); run A trains the
+# phase's steps, run B the same with a checkpoint every CKPT_EVERY steps and
+# stops after KILL_AFTER, run C restores and continues to the phase's
+# steps; the offload run takes OFFLOAD_STEPS steps
+TRAIN = dict(shape="train_4k", batch=2, ckpt_every=2, kill_after=4,
+             offload_steps=2)
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
 # a random model's step-0 loss: the reference's init gives logits of unit
 # variance (lm_head at fan_in^-1/2 over a unit-rms input), so its
@@ -294,24 +330,26 @@ TRAIN_LOSS0_TOL = 0.5
 # ln V + 1/2 rule, so such a model's step-0 bf16 loss is held to the same
 # loss in float32 (same params and batch) within TRAIN_F32_TOL.  Each
 # phase: its config and depth, why that depth, the runs it makes (A; B and
-# C: the kill and restore) and whether it adds the offload run.  All take
-# TRAIN's steps and microbatches (if the time limit forces a cut, the
-# order is 6c's steps 6 -> 3, then 6b's microbatches 2 -> 1)
+# C: the kill and restore), whether it adds the offload run, and its steps
+# and microbatches a step.  Phase 6 takes 6 steps of 2 microbatches; for
+# the time limit (the whole command took 1060 s of its 1200 s on a slow
+# H100 host with phase 9) 6c runs 3 steps and 6b one microbatch a step
+# (the planned cuts, in that order)
 TRAIN_F32_TOL = 2e-2
 TRAIN_PHASES = {
     "6": dict(arch="internlm2-1.8b", n_layers=SMOKE_LAYERS,
               why="host memory: about five copies of the checkpoint tree at "
                   "once, run time limit and disk",
-              runs="ABC", offload=True),
+              runs="ABC", offload=True, steps=6, microbatches=2),
     "6b": dict(arch="mamba2-2.7b", n_layers=2,
                why="phase 6's budget: a 2.51 GB params, m and v window "
                    "against phase 6's 6.06 GB",
-               runs="ABC", offload=False),
+               runs="ABC", offload=False, steps=6, microbatches=1),
     "6c": dict(arch="recurrentgemma-2b", n_layers=3,
                why="one (rglru, rglru, local_attn) group; its 912 M "
                    "parameters make a 10.95 GB window, whose kill and "
                    "restore would hold about 71 GB on the host",
-               runs="A", offload=False),
+               runs="A", offload=False, steps=3, microbatches=2),
 }
 
 KERNELS = {
@@ -685,16 +723,33 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # limits (at std 0.4 it is nearly uniform and an error hides below 2e-2)
 ATTN_MAIN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 1e-4)}
 ATTN_MAIN_QK_STD = 1.5
+# a value head dimension unlike the query's: a sweep of (B, H, K, S, T, d,
+# dv) held like the test_kernels sweep: dv in {8, 40, 128, 256}, d in {16,
+# 192}
+ATTN_DV_SWEEP = [(1, 4, 2, 70, 70, d, dv) for d in (16, 192)
+                 for dv in (8, 40, 128, 256)]
+# phase 9's prefill attention at the SERVE shape, per config: (B, H, K, S,
+# d) and dv where it differs from d (deepseek-v2's MLA: K = H, the
+# up-projected keys are per head).  Held like the main shapes in phase 1b
+# and timed against SDPA in both dtypes
+ATTN_NEW = {
+    "gemma-7b": ((4, 16, 16, 2000, 256), None),
+    "qwen2-72b": ((4, 64, 8, 2000, 128), None),
+    "llama4-maverick-400b-a17b": ((4, 40, 8, 2000, 128), None),
+    "deepseek-v2-236b": ((4, 128, 128, 2000, 192), 128),
+}
 
 
-def attention_inputs(B, H, K, S, T, d, dtype, gen, dev, qk_std=0.4):
-    """q (B,H,S,d) and k (B,K,T,d), normal * ``qk_std``, and v (B,K,T,d),
-    normal * 0.4, from ``gen``, as the model hands them to the kernel:
-    (B,S,H,d) storage seen through a transpose."""
-    def mk(n, heads, std):
-        x = torch.randn(B, n, heads, d, generator=gen, device=dev) * std
+def attention_inputs(B, H, K, S, T, d, dtype, gen, dev, qk_std=0.4,
+                     dv=None):
+    """q (B,H,S,d) and k (B,K,T,d), normal * ``qk_std``, and v (B,K,T,dv),
+    normal * 0.4 (dv defaults to d), from ``gen``, as the model hands them
+    to the kernel: (B,S,H,·) storage seen through a transpose."""
+    def mk(n, heads, std, width):
+        x = torch.randn(B, n, heads, width, generator=gen, device=dev) * std
         return x.to(dtype).transpose(1, 2)
-    return mk(S, H, qk_std), mk(T, K, qk_std), mk(T, K, 0.4)
+    return (mk(S, H, qk_std, d), mk(T, K, qk_std, d),
+            mk(T, K, 0.4, d if dv is None else dv))
 
 
 def _attention_err(ops, ref, q, k, v, tol=None, **kw) -> float:
@@ -703,7 +758,8 @@ def _attention_err(ops, ref, q, k, v, tol=None, **kw) -> float:
     got = ops.flash_attention(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     rtol, atol = tol or (ATTN_TOL[q.dtype],) * 2
-    check(got.dtype == q.dtype and got.shape == q.shape,
+    check(got.dtype == q.dtype
+          and got.shape == (*q.shape[:3], v.shape[3]),
           f"flash_attention output {got.dtype} {tuple(got.shape)}")
     check(bool(torch.allclose(got.float(), want.float(), atol=atol,
                               rtol=rtol)),
@@ -762,20 +818,32 @@ def phase1b(dev, log=print) -> dict:
         q, k, v = attention_inputs(1, 4, 2, 96, 96, 64, dtype, gen, dev)
         _attention_err(ops, ref, q, k, v, causal=False, t_actual=70)
         ncases += 1
+        for B, H, K, S, T, d, dv in ATTN_DV_SWEEP:
+            q, k, v = attention_inputs(B, H, K, S, T, d, dtype, gen, dev,
+                                       dv=dv)
+            for causal, window in ((True, None), (False, None), (True, 24)):
+                err = _attention_err(ops, ref, q, k, v, causal=causal,
+                                     window=window, scale=0.1)
+                worst[dtype] = max(worst[dtype], err)
+                ncases += 1
     main_err = {}
     for name, shape, window, twice in (
             ("internlm2", ATTN_MAIN, None, True),
             ("recurrentgemma", ATTN_RG, RG_WINDOW, True),
-            ("window binds", ATTN_RG_WRAP, RG_WINDOW, False)):
-        B, H, K, S, d = shape
+            ("window binds", ATTN_RG_WRAP, RG_WINDOW, False),
+            *((arch, new_shape if dv is None else (*new_shape, dv), None,
+               True) for arch, (new_shape, dv) in ATTN_NEW.items())):
+        B, H, K, S, d = shape[:5]
+        dv = shape[5] if len(shape) > 5 else None
+        # MLA's own scale, (dn + dr)^-1/2, is d's
         for dtype, tol in ATTN_MAIN_TOL.items():
             q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev,
-                                       qk_std=ATTN_MAIN_QK_STD)
+                                       qk_std=ATTN_MAIN_QK_STD, dv=dv)
             main_err[f"{name} {shape} window {window}, "
                      f"{str(dtype).removeprefix('torch.')}"] = _attention_err(
                 ops, ref, q, k, v, tol=tol, causal=True, window=window)
             ncases += 1
-            if dtype == torch.float32:
+            if dtype == torch.float32 and dv is None:
                 main_err[f"{name} {shape} window {window}, "
                          "comparator"] = _attention_err(
                     COMPARATOR, ref, q, k, v, tol=tol, causal=True,
@@ -798,7 +866,9 @@ def phase1b(dev, log=print) -> dict:
         f"{ATTN_TOL[torch.float32]} (f32, worst {worst[torch.float32]:.3g}; "
         f"comparator {worst['comparator']:.3g}) "
         f"and {ATTN_TOL[torch.bfloat16]} (bf16, worst "
-        f"{worst[torch.bfloat16]:.3g}) of its plain version; main shapes, "
+        f"{worst[torch.bfloat16]:.3g}) of its plain version, dv != d "
+        f"included ({len(ATTN_DV_SWEEP)} shapes, d 16 and 192, dv 8 to "
+        f"256); main shapes (phase 9's too, MLA's d 192, dv 128), "
         f"causal, q and k std {ATTN_MAIN_QK_STD}, f32 at rtol = atol = 2e-5 "
         "and bf16 at rtol 1e-2, atol 1e-4, max abs err: "
         + json.dumps(main_err) + "; deterministic")
@@ -809,25 +879,29 @@ def phase1b(dev, log=print) -> dict:
 
 
 def measure_attention(dev, shape=ATTN_MAIN, window=None,
-                      dtype=torch.bfloat16) -> dict:
+                      dtype=torch.bfloat16, dv=None) -> dict:
     """Kernel, plain-version and library times of one prefill layer's
-    attention at a main path's shape (causal, ``window``) in ``dtype``,
-    which picks the kernel (``flash_attention_tc`` or
-    ``flash_attention_tc32``; for float32 the comparator, the CUDA-core
-    ``flash_attention``, is timed beside it on the same inputs), and its
-    bound at the card's rate for that dtype's products (float32:
-    float32-accurate products on the tensor cores).  The library call is
-    causal attention without a window: the same function wherever the
-    window does not bind (S <= window)."""
+    attention at a main path's shape (causal, ``window``; v of head
+    dimension ``dv``, by default d) in ``dtype``, which picks the kernel
+    (``flash_attention_tc`` or ``flash_attention_tc32``; for float32 with
+    dv = d the comparator, the CUDA-core ``flash_attention``, is timed
+    beside it on the same inputs), and its bound at the card's rate for
+    that dtype's products (float32: float32-accurate products on the tensor
+    cores): 2·B·H·(d + dv)·S(S+1)/2 FLOP against q, k, v and the output
+    read or written once.  The library call is causal attention without a
+    window: the same function wherever the window does not bind (S <=
+    window).  Where SDPA refuses the shape, ``library_ms`` is None and
+    ``library_refused`` says why; nothing stands in for it."""
     from repro_torch.kernels import ops, ref
     B, H, K, S, d = shape
+    dv = d if dv is None else dv
     check(window is None or S <= window,
           f"the library call has no window, which binds at S {S}")
     gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev)
-    flops = 4 * B * H * d * (S * (S + 1) // 2)  # causal: S(S+1)/2 pairs
+    q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev, dv=dv)
+    flops = 2 * B * H * (d + dv) * (S * (S + 1) // 2)  # causal pairs
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
-                                 + q.numel())
+                                 + B * H * S * dv)
     t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16
                      else F32_MMA_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -836,13 +910,17 @@ def measure_attention(dev, shape=ATTN_MAIN, window=None,
                                                   window=window)),
         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
             q, k, v, causal=True, window=window)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
         "flops": flops, "bytes": nbytes,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
-    if dtype == torch.float32:
+    try:
+        out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    except RuntimeError as err:  # a shape no SDPA backend takes
+        out["library_ms"] = None
+        out["library_refused"] = str(err).splitlines()[0][:200]
+    if dtype == torch.float32 and dv == d:
         out["comparator_ms"] = cuda_ms(lambda: _comparator_attention(
             q, k, v, causal=True, window=window))
     return out
@@ -1224,14 +1302,15 @@ def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
 
 def prefill_kernels(cfg) -> dict:
     """``{kernel module: launches in one prefill of cfg}``: each layer's
-    prefill launches its kind's kernel once, attention and the SSD scan
+    prefill launches its kind's kernel once (a ``moe`` block's attention,
+    GQA or MLA, is attention), attention and the SSD scan
     the one for ``cfg.dtype`` (``flash_attention_tc``/``ssd_scan_tc`` for
     bf16, ``flash_attention_tc32``/``ssd_scan_tc32`` for float32), the
     recurrence ``rg_lru_pipe`` for both."""
     from repro_torch.kernels import ops
     dtype = getattr(torch, cfg.dtype)
     attn = ops.kernel_module("flash_attention", dtype)
-    of_kind = {"attn": attn, "local_attn": attn,
+    of_kind = {"attn": attn, "local_attn": attn, "moe": attn,
                "ssm": ops.kernel_module("ssd_scan", dtype),
                "rglru": ops.kernel_module("rg_lru", dtype)}
     out: dict = {}
@@ -1279,17 +1358,77 @@ def ssm_dynamics(cfg, seed: int) -> dict[str, np.ndarray]:
     return out
 
 
+class RouteLog:
+    """While open, records each MoE layer's routing (``lm.moe_mlp`` is
+    wrapped): per call, the top-k experts of every request's last position
+    (B, k), and how many of the call's assignments the capacity dropped,
+    over all positions and for the last ones.  The records cost one router
+    product and one sort a call; nothing of the model's result changes."""
+
+    def __init__(self):
+        self.calls: list[dict] = []
+
+    def __enter__(self):
+        from repro_torch.models import lm, moe
+        self._lm, self._orig = lm, lm.moe_mlp
+
+        def recorded(cfg, p, x, **kw):
+            B, S, D = x.shape
+            xf = x.reshape(B * S, D)
+            _, _, eidx = moe.route(xf.float() @ p["router"].float(),
+                                   cfg.top_k)
+            cap = moe.moe_capacity(B * S, cfg.n_experts, cfg.top_k,
+                                   cfg.capacity_factor)
+            keep = moe.assignment_slots(eidx, cfg.n_experts, cap)[1]
+            keep = keep.reshape(B, S, cfg.top_k)
+            self.calls.append({
+                "last": eidx.reshape(B, S, -1)[:, -1].cpu().numpy(),
+                "dropped": int((~keep).sum()),
+                "dropped_last": int((~keep[:, -1]).sum())})
+            return self._orig(cfg, p, x, **kw)
+
+        lm.moe_mlp = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._lm.moe_mlp = self._orig
+
+
+def route_flips(n_moe: int, calls: list[dict]) -> dict:
+    """From a RouteLog of :func:`consistency_rel_err` (prefill(S), the
+    decode step, prefill(S + 1): ``n_moe`` calls each): how many (layer,
+    request) top-k sets of the compared token differ between the decode
+    step and prefill(S + 1), and the assignments the capacity dropped in
+    each prefill (all, and the compared token's)."""
+    check(len(calls) == 3 * n_moe, f"{len(calls)} MoE calls, not "
+          f"3 x {n_moe}")
+    dec, full = calls[n_moe:2 * n_moe], calls[2 * n_moe:]
+    flips = sum(set(a.tolist()) != set(b.tolist())
+                for d, f in zip(dec, full)
+                for a, b in zip(d["last"], f["last"]))
+    return {"top_k_sets_differ": flips,
+            "of": n_moe * len(dec[0]["last"]) if n_moe else 0,
+            "dropped_prefill_S": sum(c["dropped"] for c in calls[:n_moe]),
+            "dropped_prefill_S1": sum(c["dropped"] for c in full),
+            "dropped_compared_token_S1": sum(c["dropped_last"]
+                                             for c in full)}
+
+
 def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
-                directory: Path, max_len: int, steps: int, save_at: int,
-                factor, consistency_limit: float | None = 0.02) -> dict:
+                directory: Path, max_len: int, steps: int,
+                save_at: int | None, factor,
+                consistency_limit: float | None = 0.02) -> dict:
     """Phase 3: greedy serving of ``tokens[:, :-1]`` through ``Engine``.
 
     Run 1 is ``Engine.generate(steps)``.  Run 2 takes ``save_at`` tokens,
     saves the session into a ``SessionStore`` under ``directory``, drops
     the engine, opens a fresh one on the same store, loads the session and
-    takes the rest.  Then decode after prefill(S) is compared with
-    prefill(S + 1) (S = the prompt length, ``tokens[:, -1]`` the extra
-    token).  Checks: run 2's tokens equal run 1's, and so does its decode
+    takes the rest (``save_at`` None: run 2 takes every step on one
+    engine, with no session).  Then decode after prefill(S) is compared
+    with prefill(S + 1) (S = the prompt length, ``tokens[:, -1]`` the extra
+    token); for a MoE config the compared token's routing in the two is
+    compared too (``route_flips``).  Checks: run 2's tokens equal run 1's,
+    and so does its decode
     state after the last step, bit for bit (a token stream that repeats one
     id, as a random model's may, would hide a resume that went wrong); on a
     card, each prefill
@@ -1321,32 +1460,36 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
     launches_run1 = {mod: mod.launches for mod in kernels}
     final1 = {k: v.cpu() for k, v in eng.cache.items()}  # host: no peak
     del eng
-    store = SessionStore(Communicator(1), str(directory / "session.bin"),
-                         init_cache_specs(cfg, batch, max_len),
-                         factor=factor)
+    store = None if save_at is None else SessionStore(
+        Communicator(1), str(directory / "session.bin"),
+        init_cache_specs(cfg, batch, max_len), factor=factor)
     try:
         eng = engine(session=store)
         first, out["prefill_ms"] = _timed_ms(lambda: eng.prefill(inputs), dev)
         launches_prefill2 = {mod: mod.launches - launches_run1[mod]
                              for mod in kernels}
         seq, step_ms = [first], []
-        for _ in range(save_at - 1):
-            nxt, ms = _timed_ms(lambda: eng.step(seq[-1]), dev)
-            seq.append(nxt)
-            step_ms.append(ms)
-        eng.generated = list(seq)
-        out["session_flushed_bytes"], out["save_ms"] = _timed_ms(
-            eng.save_session, dev)
-        del eng
-        eng, out["engine_open_ms"] = _timed_ms(
-            lambda: engine(session=store), dev)
-        _, out["load_ms"] = _timed_ms(eng.load_session, dev)
-        check(eng.pos == S + save_at - 1,
-              f"loaded position {eng.pos}, saved {S + save_at - 1}")
-        for _ in range(steps - save_at):
-            nxt, ms = _timed_ms(lambda: eng.step(seq[-1]), dev)
-            seq.append(nxt)
-            step_ms.append(ms)
+
+        def take(n):
+            for _ in range(n):
+                nxt, ms = _timed_ms(lambda: eng.step(seq[-1]), dev)
+                seq.append(nxt)
+                step_ms.append(ms)
+
+        if store is None:
+            take(steps - 1)
+        else:
+            take(save_at - 1)
+            eng.generated = list(seq)
+            out["session_flushed_bytes"], out["save_ms"] = _timed_ms(
+                eng.save_session, dev)
+            del eng
+            eng, out["engine_open_ms"] = _timed_ms(
+                lambda: engine(session=store), dev)
+            _, out["load_ms"] = _timed_ms(eng.load_session, dev)
+            check(eng.pos == S + save_at - 1,
+                  f"loaded position {eng.pos}, saved {S + save_at - 1}")
+            take(steps - save_at)
         out["launches"] = {_kernel_name(mod): mod.launches for mod in kernels}
         run2 = np.stack(seq, axis=1)
         out["tokens"] = run2
@@ -1373,14 +1516,21 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
             out["decode_profile"] = device_profile(step, nrep=3)
             out["prefill_profile"] = device_profile(
                 lambda: eng.prefill(inputs))
-        out["consistency_rel_err"] = consistency_rel_err(cfg, eng, tokens)
+        n_moe = sum(reps * pattern.count("moe")
+                    for reps, pattern in cfg.groups())
+        with RouteLog() as routes:
+            out["consistency_rel_err"] = consistency_rel_err(cfg, eng,
+                                                             tokens)
+        if n_moe:
+            out["routing"] = route_flips(n_moe, routes.calls)
         if consistency_limit is not None:
             check(out["consistency_rel_err"] < consistency_limit,
                   f"decode after prefill({S}) vs prefill({S + 1}): relative "
                   f"error {out['consistency_rel_err']}")
         del eng
     finally:
-        store.free()
+        if store is not None:
+            store.free()
     out["step_ms"] = step_ms
     out["decode_ms_per_step"] = float(np.mean(step_ms))
     out["decode_ms_per_step_median"] = float(np.median(step_ms))
@@ -1506,6 +1656,164 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
           f"{cfg.name}: a comparator on no path launched: "
           f"{out['comparator_launches']}")
     return out
+
+# -- phase 9: the configurations added last, served -------------------------
+
+# phase 9 serves each configuration at its published widths, random
+# parameters from seed 0 (in float32 unless the config's param_dtype is
+# bf16), depth cut only where the card's 80 GB forces it.  Per sub-phase:
+# the config, its depth and why, the decode steps, whether SERVE's session
+# is saved and reopened (gemma-7b's 7.5 GB cache would cost tens of seconds
+# to save and load, and phase 3 holds the dense session), the limit of the
+# bf16 consistency reading on seed 0 (None: printed, not held) and the
+# float32 gate: its depth, prompt and config changes (None: no gate)
+PHASE9 = {
+    "9a": dict(arch="gemma-7b", n_layers=None, why=None, steps=64,
+               session=False, consistency_limit=0.02,
+               f32=dict(n_layers=F32_LAYERS, prompt=SERVE["prompt"])),
+    "9b": dict(arch="qwen2-72b", n_layers=4,
+               why="80 layers are 145 GB in bf16; 4 are 6.0 B parameters",
+               steps=64, session=False, consistency_limit=None,
+               f32=dict(n_layers=4, prompt=SERVE["prompt"])),
+    # the gate's capacity is raised to E/k, where no assignment can drop:
+    # at the published 1.25 the capacity drops different assignments for
+    # S and S + 1 tokens (the routing line shows them in the bf16 run),
+    # which would move the reading far from the cache it holds; its
+    # prompt is cut so that the (E, T + 1, D) float32 dispatch fits
+    "9c": dict(arch="deepseek-v2-236b", n_layers=3,
+               why="60 layers are 472 GB in bf16; 3 (the dense first and "
+                   "two MoE layers) are 9.3 B parameters",
+               steps=SERVE["steps"], session=True, consistency_limit=None,
+               f32=dict(n_layers=3, prompt=500, capacity="no drops")),
+    # top-1 routing: one flipped token moves the last logits far, and a
+    # float32 copy of 37 GB of experts does not fit beside the served
+    # model; llama4's float32 gate is held on the CPU at smoke size
+    "9d": dict(arch="llama4-maverick-400b-a17b", n_layers=2,
+               why="48 layers are 802 GB in bf16; one (attn, moe) pair is "
+                   "18.7 B parameters",
+               steps=SERVE["steps"], session=True, consistency_limit=None,
+               f32=None),
+}
+
+
+# phase 9's traffic: SERVE's requests and cache; the steps are PHASE9's
+PHASE9_TRAFFIC = {k: SERVE[k] for k in ("batch", "prompt", "max_len",
+                                        "save_at", "factor")}
+
+
+def phase9_config(sub: str, smoke: bool = False):
+    """The served config of a PHASE9 entry: published widths, depth cut
+    (``smoke``: the smoke config, as tests/test_torch_slice.py runs it)."""
+    from repro_torch.configs import get_config
+    spec = PHASE9[sub]
+    cfg = get_config(spec["arch"], smoke=smoke)
+    if spec["n_layers"] is not None and not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    return cfg
+
+
+def phase9_gate_config(cfg, gate: dict):
+    """The float32 gate's config: float32 compute and parameters, depth
+    cut; ``capacity="no drops"`` sets the capacity factor to E/k, so that
+    every expert holds T + 1 assignments: top-k experts are distinct, so
+    none gets more than T and nothing drops."""
+    kw = dict(dtype="float32", param_dtype="float32")
+    if gate["n_layers"] < cfg.n_layers:
+        kw["n_layers"] = gate["n_layers"]
+    if gate.get("capacity") == "no drops":
+        kw["capacity_factor"] = cfg.n_experts / cfg.top_k
+    return dataclasses.replace(cfg, **kw)
+
+
+def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
+                     traffic: dict = PHASE9_TRAFFIC, smoke: bool = False,
+                     log=print) -> dict:
+    """One PHASE9 sub-phase: ``run_serving`` with ``traffic``'s batch,
+    prompt and cache and the entry's steps and session, then the float32
+    gate (for a MoE config with the compared token's routing beside it).
+    The comparators must not launch; on a card the attention kernel must
+    launch once per layer in each prefill (``run_serving`` and the gate
+    check it).  ``smoke`` and a small ``traffic`` (with ``steps`` and
+    ``gate_prompt``) run it on the CPU."""
+    from repro_torch.kernels import flash_attention, rg_lru, ssd_scan
+    comparators = (flash_attention, ssd_scan, rg_lru)
+    for mod in comparators:
+        mod.launches = 0
+    spec = PHASE9[sub]
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    cfg = phase9_config(sub, smoke)
+    params = model_params(cfg, 0, dev)
+    nparams = sum(t.numel() for t in params.values())
+    from repro_torch.configs import get_config
+    cut = "" if spec["n_layers"] is None or smoke else (
+        f", reduced: n_layers {get_config(cfg.name).n_layers}->"
+        f"{cfg.n_layers} ({spec['why']})")
+    steps = traffic.get("steps", spec["steps"])
+    log(f"phase {sub}: serving {cfg.name}, {cfg.n_layers} layers{cut}, "
+        f"{nparams} parameters made on {dev} in {cfg.param_dtype}; "
+        f"{steps} steps, session {spec['session']}, {traffic}")
+    on_card = dev.type == "cuda"
+
+    def tokens(length):
+        return np.random.default_rng(0).integers(
+            0, cfg.vocab, size=(traffic["batch"], length + 1)).astype(
+                np.int32)
+
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        out = run_serving(
+            cfg, params, tokens(traffic["prompt"]), device=dev,
+            directory=directory, max_len=traffic["max_len"], steps=steps,
+            save_at=traffic["save_at"] if spec["session"] else None,
+            factor=traffic["factor"],
+            consistency_limit=spec["consistency_limit"])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    if on_card:
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["nparams"] = nparams
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    gate = spec["f32"]
+    if gate is not None:
+        gcfg = phase9_gate_config(cfg, gate)
+        f32_kernels = prefill_kernels(gcfg)
+        for mod in f32_kernels:
+            mod.launches = 0
+        n_moe = sum(reps * pattern.count("moe")
+                    for reps, pattern in gcfg.groups())
+        gate_prompt = traffic.get("gate_prompt", gate["prompt"])
+        with RouteLog() as routes:
+            out["float32_rel_err"] = float32_consistency(
+                gcfg, model_params(gcfg, 0, dev), tokens(gate_prompt),
+                device=dev)
+        if n_moe:
+            out["float32_routing"] = route_flips(n_moe, routes.calls)
+        out["float32_launches"] = {_kernel_name(mod): mod.launches
+                                   for mod in f32_kernels}
+        for mod, want in f32_kernels.items():
+            check(not on_card or mod.launches == 2 * want,
+                  f"{cfg.name} float32 gate: {_kernel_name(mod)} launched "
+                  f"{mod.launches} times, not {2 * want}")
+        check(out["float32_rel_err"] < F32_LIMIT,
+              f"{cfg.name}, {gcfg.n_layers} layers in float32: decode after "
+              f"prefill({gate_prompt}) vs prefill({gate_prompt + 1}): "
+              f"relative error {out['float32_rel_err']}")
+        if on_card:
+            torch.cuda.empty_cache()
+    out["comparator_launches"] = {_kernel_name(mod): mod.launches
+                                  for mod in comparators}
+    check(not any(out["comparator_launches"].values()),
+          f"{cfg.name}: a comparator on no path launched: "
+          f"{out['comparator_launches']}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
 
 # -- phase 6: training with window checkpoints --------------------------------
 
@@ -1634,14 +1942,14 @@ class SaveChecks:
 
 def run_training(cfg, *, device, directory: Path, seq: int,
                  batch: int = TRAIN["batch"],
-                 microbatches: int = TRAIN["microbatches"],
                  phase: str = "6", log=print,
                  mark=lambda label: None) -> dict:
     """Phase 6, 6b or 6c (``phase``, the entry of TRAIN_PHASES that sets
     the runs): the ``Trainer`` on ``cfg`` (random parameters from seed 0
     with the published dynamics, :func:`model_params`, made on
-    ``device``) under deterministic algorithms.  Run A trains
-    TRAIN["steps"] fused steps, its losses finite and step 0's near a
+    ``device``) under deterministic algorithms, with the phase's steps and
+    microbatches (its TRAIN_PHASES entry).  Run A trains the steps as fused
+    steps, its losses finite and step 0's near a
     random model's (ln V + 1/2, or for a tied, scaled or soft-capped head
     the float32 loss); run B the same with asynchronous window
     checkpoints every TRAIN["ckpt_every"] steps, stopped after
@@ -1661,10 +1969,10 @@ def run_training(cfg, *, device, directory: Path, seq: int,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     opt = AdamWConfig(**TRAIN_OPT)
+    steps, microbatches = spec["steps"], spec["microbatches"]
+    every, kill = TRAIN["ckpt_every"], TRAIN["kill_after"]
     ds = SyntheticLM(cfg, batch=batch, seq=seq, microbatches=microbatches)
     nparams = sum(int(np.prod(s.shape)) for s in param_specs(cfg).values())
-    steps, every, kill = (TRAIN[k] for k in ("steps", "ckpt_every",
-                                             "kill_after"))
     out = {"nparams": nparams, "tokens_per_step": batch * microbatches * seq}
 
     class Stream:
@@ -1837,12 +2145,13 @@ def training_phase(dev, phase: str = "6", log=print) -> dict:
     spec = TRAIN_PHASES[phase]
     cfg = train_config(phase)
     shape = SHAPES[TRAIN["shape"]]
-    gbatch = TRAIN["batch"] * TRAIN["microbatches"]
+    steps, microbatches = spec["steps"], spec["microbatches"]
+    gbatch = TRAIN["batch"] * microbatches
     log(f"phase {phase}, {cfg.name}, reduced: n_layers "
         f"{get_config(cfg.name).n_layers}->{cfg.n_layers} ({spec['why']}); "
         f"{shape.name} global batch {shape.batch}->{gbatch} (one card: "
-        f"{TRAIN['batch']} sequences x {TRAIN['microbatches']} microbatches), "
-        f"seq {shape.seq}; steps {TRAIN['steps']}, runs {spec['runs']}")
+        f"{TRAIN['batch']} sequences x {microbatches} microbatches), "
+        f"seq {shape.seq}; steps {steps}, runs {spec['runs']}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     TRAIN_DIR.mkdir(parents=True)
     try:
@@ -1866,10 +2175,12 @@ def training_phase(dev, phase: str = "6", log=print) -> dict:
 # -- phase 7: the MPI layer across processes ----------------------------------
 
 MP_DIR = WORKDIR / "mp"
-# 7c: benchmarks/dht_bench.py's traffic (random keys from seed 0, op "sum",
-# 80% of the slots) at a larger table; 7d: benchmarks/mapreduce_bench.py's
-# 24 tasks of 20,000 words over its 20-word vocabulary
-MP_DHT = dict(ranks=4, lv_entries=1 << 14, fill=0.8)
+# 7c: benchmarks/dht_bench.py's traffic and table (random keys from seed 0,
+# op "sum", 80% of 4 x 4,096 slots: 13,107 inserts), cut from a table four
+# times larger for the time limit (its mp inserts, a round trip each, took
+# 60-112 s there); 7d: benchmarks/mapreduce_bench.py's 24 tasks of 20,000
+# words over its 20-word vocabulary
+MP_DHT = dict(ranks=4, lv_entries=1 << 12, fill=0.8)
 # host memory phase 7 may take, checked for this process's growth over
 # its start of the phase and for the peak of 7a's window owner: a quarter
 # of a 96 GiB host each, four times the 6.06 GB window.  A codec that
@@ -2161,10 +2472,10 @@ def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
 REP_DIR = WORKDIR / "rep"
 # 8a: the rank whose worker dies; its partition fails over to rank 3
 REP_VICTIM = 2
-# 8b: examples/replicated_failover.py's path at 7c's table size (4 x 16,384
-# slots, on 8a's 4-rank mp world) with benchmarks/dht_bench.py's keys (seed
-# 0); 1,024 inserts a rank, cut from 4,096 for the run's time limit
-REP_DHT = dict(lv_entries=MP_DHT["lv_entries"], keys=4 * 1024, more=1000)
+# 8b: examples/replicated_failover.py's path at 4 x 16,384 slots (on 8a's
+# 4-rank mp world) with benchmarks/dht_bench.py's keys (seed 0); 1,024
+# inserts a rank, cut from 4,096 for the run's time limit
+REP_DHT = dict(lv_entries=1 << 14, keys=4 * 1024, more=1000)
 
 
 def replicas_equal(directory: Path, name: str, nranks: int) -> None:
@@ -2753,7 +3064,7 @@ def main() -> int:
         saves = out.pop("saves", None)
         print(f"{label} ({card}): " + json.dumps(out))
         print(f"{label} step profile, accumulation over "
-              f"{TRAIN['microbatches']} microbatches + AdamW ({card}): "
+              f"{TRAIN_PHASES[phase]['microbatches']} microbatches + AdamW ({card}): "
               + json.dumps(prof))
         if saves is not None:
             print(f"{label} saves ({card}): " + json.dumps(saves))
@@ -2804,6 +3115,65 @@ def main() -> int:
               f"{row['name']} never launched on a path: {by_phase}")
         row["launches"] = sum(by_phase.values())
         row["launches_by_phase"] = by_phase
+    marks.append(time.perf_counter())
+
+    # phase 9: the configurations added last, served at their published
+    # widths (depth cut where the card's memory forces it).  Every kernel's
+    # launches are counted over the whole phase: only B3 may launch
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
+            for name in BUILD}
+    for mod in mods.values():
+        mod.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 9 starts with {torch.cuda.memory_allocated(dev)} B "
+          "allocated on the card")
+    new = {}
+    for sub in PHASE9:
+        out = new[sub] = new_config_phase(sub, dev)
+        print(f"serve {sub} {PHASE9[sub]['arch']} ({card}): " + json.dumps(
+            {k: v for k, v in out.items() if k not in ("tokens", "step_ms")}))
+        print(f"serve {sub} tokens (request 0, first 16): "
+              f"{out['tokens'][0, :16].tolist()}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    in_phase = {name: mod.launches for name, mod in mods.items()}
+    check(all(n == 0 for name, n in in_phase.items()
+              if not name.startswith("flash_attention_tc")),
+          f"phase 9 launched a kernel off its path: {in_phase}")
+    # the main paths' launches: each sub-phase's two serving prefills (bf16
+    # kernel) and its gate's two (float32 kernel), as in phases 3-5
+    phase9_launches = {name: sum(
+        out[path].get(name, 0) for out in new.values()
+        for path in ("launches", "float32_launches") if path in out)
+        for name in mods}
+    print("phase 9 walls (s): " + json.dumps(
+        {sub: round(out["wall_s"], 1) for sub, out in new.items()}))
+    # B3 at each new config's prefill shape, both kernels
+    attn_new = {}
+    for arch, (shape, dv) in ATTN_NEW.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            m = attn_new[arch, dtype] = measure_attention(dev, shape,
+                                                          dtype=dtype, dv=dv)
+            print(f"attention at {shape}, dv {dv or shape[4]}, {arch}, "
+                  f"{str(dtype).removeprefix('torch.')} ({card}): "
+                  + json.dumps(m))
+    for row in kernels[2:4]:
+        dtype = torch.float32 if row["name"].endswith("32") else \
+            torch.bfloat16
+        path = "float32_launches" if dtype == torch.float32 else "launches"
+        row["launches"] += phase9_launches[row["name"]]
+        row["phase9"] = {
+            arch: {"shape": list(shape), "dv": dv or shape[4],
+                   "launches": sum(out[path].get(row["name"], 0)
+                                   for sub, out in new.items()
+                                   if PHASE9[sub]["arch"] == arch
+                                   and path in out),
+                   **{k: attn_new[arch, dtype].get(k) for k in
+                      (*times, "library_refused")}}
+            for arch, (shape, dv) in ATTN_NEW.items()}
+    marks.append(time.perf_counter())
+
     # B3-B5 run in the serving phases' prefills (and float32 gates)
     for row in kernels[2:]:
         name, path = row["name"], ("float32_launches" if row["name"].endswith(
@@ -2812,17 +3182,17 @@ def main() -> int:
             ph: out[path][name] for ph, out in (("3", serve), ("4", ssm),
                                                 ("5", rg))
             if name in out[path]}
-    # every kernel in the training phases: 0, checked there
+    # every kernel in the training phases (0, checked there) and in phase 9
     for row in kernels:
         stem = Path(KERNELS[row["name"]]["source"]).stem
         row["launches_by_phase"].update(
             {ph: out["kernel_launches"][stem] for ph, out in trained.items()})
-    marks.append(time.perf_counter())
+        row["launches_by_phase"]["9"] = phase9_launches[stem]
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(
             ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
              "phase 5", *(f"phase {ph}" for ph in TRAIN_PHASES), "phase 7",
-             "phase 8"), marks, marks[1:])}))
+             "phase 8", "phase 9"), marks, marks[1:])}))
     print(f"command wall (s): {time.perf_counter() - START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,7 @@ def main() -> None:
     sys.path.insert(0, str(Path(args.src).resolve()))  # ahead of it
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.serve import exact_float32
+    from repro_torch.convert import exact_float32
 
     exact_float32()  # as chip_smoke.py: float32 plain products stay float32
     dev = torch.device("cuda", 0)

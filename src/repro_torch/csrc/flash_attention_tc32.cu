@@ -3,16 +3,19 @@
 // Replaces: flash_attention_tpu in src/repro/kernels/flash_attention.py
 // for float32 inputs (bf16 inputs go to flash_attention_tc.cu).  In this
 // package it runs the attention of the float32 consistency gates'
-// prefills: internlm2-1.8b's (d 128, causal, 16 heads over 8 kv heads) and
-// recurrentgemma-2b's local attention (d 256, 10 heads over one kv head,
-// causal, window 2048), and of any model served with dtype float32.
+// prefills: internlm2-1.8b's (d 128, causal, 16 heads over 8 kv heads),
+// qwen2-72b's and gemma-7b's, recurrentgemma-2b's local attention (d 256,
+// 10 heads over one kv head, causal, window 2048) and deepseek-v2's MLA (d
+// 192 for q and k, dv 128 for v), and of any model served with dtype
+// float32.
 //
-// What it computes: q (B,H,S,d), k/v (B,K,T,d) float32 with H = K*G; head
-// h reads kv head h/G.  s = (q . k) * scale; a key is masked when k_pos >=
-// t_actual, (causal) k_pos > q_pos, or (window) q_pos - k_pos >= window;
-// masked scores are -1e30, never -inf; softmax in float32 by the online
-// recurrence; out = acc / max(l, 1e-30), float32.  The plain version
-// scales q before the product; here the float32 score is scaled after it.
+// What it computes: q (B,H,S,d), k (B,K,T,d), v (B,K,T,dv) float32 with H
+// = K*G; head h reads kv head h/G; out (B,H,S,dv).  s = (q . k) * scale;
+// a key is masked when k_pos >= t_actual, (causal) k_pos > q_pos, or
+// (window) q_pos - k_pos >= window; masked scores are -1e30, never -inf;
+// softmax in float32 by the online recurrence; out = acc / max(l,
+// 1e-30), float32.  The plain version scales q before the product; here
+// the float32 score is scaled after it.
 //
 // Arithmetic: both products on the tensor cores as float32-accurate
 // products, three TF32 mma.sync.m16n8k8 each (tf32_mma.cuh: x = hi + lo,
@@ -33,18 +36,21 @@
 // Design: FlashAttention-2's forward with mma.sync, as flash_attention_tc.cu,
 // with float32 tiles.  One CTA per (64-row q tile, head, batch); Q, K and V
 // live in shared memory as float32, rows padded by 4 floats (a row pitch
-// of 4 mod 32 words: the scalar fragment loads of a warp hit 32 banks),
+// of 4 mod 32 words: the scalar fragment loads of a warp hit 32 banks);
+// V's tile and O are dv's bucket wide (VMAX), Q's and K's d's, or, where
+// d != dv (MLA: d 192, dv 128), d rounded up to 32 a warp at run time
+// (DMAX = 0), so neither product runs over the other's width;
 // K/V tiles of 32 keys double-buffered with cp.async; the split into TF32
 // hi and lo happens as a fragment is loaded, so shared memory holds each
 // value once.  S's C fragments are P.V's A fragment in registers, with P.V
 // contracting over the keys in the order of tf32_mma.cuh (V's rows 2t and
 // 2t+1 as b0 and b1).  The softmax runs on the fragments in float32, l sums
 // the unrounded P.  Up to d 128 a warp owns 16 query rows and all of d (4
-// warps, 101,376 B of shared memory, two CTAs an SM).  At d 256 the 16 x
+// warps, 101,376 B of shared memory, two CTAs an SM).  At dv 256 the 16 x
 // 256 output would take 128 registers a thread beside the scores, so two
 // warps share 16 rows: each forms the partial scores over its half of d,
 // they add the two halves through shared memory (a + b on both sides: the
-// same bits), and each keeps its half of O (8 warps, 216,064 B).  Key
+// same bits), and each keeps its half of O (8 warps, 216,064 B at d 256).  Key
 // tiles wholly in the future (causal), wholly before the window, or at or
 // past t_actual are never loaded; q tiles are issued from the last (the
 // most keys) to the first.  Ragged S and T are masked here; strides are
@@ -58,6 +64,9 @@
 // Resources (ptxas -v, sm_90a, CUDA 12.8), no spills: d 256 (8 warps)
 // 255 registers, 216,064 B of shared memory, one CTA an SM; d 128 (4
 // warps) 173 registers, 101,376 B, two CTAs an SM; d 64 167; d 32 80.
+// d at run time: dv 256 255 registers; dv 128 168 registers and 4 bytes
+// spilled, 134,144 B at MLA's d 192 (one CTA an SM: 33.1 ms at its
+// prefill shape against SDPA's float32 15.7, PERF.md); dv 64 and 32 128.
 
 #include "tf32_mma.cuh"
 
@@ -90,53 +99,75 @@ struct Params {
   bool vec_o;                // float2 stores
 };
 
-// rows [row0, row0 + ROWS) of one (batch, head) slab into
-// dst[ROWS][DMAX + 4]; rows at or past `limit` and columns at or past d
-// are zeros.  By cp.async where `vec`, else element by element
-template <int DMAX, int ROWS, int NT>
+// the run-time path's widths (DMAX = 0): v's and out's columns, and q's
+// and k's in shared memory.  Apart from Params, so that the d = dv
+// kernels read the one-dimension kernel's arguments
+struct Widths {
+  int dv, dq;
+};
+
+// rows [row0, row0 + ROWS) of one (batch, head) slab into dst[ROWS][W +
+// 4], W = WIDTH (or `width` where WIDTH is 0, a multiple of 32); rows at or
+// past `limit` and columns at or past d are zeros.  By cp.async where
+// `vec`, else element by element
+template <int WIDTH, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t ss, int row0, int limit,
-                                          int d, bool vec) {
-  constexpr int LD = DMAX + 4;
+                                          int d, bool vec, int width) {
+  if constexpr (WIDTH > 0) width = WIDTH;
+  const int ld = width + 4;
   if (vec) {
-    constexpr int kChunks = DMAX / 4;  // 16-byte chunks a row
-    static_assert(ROWS * kChunks % NT == 0, "whole chunks per thread");
-#pragma unroll
-    for (int it = 0; it < ROWS * kChunks / NT; ++it) {
-      const int idx = it * NT + threadIdx.x;
-      const int r = idx / kChunks;
-      const int c = (idx % kChunks) * 4;
+    const int chunks = width / 4;  // 16-byte chunks a row
+    auto chunk = [&](int idx) {
+      const int r = idx / chunks;
+      const int c = (idx % chunks) * 4;
       const bool ok = row0 + r < limit && c < d;
       const float* g =
           ok ? src + static_cast<int64_t>(row0 + r) * ss + c : src;
-      tc::cp_async16(dst + r * LD + c, g, ok);
+      tc::cp_async16(dst + r * ld + c, g, ok);
+    };
+    if constexpr (WIDTH > 0) {
+      static_assert(ROWS * (WIDTH / 4) % NT == 0, "whole chunks per thread");
+#pragma unroll
+      for (int it = 0; it < ROWS * (WIDTH / 4) / NT; ++it)
+        chunk(it * NT + threadIdx.x);
+    } else {
+      for (int idx = threadIdx.x; idx < ROWS * chunks; idx += NT) chunk(idx);
     }
     return;
   }
-  for (int idx = threadIdx.x; idx < ROWS * DMAX; idx += NT) {
-    const int r = idx / DMAX;
-    const int c = idx % DMAX;
-    dst[r * LD + c] = row0 + r < limit && c < d
+  for (int idx = threadIdx.x; idx < ROWS * width; idx += NT) {
+    const int r = idx / width;
+    const int c = idx % width;
+    dst[r * ld + c] = row0 + r < limit && c < d
                           ? src[static_cast<int64_t>(row0 + r) * ss + c]
                           : 0.f;
   }
 }
 
-// WN warps share 16 query rows, each owning DMAX / WN columns of d
-template <int DMAX, int WN>
+// WN warps share 16 query rows, each owning 1 / WN of the columns of Q
+// and K (DMAX of them; 0: w.dq, set at run time) and of V and O (VMAX).
+// DMAX = VMAX only where d = dv: V's and O's columns are then bounded by
+// d, as K's are
+template <int DMAX, int VMAX, int WN>
 __global__ void __launch_bounds__(128 * WN)
-flash_tc32_kernel(const Params p) {
+flash_tc32_kernel(const Params p, const Widths w) {
   constexpr int NT = 128 * WN;  // threads
-  constexpr int LD = DMAX + 4;
-  constexpr int DW = DMAX / WN;  // a warp's columns of d
-  constexpr int KD = DW / 8;     // its 8-deep steps of Q.K^T
-  constexpr int ND = DW / 8;     // its 8-wide column tiles of O
-  constexpr int NK = kBK / 8;    // 8-wide key tiles of S
+  const int dv = DMAX > 0 ? p.d : w.dv;  // V's and O's columns
+  const int dq = DMAX > 0 ? DMAX : w.dq;
+  const int LD = dq + 4;         // Q's and K's row pitch
+  constexpr int LDV = VMAX + 4;  // V's
+  const int DW = dq / WN;        // a warp's columns of d
+  const int KD = DW / 8;         // its 8-deep steps of Q.K^T
+  constexpr int KD_MAX = (DMAX > 0 ? DMAX : 256) / WN / 8;
+  constexpr int DWV = VMAX / WN;  // its columns of dv
+  constexpr int ND = DWV / 8;     // its 8-wide column tiles of O
+  constexpr int NK = kBK / 8;     // 8-wide key tiles of S
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;               // [kBQ][LD]
-  float* Ks = Qs + kBQ * LD;      // [2][kBK][LD]
-  float* Vs = Ks + 2 * kBK * LD;  // [2][kBK][LD]
-  float* Xs = Vs + 2 * kBK * LD;  // WN 2: [8 warps][NK][4][32] half scores
+  float* Qs = smem;                // [kBQ][LD]
+  float* Ks = Qs + kBQ * LD;       // [2][kBK][LD]
+  float* Vs = Ks + 2 * kBK * LD;   // [2][kBK][LDV]
+  float* Xs = Vs + 2 * kBK * LDV;  // WN 2: [8 warps][NK][4][32] half scores
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // last tile first
   const int h = blockIdx.y;
@@ -152,6 +183,7 @@ flash_tc32_kernel(const Params p) {
   const int t = lane & 3;
   const int rw = warp & 3;        // the warp's 16 rows
   const int c0 = (warp >> 2) * DW;  // and its first column of d
+  const int c0v = (warp >> 2) * DWV;  // and of dv
   const int row_lo = q0 + rw * 16 + g;  // this thread's two query rows
   const int row_hi = row_lo + 8;
   const float* qa = Qs + (rw * 16 + g) * LD + c0 + t;  // its A elements
@@ -163,10 +195,11 @@ flash_tc32_kernel(const Params p) {
   if (p.window > 0) k_begin = max(0, q0 - p.window + 1);
   const int first = (k_begin / kBK) * kBK;
 
-  load_tile<DMAX, kBQ, NT>(Qs, qp, p.q_ss, q0, p.S, p.d, p.vec_q);
+  load_tile<DMAX, kBQ, NT>(Qs, qp, p.q_ss, q0, p.S, p.d, p.vec_q, dq);
   if (first < k_end) {
-    load_tile<DMAX, kBK, NT>(Ks, kp, p.k_ss, first, p.T, p.d, p.vec_k);
-    load_tile<DMAX, kBK, NT>(Vs, vp, p.v_ss, first, p.T, p.d, p.vec_v);
+    load_tile<DMAX, kBK, NT>(Ks, kp, p.k_ss, first, p.T, p.d, p.vec_k, dq);
+    load_tile<VMAX, kBK, NT>(Vs, vp, p.v_ss, first, p.T, dv, p.vec_v,
+                             VMAX);
   }
   tc::cp_async_commit();
 
@@ -182,15 +215,15 @@ flash_tc32_kernel(const Params p) {
   for (int k0 = first; k0 < k_end; k0 += kBK, buf ^= 1) {
     if (k0 + kBK < k_end) {  // the next tile, into the other buffer
       load_tile<DMAX, kBK, NT>(Ks + (buf ^ 1) * kBK * LD, kp, p.k_ss,
-                               k0 + kBK, p.T, p.d, p.vec_k);
-      load_tile<DMAX, kBK, NT>(Vs + (buf ^ 1) * kBK * LD, vp, p.v_ss,
-                               k0 + kBK, p.T, p.d, p.vec_v);
+                               k0 + kBK, p.T, p.d, p.vec_k, dq);
+      load_tile<VMAX, kBK, NT>(Vs + (buf ^ 1) * kBK * LDV, vp, p.v_ss,
+                               k0 + kBK, p.T, dv, p.vec_v, VMAX);
     }
     tc::cp_async_commit();  // an empty group when there is no next tile
     tc::cp_async_wait<1>();  // this tile (and Q) has landed
     __syncthreads();
     const float* Kb = Ks + buf * kBK * LD;
-    const float* Vb = Vs + buf * kBK * LD;
+    const float* Vb = Vs + buf * kBK * LDV;
 
     // S = Q . K^T for this warp's 16 rows, over its columns of d, in
     // groups of kKG 8-deep steps summed on the tensor cores and added in
@@ -201,7 +234,8 @@ flash_tc32_kernel(const Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int k0g = 0; k0g < KD; k0g += kKG) {
+    for (int k0g = 0; k0g < KD_MAX; k0g += kKG) {
+      if (DMAX == 0 && k0g == KD) break;
       float big[NK][4] = {}, small[NK][4] = {};
 #pragma unroll
       for (int kk = k0g; kk < k0g + kKG; ++kk) {
@@ -291,8 +325,8 @@ flash_tc32_kernel(const Params p) {
       float big[4] = {}, small[4] = {};
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
-        const float* vr = Vb + (kk * 8 + 2 * t) * LD + c0 + n * 8 + g;
-        tf32::mma3(big, small, pa[kk], vr[0], vr[LD]);
+        const float* vr = Vb + (kk * 8 + 2 * t) * LDV + c0v + n * 8 + g;
+        tf32::mma3(big, small, pa[kk], vr[0], vr[LDV]);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] += big[e] + small[e];
@@ -309,33 +343,54 @@ flash_tc32_kernel(const Params p) {
     float* orow = op + static_cast<int64_t>(r) * p.o_ss;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
-      const int col = c0 + n * 8 + 2 * t;
+      const int col = c0v + n * 8 + 2 * t;
       const float v0 = o[n][2 * i] / den[i];
       const float v1 = o[n][2 * i + 1] / den[i];
-      if (p.vec_o && col + 1 < p.d) {
+      if (p.vec_o && col + 1 < dv) {
         *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
       } else {
-        if (col < p.d) orow[col] = v0;
-        if (col + 1 < p.d) orow[col + 1] = v1;
+        if (col < dv) orow[col] = v0;
+        if (col + 1 < dv) orow[col + 1] = v1;
       }
     }
   }
 }
 
-template <int DMAX, int WN = 1>
-int launch(const Params& p, int64_t B, int64_t H, cudaStream_t stream) {
+template <int DMAX, int VMAX>
+int launch(const Params& p, const Widths& w, int64_t B, int64_t H,
+           cudaStream_t stream) {
+  constexpr int WN = VMAX == 256 ? 2 : 1;  // O's registers: see the design
   constexpr int NT = 128 * WN;
-  constexpr size_t smem =
-      sizeof(float) * ((kBQ + 4 * kBK) * (DMAX + 4) +
-                       (WN > 1 ? 8 * kBK * 4 * 4 : 0));
+  constexpr int kXs = WN > 1 ? 8 * kBK * 4 * 4 : 0;
+  // the attribute takes the most a launch of this instantiation needs
+  constexpr int kMaxQ = DMAX > 0 ? DMAX : 256;
+  constexpr size_t smem_max =
+      sizeof(float) * ((kBQ + 2 * kBK) * (kMaxQ + 4) +
+                       2 * kBK * (VMAX + 4) + kXs);
+  const size_t smem = sizeof(float) * ((kBQ + 2 * kBK) * (w.dq + 4) +
+                                       2 * kBK * (VMAX + 4) + kXs);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc32_kernel<DMAX, WN>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_tc32_kernel<DMAX, VMAX, WN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_max));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((p.S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(H), static_cast<unsigned>(B));
-  flash_tc32_kernel<DMAX, WN><<<grid, NT, smem, stream>>>(p);
+  flash_tc32_kernel<DMAX, VMAX, WN><<<grid, NT, smem, stream>>>(p, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// q and k in tiles of DMAX = VMAX (d = dv) or of w.dq (DMAX = 0)
+template <int VMAX>
+int launch_dv(const Params& p, const Widths& w, int64_t B, int64_t H,
+              cudaStream_t stream, bool same) {
+  return same ? launch<VMAX, VMAX>(p, w, B, H, stream)
+              : launch<0, VMAX>(p, w, B, H, stream);
+}
+
+// the power-of-two tile width, 32 to 256, that holds x columns
+int bucket(int64_t x) {
+  return x <= 32 ? 32 : x <= 64 ? 64 : x <= 128 ? 128 : 256;
 }
 
 // rows of `width` floats in whole, 16-byte aligned chunks
@@ -347,19 +402,20 @@ bool vec16(const void* ptr, int64_t sb, int64_t sh, int64_t ss,
 
 }  // namespace
 
-// out = attention(q, k, v) on `stream`, float32 in and out.  Pointers are
-// device pointers; strides are in elements (the last dimension is
-// contiguous); 1 <= d <= 256; window <= 0 means none.  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a d the
-// kernel does not take.
+// out = attention(q, k, v) on `stream`, float32 in and out: q (B,H,S,d), k
+// (B,K,T,d), v (B,K,T,dv), out (B,H,S,dv).  Pointers are device pointers;
+// strides are in elements (the last dimension is contiguous); 1 <= d, dv
+// <= 256; window <= 0 means none.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for a d or dv the kernel does not take.
 extern "C" int flash_attention_tc32_launch(
     const void* q, const void* k, const void* v, void* o, int64_t B,
-    int64_t H, int64_t S, int64_t T, int64_t d, int64_t group, int64_t q_sb,
-    int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
-    int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
-    int64_t o_ss, int64_t causal, int64_t window, int64_t t_actual,
-    float scale, void* stream) {
-  if (d < 1 || d > 256) return static_cast<int>(cudaErrorInvalidValue);
+    int64_t H, int64_t S, int64_t T, int64_t d, int64_t dv, int64_t group,
+    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
+    int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
+    int64_t o_sh, int64_t o_ss, int64_t causal, int64_t window,
+    int64_t t_actual, float scale, void* stream) {
+  if (d < 1 || d > 256 || dv < 1 || dv > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -379,12 +435,20 @@ extern "C" int flash_attention_tc32_launch(
   p.scale = scale;
   p.vec_q = vec16(q, q_sb, q_sh, q_ss, d);
   p.vec_k = vec16(k, k_sb, k_sh, k_ss, d);
-  p.vec_v = vec16(v, v_sb, v_sh, v_ss, d);
+  p.vec_v = vec16(v, v_sb, v_sh, v_ss, dv);
   p.vec_o = reinterpret_cast<uintptr_t>(o) % 8 == 0 && o_sb % 2 == 0 &&
             o_sh % 2 == 0 && o_ss % 2 == 0;
+  const int vmax = bucket(dv);
+  const bool same = d == dv;  // the compile-time tiles
+  const int64_t per = vmax == 256 ? 64 : 32;  // 32 columns a warp of WN
+  Widths w;
+  w.dv = static_cast<int>(dv);
+  w.dq = same ? vmax : static_cast<int>((d + per - 1) / per * per);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 32) return launch<32>(p, B, H, st);
-  if (d <= 64) return launch<64>(p, B, H, st);
-  if (d <= 128) return launch<128>(p, B, H, st);
-  return launch<256, 2>(p, B, H, st);
+  switch (vmax) {
+    case 32: return launch_dv<32>(p, w, B, H, st, same);
+    case 64: return launch_dv<64>(p, w, B, H, st, same);
+    case 128: return launch_dv<128>(p, w, B, H, st, same);
+    default: return launch_dv<256>(p, w, B, H, st, same);
+  }
 }

@@ -53,6 +53,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global launches
     B, H, S, d = q.shape
     K, T = k.shape[1], k.shape[2]
+    if v.shape[3] != d:
+        raise ValueError(f"the CUDA-core comparator takes one head dimension "
+                         f"for q, k and v, got d {d} and dv {v.shape[3]}: a "
+                         "value head dimension unlike the query's goes to "
+                         "the tensor-core kernels")
     if not (q.is_cuda and q.device == k.device == v.device):
         raise ValueError("flash_attention_cuda takes q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")

@@ -35,7 +35,7 @@ import torch
 
 from . import ref
 from .dirty_diff import dirty_diff_cuda
-from .flash_attention_tc import flash_attention_tc_cuda
+from .flash_attention_tc import D_MAX, flash_attention_tc_cuda
 from .flash_attention_tc32 import flash_attention_tc32_cuda
 from .pack_diff import diff_pack_cuda
 from .rg_lru_pipe import rg_lru_pipe_cuda
@@ -145,20 +145,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None,
                     t_actual: int | None = None) -> torch.Tensor:
-    """q: (B,H,S,d); k/v: (B,K,T,d) with H = K*G.  Returns (B,H,S,d) in
-    q.dtype.  Keys at or past ``t_actual`` (default T) are masked;
+    """q: (B,H,S,d); k: (B,K,T,d); v: (B,K,T,dv) with H = K*G and
+    1 <= d, dv <= 256 (MLA's prefill: d 192, dv 128).  Returns (B,H,S,dv)
+    in q.dtype.  Keys at or past ``t_actual`` (default T) are masked;
     ``window`` keeps keys with ``q_pos - k_pos < window``.  Queries and
-    keys both count positions from 0."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError("q must be (B,H,S,d) and k, v one (B,K,T,d) shape, "
+    keys both count positions from 0; ``scale`` defaults to d**-0.5."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
+        raise ValueError("q must be (B,H,S,d), k (B,K,T,d) and v (B,K,T,dv), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, S, d = q.shape
     Bk, K, T, dk = k.shape
+    dv = v.shape[3]
     if Bk != B or dk != d or K == 0 or H % K:
-        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do "
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do "
                          "not pair: batch and head dimension must agree and "
                          "the kv heads divide the heads")
+    if not (1 <= d <= D_MAX and 1 <= dv <= D_MAX):
+        raise ValueError(f"head dimensions d {d} and dv {dv} must be in "
+                         f"[1, {D_MAX}]")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError(f"q, k, v must share a dtype, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")

@@ -55,9 +55,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         scale: float | None = None,
                         t_actual: int | None = None) -> torch.Tensor:
-    """q: (B,H,S,d); k/v: (B,K,T,d) with H = K*G.  Naive full-matrix
-    softmax attention in float32 (the query cast, then scaled), masked
-    scores -1e30; returns (B,H,S,d) in q.dtype."""
+    """q: (B,H,S,d); k: (B,K,T,d); v: (B,K,T,dv) with H = K*G.  Naive
+    full-matrix softmax attention in float32 (the query cast, then
+    scaled), masked scores -1e30; returns (B,H,S,dv) in q.dtype."""
     B, H, S, d = q.shape
     _, K, T, _ = k.shape
     G = H // K

@@ -13,7 +13,8 @@ online-softmax scan in plain PyTorch, as the reference's loss runs it in
 XLA.  The decode functions are plain PyTorch, as they are XLA code in the
 reference; :func:`full_attention` is a test oracle only.
 
-Layout: q (B, S, H, dh); k, v (B, T, K, dh) with H = K * G (GQA).
+Layout: q (B, S, H, dh); k (B, T, K, dh); v (B, T, K, dhv) with H = K * G
+(GQA); dhv may differ from dh (MLA).
 Numerical scheme: finite masking (-1e30, never -inf) keeps fully masked
 rows NaN-free.
 """
@@ -105,8 +106,8 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: float | None = None) -> torch.Tensor:
     """Attention of a whole prompt, positions from 0.
 
-    q: (B, S, H, dh); k, v: (B, T, K, dh).  Returns (B, S, H, dh) in
-    q.dtype.  The kernel reads the (B, H, S, dh) views through their
+    q: (B, S, H, dh); k: (B, T, K, dh); v: (B, T, K, dhv) (MLA: dh 192,
+    dhv 128).  Returns (B, S, H, dhv) in q.dtype.  The kernel reads the (B, H, S, dh) views through their
     strides and writes its output with q's strides, so no layout copy is
     made on the card.
     """

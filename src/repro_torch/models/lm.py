@@ -1,18 +1,22 @@
-"""Language model assembly for the dense, SSM and hybrid families: specs,
-loss, prefill, decode.
+"""Language model assembly for every decoder-only family: specs, loss,
+prefill, decode.
 
-The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks,
-Mamba-2 ``ssm`` blocks and RecurrentGemma's ``rglru`` and ``local_attn``
-blocks: ``param_specs``, ``init_cache_specs``, the prefill and decode
-forwards and their factories; names, shapes, dtypes, logical axes and init
-kinds are the reference's.  ``make_loss_fn`` (training) covers every
-ported kind with the reference's differentiable paths, which autograd
-differentiates: :func:`~.attention.blockwise_attention` for ``attn`` and
-(windowed) ``local_attn`` blocks, :func:`~.ssm.ssd_chunked` for ``ssm``
-blocks and :func:`~.griffin.linear_scan` for ``rglru`` blocks; no kernel
-of the package runs in it (none has a backward).  The MoE, MLA,
-encoder-decoder and VLM blocks wait for later slices (ROADMAP queue A);
-asking for one raises ``NotImplementedError`` naming its item.
+The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks (with
+or without QKV bias), DeepSeek-V2's MLA attention, ``moe`` blocks (GQA or
+MLA attention and a routed MLP with shared experts), Mamba-2 ``ssm`` blocks
+and RecurrentGemma's ``rglru`` and ``local_attn`` blocks:
+``param_specs``, ``init_cache_specs``, the prefill and decode forwards and
+their factories; names, shapes, dtypes, logical axes and init kinds are the
+reference's.  ``make_loss_fn`` (training) covers every ported kind with the
+reference's differentiable paths, which autograd differentiates:
+:func:`~.attention.blockwise_attention` for ``attn``, ``moe`` and
+(windowed) ``local_attn`` blocks and MLA, :func:`~.moe.moe_mlp` for the
+routed MLP (with the load-balance loss, weighted ``MOE_AUX_WEIGHT``),
+:func:`~.ssm.ssd_chunked` for ``ssm`` blocks and
+:func:`~.griffin.linear_scan` for ``rglru`` blocks; no kernel of the
+package runs in it (none has a backward).  The encoder-decoder and VLM
+frontends wait for a later slice (ROADMAP queue A item 12); asking for one
+raises ``NotImplementedError`` naming it.
 
 Conventions: params and caches are flat dicts ``g{gi}/p{pj}/<name>`` with
 a leading "layers" axis of length ``reps``; the reference's scan over that
@@ -23,14 +27,16 @@ KV cache is the largest tensor of a serving run; copying it per step would
 double it).
 
 Two-tier KV cache: ``k``/``v`` (main, length ``cache_len``) and
-``tk``/``tv`` (tail, ``decode_tail`` slots; position p at slot p % Tt).
-Decode writes the tail; the engine merges a full tail into main before
-the step at a multiple of Tt.  Prefill leaves the state that decoding the
-prompt one token at a time would leave: the tail holds the prompt's last
-``(S - 1) % Tt + 1`` positions, so a prompt whose length is a multiple of
-Tt ends with a full tail, which the first step's merge writes exactly.
-(The reference puts all S positions in main in that case, and its first
-merge then writes the empty tail over them: ROADMAP queue C.)
+``tk``/``tv`` (tail, ``decode_tail`` slots; position p at slot p % Tt);
+an MLA block's is the latent ``ckv``/``kr`` (main) and ``tckv``/``tkr``
+(tail), the same way.  Decode writes the tail; the engine merges a full
+tail into main before the step at a multiple of Tt.  Prefill leaves the
+state that decoding the prompt one token at a time would leave: the tail
+holds the prompt's last ``(S - 1) % Tt + 1`` positions, so a prompt whose
+length is a multiple of Tt ends with a full tail, which the first step's
+merge writes exactly.  (The reference puts all S positions in main in that
+case, and its first merge then writes the empty tail over them: ROADMAP
+queue C.)
 
 SSM cache: ``h`` (B,H,N,P) float32, the SSD state after the last position,
 and ``conv`` (B,K-1,conv_dim) bf16, the last K-1 conv inputs.  Prefill
@@ -59,21 +65,22 @@ from .attention import (blockwise_attention, decode_attention,
 from .config import ModelConfig
 from .griffin import griffin_decode_step, griffin_forward
 from .layers import mlp, rms_norm, rope
+from .mla import mla_attention, mla_decode_two_tier
+from .moe import moe_mlp
 from .spec import ParamSpec, sub
 from .ssm import mamba2_decode_step, mamba2_forward
 
 __all__ = ["param_specs", "init_cache_specs", "cast_params", "make_loss_fn",
-           "make_prefill_fn", "make_decode_fn"]
+           "make_prefill_fn", "make_decode_fn", "MOE_AUX_WEIGHT"]
+
+MOE_AUX_WEIGHT = 0.01
 
 # parameters kept in f32 inside the (bf16) forward pass
 _KEEP_F32 = {"A_log", "dt_bias", "D", "lam", "b_i", "b_r", "router"}
 
-# where each block kind that is not ported yet is planned
-_UNPORTED = {
-    "moe": "item 12 (MoE, MLA)",
-    "xattn": "item 12 (frontends)", "enc_attn": "item 12 (frontends)",
-}
-_PORTED = {"attn", "ssm", "rglru", "local_attn"}
+# the block kinds of the frontends, planned for ROADMAP queue A item 12
+_UNPORTED = {"xattn", "enc_attn"}
+_FRONTENDS = "item 12 (frontends)"
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -82,19 +89,17 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the forward does not cover: the ported kinds are
-    GQA ``attn`` and ``local_attn`` blocks, Mamba-2 ``ssm`` blocks and
-    ``rglru`` blocks, without a frontend."""
-    if cfg.frontend != "none" or cfg.is_encdec:
-        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder",
-                        "item 12 (frontends)")
+    """Raise for what the forward does not cover: the encoder-decoder and
+    VLM frontends (their blocks too), and attention kinds that no
+    configuration of the reference pairs with a block kind."""
     kinds = {kind for _, pattern in cfg.groups() for kind in pattern}
-    unported = sorted(kinds - _PORTED)
-    if unported:
-        raise _unported(f"the {unported[0]!r} block",
-                        _UNPORTED.get(unported[0], ""))
-    if kinds & {"attn", "local_attn"} and cfg.attn_kind != "gqa":
-        raise _unported(f"{cfg.attn_kind} attention", "item 12 (MoE, MLA)")
+    if cfg.frontend != "none" or cfg.is_encdec or kinds & _UNPORTED:
+        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder",
+                        _FRONTENDS)
+    if ("local_attn" in kinds and cfg.attn_kind != "gqa") or (
+            kinds & {"attn", "moe"} and cfg.attn_kind not in ("gqa", "mla")):
+        raise ValueError(f"{cfg.attn_kind} attention in {sorted(kinds)} "
+                         "blocks: not a configuration of the reference")
 
 
 def cast_params(cfg: ModelConfig, params):
@@ -134,6 +139,22 @@ def _attn_specs(cfg: ModelConfig, prefix: str = "") -> dict[str, ParamSpec]:
     return s
 
 
+def _mla_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    D, H = cfg.d_model, cfg.n_heads
+    dn, dr, dv, r, qr = (cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                         cfg.kv_lora_rank, cfg.q_lora_rank)
+    dt = cfg.param_dtype
+    return {
+        "wq_a": ParamSpec((D, qr), dt, ("fsdp", None)),
+        "q_norm": _norm(qr),
+        "wq_b": ParamSpec((qr, H * (dn + dr)), dt, ("fsdp", "qkv")),
+        "wkv_a": ParamSpec((D, r + dr), dt, ("fsdp", None)),
+        "kv_norm": _norm(r),
+        "wkv_b": ParamSpec((r, H * (dn + dv)), dt, ("fsdp", "qkv")),
+        "wo": ParamSpec((H * dv, D), dt, ("qkv", "fsdp")),
+    }
+
+
 def _mlp_specs(cfg: ModelConfig, d_ff: int | None = None,
                prefix: str = "mlp_") -> dict[str, ParamSpec]:
     D = cfg.d_model
@@ -145,6 +166,25 @@ def _mlp_specs(cfg: ModelConfig, d_ff: int | None = None,
     }
     if cfg.is_gated_mlp:
         s[f"{prefix}wg"] = ParamSpec((D, F), dt, ("fsdp", "ff"))
+    return s
+
+
+def _moe_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    dt = cfg.param_dtype
+    s = {
+        "router": ParamSpec((D, E), "float32", ("fsdp", "experts")),
+        "we_up": ParamSpec((E, D, Fe), dt, ("experts", "fsdp", None)),
+        "we_down": ParamSpec((E, Fe, D), dt, ("experts", None, "fsdp")),
+    }
+    if cfg.is_gated_mlp:
+        s["we_gate"] = ParamSpec((E, D, Fe), dt, ("experts", "fsdp", None))
+    if cfg.n_shared_experts:
+        Fs = cfg.n_shared_experts * Fe
+        s["ws_up"] = ParamSpec((D, Fs), dt, ("fsdp", "ff"))
+        s["ws_down"] = ParamSpec((Fs, D), dt, ("ff", "fsdp"))
+        if cfg.is_gated_mlp:
+            s["ws_gate"] = ParamSpec((D, Fs), dt, ("fsdp", "ff"))
     return s
 
 
@@ -188,22 +228,20 @@ def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
     if kind == "rglru":
         return {"norm1": _norm(D), **_rglru_specs(cfg), "norm2": _norm(D),
                 **_mlp_specs(cfg)}
-    if kind not in ("attn", "local_attn") or cfg.attn_kind != "gqa":
-        raise _unported(f"{kind!r} blocks ({cfg.attn_kind} attention)",
-                        _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
+    if kind not in ("attn", "local_attn", "moe"):
+        raise _unported(f"{kind!r} blocks", _FRONTENDS)
     s: dict[str, ParamSpec] = {"norm1": _norm(D)}
-    s.update(_attn_specs(cfg))
+    s.update(_mla_specs(cfg) if cfg.attn_kind == "mla" else _attn_specs(cfg))
     s["norm2"] = _norm(D)
-    s.update(_mlp_specs(cfg))
+    s.update(_moe_specs(cfg) if kind == "moe" else _mlp_specs(cfg))
     return s
 
 
 def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    """Full parameter spec dict for a dense (GQA), SSM or RG-LRU hybrid
-    architecture."""
+    """Full parameter spec dict for a decoder-only architecture."""
     if cfg.frontend != "none" or cfg.is_encdec:
         raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder "
-                        "specs", "item 12 (frontends)")
+                        "specs", _FRONTENDS)
     D, V = cfg.d_model, cfg.vocab
     out: dict[str, ParamSpec] = {
         "embed/tok": ParamSpec((V, D), cfg.param_dtype, ("vocab", "fsdp"),
@@ -239,9 +277,20 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
             "conv": ParamSpec((B, cfg.ssm_conv - 1, cfg.lru), "bfloat16",
                               ("batch", "conv", "state")),
         }
-    if kind not in ("attn", "local_attn") or cfg.attn_kind != "gqa":
-        raise _unported(f"the cache of {kind!r} blocks",
-                        _UNPORTED.get(kind, "item 12 (MoE, MLA)"))
+    if kind not in ("attn", "local_attn", "moe"):
+        raise _unported(f"the cache of {kind!r} blocks", _FRONTENDS)
+    Tt = min(cfg.decode_tail, max(1, T))
+    if cfg.attn_kind == "mla":
+        r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+        return {
+            "ckv": ParamSpec((B, T, r), "bfloat16",
+                             ("batch", "cache_seq", None)),
+            "kr": ParamSpec((B, T, dr), "bfloat16",
+                            ("batch", "cache_seq", None)),
+            # two-tier append buffer (replicated): O(1) per-token writes
+            "tckv": ParamSpec((B, Tt, r), "bfloat16", ("batch", None, None)),
+            "tkr": ParamSpec((B, Tt, dr), "bfloat16", ("batch", None, None)),
+        }
     K, hd = cfg.n_kv_heads, cfg.hd
     if kind == "local_attn":
         W = min(T, cfg.window or T)
@@ -251,7 +300,6 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
             "v": ParamSpec((B, W, K, hd), "bfloat16",
                            ("batch", "cache_seq", "kv_heads", None)),
         }
-    Tt = min(cfg.decode_tail, max(1, T))
     return {
         "k": ParamSpec((B, T, K, hd), "bfloat16",
                        ("batch", "cache_seq", "kv_heads", None)),
@@ -266,6 +314,9 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
 
 def init_cache_specs(cfg: ModelConfig, batch: int,
                      cache_len: int) -> dict[str, ParamSpec]:
+    if cfg.frontend != "none" or cfg.is_encdec:
+        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder "
+                        "cache", _FRONTENDS)
     out: dict[str, ParamSpec] = {}
     for gi, (reps, pattern) in enumerate(cfg.groups()):
         for pj, kind in enumerate(pattern):
@@ -297,8 +348,11 @@ def _qkv(cfg, p, h, positions):
 
 def _attn_block(cfg, p, x, positions, window=None):
     """Causal self-attention of a whole prompt (within ``window``, if
-    given); returns (x, (k, v))."""
+    given); returns (x, (k, v)), or for MLA (x, (c_kv, k_rope))."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if cfg.attn_kind == "mla":
+        o, cache = mla_attention(cfg, p, h, positions)
+        return x + o, cache
     q, k, v = _qkv(cfg, p, h, positions)
     B, S = x.shape[:2]
     o = prefill_attention(q, k, v, causal=True, window=window)
@@ -309,6 +363,15 @@ def _mlp_res(cfg, p, x):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     pp = {k[4:]: v for k, v in p.items() if k.startswith("mlp_")}
     return x + mlp(pp, h, cfg.act)
+
+
+def _ffn_res(cfg, kind, p, x):
+    """The block's feed-forward half: the routed MLP of a ``moe`` block
+    (returns its aux loss too), the dense MLP otherwise (aux None)."""
+    if kind == "moe":
+        y, aux = moe_mlp(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
+        return x + y, aux
+    return _mlp_res(cfg, p, x), None
 
 
 def _block_prefill(cfg, kind, p, x, positions, cache):
@@ -334,22 +397,24 @@ def _block_prefill(cfg, kind, p, x, positions, cache):
         cache["k"][:, take % W] = k[:, take].to(cache["k"].dtype)
         cache["v"][:, take % W] = v[:, take].to(cache["v"].dtype)
         return _mlp_res(cfg, p, x)
-    x, (k, v) = _attn_block(cfg, p, x, positions)
-    Tt = cache["tk"].shape[1]
-    S = k.shape[1]
+    x, kv = _attn_block(cfg, p, x, positions)
+    names = (("ckv", "tckv"), ("kr", "tkr")) if cfg.attn_kind == "mla" \
+        else (("k", "tk"), ("v", "tv"))
+    S = x.shape[1]
+    Tt = cache[names[0][1]].shape[1]
     base = S - ((S - 1) % Tt + 1)  # the tail keeps 1..Tt positions
-    cache["k"][:, :base] = k[:, :base]
-    cache["v"][:, :base] = v[:, :base]
-    cache["tk"][:, :S - base] = k[:, base:]
-    cache["tv"][:, :S - base] = v[:, base:]
-    return _mlp_res(cfg, p, x)
+    for (main, tail), t in zip(names, kv):
+        cache[main][:, :base] = t[:, :base]
+        cache[tail][:, :S - base] = t[:, base:]
+    return _ffn_res(cfg, kind, p, x)[0]
 
 
 def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
     """One token (x: (B,1,D)) at absolute position ``pos`` through one
-    block.  ``attn``: an O(1) write into the tail; main is read only.
-    ``local_attn``: a write into ring slot pos % W.  ``ssm`` and
-    ``rglru``: the state and the conv carry are overwritten."""
+    block.  ``attn`` and ``moe``: an O(1) write into the tail (MLA: the
+    latent's); main is read only.  ``local_attn``: a write into ring slot
+    pos % W.  ``ssm`` and ``rglru``: the state and the conv carry are
+    overwritten."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         o, hs, conv = mamba2_decode_step(cfg, p, h, cache["h"], cache["conv"])
@@ -362,6 +427,11 @@ def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
         cache["h"].copy_(hs)
         cache["conv"].copy_(conv)
         return _mlp_res(cfg, p, x + o)
+    if cfg.attn_kind == "mla":
+        o, _, _ = mla_decode_two_tier(cfg, p, h, pos, cache["ckv"],
+                                      cache["kr"], cache["tckv"],
+                                      cache["tkr"])
+        return _ffn_res(cfg, kind, p, x + o)[0]
     q, k, v = _qkv(cfg, p, h, positions)
     if kind == "local_attn":
         W = cache["k"].shape[1]
@@ -377,7 +447,7 @@ def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
     o = decode_attention_two_tier(q, cache["k"], cache["v"], cache["tk"],
                                   cache["tv"], pos)
     x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
-    return _mlp_res(cfg, p, x)
+    return _ffn_res(cfg, kind, p, x)[0]
 
 
 def _layers(cfg, params, cache):
@@ -422,22 +492,27 @@ def _logits(cfg, params, x):
 # Training forward (every ported kind)
 # ---------------------------------------------------------------------------
 
-def _block_train(cfg, kind, p, x, positions):
+def _block_train(cfg, kind, p, x, positions, aux):
     """Full-sequence block application (train): the reference's
-    ``_block_train`` for the ported kinds (with no MoE block, the
-    reference's ``aux`` loss stays 0).  Only differentiable plain paths:
-    never a kernel of ``ops``."""
+    ``_block_train`` for the ported kinds; a ``moe`` block adds its
+    load-balance loss to ``aux``.  Returns (x, aux).  Only differentiable
+    plain paths: never a kernel of ``ops``."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
-        return x + mamba2_forward(cfg, p, h, train=True)
+        return x + mamba2_forward(cfg, p, h, train=True), aux
     if kind == "rglru":
-        return _mlp_res(cfg, p, x + griffin_forward(cfg, p, h, train=True))
-    q, k, v = _qkv(cfg, p, h, positions)
-    B, S = x.shape[:2]
-    window = cfg.window if kind == "local_attn" else None
-    o = blockwise_attention(q, k, v, causal=True, window=window)
-    x = x + o.reshape(B, S, -1) @ p["wo"]
-    return _mlp_res(cfg, p, x)
+        return _mlp_res(cfg, p, x + griffin_forward(cfg, p, h,
+                                                    train=True)), aux
+    if cfg.attn_kind == "mla":
+        x = x + mla_attention(cfg, p, h, positions, train=True)[0]
+    else:
+        q, k, v = _qkv(cfg, p, h, positions)
+        B, S = x.shape[:2]
+        window = cfg.window if kind == "local_attn" else None
+        o = blockwise_attention(q, k, v, causal=True, window=window)
+        x = x + o.reshape(B, S, -1) @ p["wo"]
+    x, a = _ffn_res(cfg, kind, p, x)
+    return x, aux if a is None else aux + a
 
 
 # the products that remat="dots" keeps (the reference's
@@ -465,21 +540,21 @@ def _remat(cfg: ModelConfig, fn):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
 
 
-def _scan_group_train(cfg, params, gi, reps, pattern, x, positions):
+def _scan_group_train(cfg, params, gi, reps, pattern, x, positions, aux):
     """The reference's scan over a group's stacked layers, as a loop; each
-    layer is one remat unit."""
+    layer is one remat unit.  Returns (x, aux)."""
     gp = sub(params, f"g{gi}")
 
-    def body(x, layer_params):
+    def body(x, aux, layer_params):
         for pj, kind in enumerate(pattern):
-            x = _block_train(cfg, kind, sub(layer_params, f"p{pj}"), x,
-                             positions)
-        return x
+            x, aux = _block_train(cfg, kind, sub(layer_params, f"p{pj}"), x,
+                                  positions, aux)
+        return x, aux
 
     body = _remat(cfg, body)
     for layer in range(reps):
-        x = body(x, {k: t[layer] for k, t in gp.items()})
-    return x
+        x, aux = body(x, aux, {k: t[layer] for k, t in gp.items()})
+    return x, aux
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -488,8 +563,9 @@ def make_loss_fn(cfg: ModelConfig):
     ``params``: the parameter tree as :func:`param_specs` gives it (not
     cast).  batch: inputs (B,S) and targets (B,S) integer tensors on the
     parameters' device (-1 = masked).  Masked next-token cross-entropy in
-    float32 through ``logsumexp``; metrics ``ce``, ``aux`` (0: no MoE) and
-    ``ntok``.
+    float32 through ``logsumexp``, plus ``MOE_AUX_WEIGHT`` times the
+    summed load-balance loss of the ``moe`` blocks; metrics ``ce``, ``aux``
+    (0 without MoE blocks) and ``ntok``.
     """
     _check_ported(cfg)
 
@@ -497,9 +573,10 @@ def make_loss_fn(cfg: ModelConfig):
         params = cast_params(cfg, params)
         x = _embed(cfg, params, batch["inputs"])
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, (reps, pattern) in enumerate(cfg.groups()):
-            x = _scan_group_train(cfg, params, gi, reps, pattern, x,
-                                  positions)
+            x, aux = _scan_group_train(cfg, params, gi, reps, pattern, x,
+                                       positions, aux)
         logits = _logits(cfg, params, x)
         targets = batch["targets"]
         mask = (targets >= 0).float()
@@ -509,7 +586,8 @@ def make_loss_fn(cfg: ModelConfig):
         ce = (lse - tl.float()) * mask
         ntok = torch.clamp(mask.sum(), min=1.0)
         loss = ce.sum() / ntok
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.n_experts:
+            loss = loss + MOE_AUX_WEIGHT * aux
         return loss, {"ce": ce.sum() / ntok, "aux": aux, "ntok": ntok}
 
     return loss_fn

@@ -77,7 +77,9 @@ def init_params(specs: Mapping[str, ParamSpec], seed: int, *,
             (seed * 1_000_003 + i) % (1 << 63))
         w = torch.randn(spec.shape, generator=gen, device=dev,
                         dtype=torch.float32)
-        out[name] = (w * std).to(dt)
+        # scaled in place: no second float32 tensor of the full size (an
+        # expert stack of llama4-maverick is 21.5 GB in float32)
+        out[name] = w.mul_(std).to(dt)
     return out
 
 

@@ -1,7 +1,8 @@
 """Batched serving engine with window-backed session persistence.
 
-The counterpart of ``repro.serve.engine``: prefill + greedy decode of the
-dense, SSM and RG-LRU hybrid families on one device.  The paper's technique appears as
+The counterpart of ``repro.serve.engine``: prefill + greedy decode of every
+decoder-only family (dense, MoE with GQA or MLA attention, SSM, RG-LRU
+hybrid) on one device.  The paper's technique appears as
 :class:`SessionStore`: the whole decode state (KV caches, position and the
 generated tokens) maps onto a *combined* storage window -- ``factor`` says
 how much of it stays pinned in host memory and how much spills to storage
@@ -73,10 +74,10 @@ class Engine:
     compute dtype once, here; the cache is allocated once and written in
     place."""
 
-    # two-tier KV cache: merge the append tail into main every Tt steps
-    # (an SSM or RG-LRU state is overwritten every step and a local
-    # attention ring is written in place: neither has a tail)
-    _TAIL_TO_MAIN = {"tk": "k", "tv": "v"}
+    # two-tier KV cache (MLA: its latent cache): merge the append tail into
+    # main every Tt steps (an SSM or RG-LRU state is overwritten every step
+    # and a local attention ring is written in place: neither has a tail)
+    _TAIL_TO_MAIN = {"tk": "k", "tv": "v", "tckv": "ckv", "tkr": "kr"}
 
     def __init__(self, cfg: ModelConfig, params: dict, *, batch: int,
                  max_len: int, session: SessionStore | None = None,

@@ -756,3 +756,34 @@ def test_trainer_needs_cuda_unless_cpu_is_asked():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(cfg, AdamWConfig(), tc)
     assert Trainer(cfg, AdamWConfig(), tc, device="cpu").device.type == "cpu"
+
+
+# a value head dimension unlike the query's: (d, dv), MLA's first
+DV_PAIRS = [(192, 128), (16, 8), (24, 40), (16, 256), (192, 256), (100, 72)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv", DV_PAIRS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_value_dim_on_the_card(cuda, d, dv, dtype):
+    """Both tensor-core kernels with dv != d, in the model layout (v a
+    strided view, as MLA's up-projection gives it), causal, windowed and
+    with ``t_actual``, against the plain version at the sweep's limits;
+    the output laid out as q."""
+    rng = np.random.default_rng(d + dv)
+    B, H, K, S = 2, 4, 2, 75
+
+    def mk(heads, width, std):
+        a = rng.standard_normal((B, S, heads, width)) * std
+        return torch.from_numpy(a.astype(np.float32)).to(cuda, dtype)
+    q, k = mk(H, d, 0.4).transpose(1, 2), mk(K, d, 0.4).transpose(1, 2)
+    v = mk(K, dv + 8, 0.4)[..., 8:].transpose(1, 2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for kw in (dict(causal=True), dict(causal=True, window=24),
+               dict(causal=False, t_actual=50)):
+        got = ops.flash_attention(q, k, v, scale=0.1, **kw)
+        want = ref.flash_attention_ref(q, k, v, scale=0.1, **kw)
+        assert got.shape == (B, H, S, dv)
+        assert got.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)

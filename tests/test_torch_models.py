@@ -256,17 +256,22 @@ def test_reference_engine_inconsistent_at_multiple_of_decode_tail():
 
 
 def test_unported_blocks_raise():
-    """A block kind still to port names its ROADMAP item: MoE blocks (item
-    12); ``attn``, ``ssm``, ``rglru`` and ``local_attn`` blocks are
-    ported."""
+    """A block kind still to port names its ROADMAP item: the frontends'
+    (an encoder-decoder's ``xattn`` blocks, item 12); ``attn``, ``moe``,
+    ``ssm``, ``rglru`` and ``local_attn`` blocks are ported."""
     from repro_torch.models import ModelConfig
     moe = ModelConfig(name="m", family="moe", n_layers=2, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=128, vocab=64,
                       n_experts=8, top_k=2, d_ff_expert=32)
+    make_prefill_fn(moe)
+    assert "g0/p0/we_up" in param_specs(moe)
+    assert "g0/p0/tk" in init_cache_specs(moe, 1, 8)
+    encdec = dataclasses.replace(moe, family="audio", n_experts=0,
+                                 enc_layers=2, enc_seq=16)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue A item 12"):
-        make_prefill_fn(moe)
+        make_prefill_fn(encdec)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
-        init_cache_specs(moe, 1, 8)
+        init_cache_specs(encdec, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
-        param_specs(moe)
+        param_specs(encdec)

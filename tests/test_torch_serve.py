@@ -500,3 +500,119 @@ def test_serve_launcher_runs_recurrentgemma_on_the_cpu(tmp_path):
         capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert "generated token ids" in r.stdout and "session flushed" in r.stdout
+
+
+# -- the MoE family: deepseek-v2 (MLA latent cache) and llama4-maverick ---------
+
+MOE_ARCHS = ["deepseek-v2-236b", "llama4-maverick-400b-a17b"]
+
+
+def moe_configs(arch, dtype="float32"):
+    return (dataclasses.replace(j_get_config(arch, smoke=True), dtype=dtype),
+            dataclasses.replace(get_config(arch, smoke=True), dtype=dtype))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_kill_and_resume_is_exact(tmp_path, arch):
+    """Generate 14 tokens from a 13-token prompt (the tail merges at 16 and
+    24); then prefill, steps, save at position 19, drop the engine, load
+    into a fresh one, continue: the same tokens, and the same final cache
+    bit for bit (MLA: the latent main and tail)."""
+    cfg = get_config(arch, smoke=True)
+    params = init_params(param_specs(cfg), 0, device="cpu")
+    steps, save_at = 14, 7
+    toks = prompt(cfg.vocab, n=13)
+    store = SessionStore(tcore.Communicator(1), str(tmp_path / "sess.bin"),
+                         init_cache_specs(cfg, B, MAX_LEN), factor="0.5")
+    eng = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
+                 device="cpu")
+    assert eng._tail_len() == cfg.decode_tail
+    out_full = eng.generate({"inputs": toks}, steps)
+    final = {k: v.clone() for k, v in eng.cache.items()}
+    if cfg.attn_kind == "mla":
+        assert {"g0/p0/ckv", "g0/p0/tckv", "g1/p0/kr"} <= set(final)
+        assert not any(k.endswith("/k") for k in final)
+
+    eng2 = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
+                  device="cpu")
+    seq = [eng2.prefill({"inputs": toks})]
+    for _ in range(save_at - 1):
+        seq.append(eng2.step(seq[-1]))
+    eng2.generated = list(seq)
+    assert eng2.pos == 19
+    assert eng2.save_session() > 0
+    del eng2
+    eng3 = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
+                  device="cpu")
+    eng3.load_session()
+    assert eng3.pos == 19
+    for _ in range(steps - save_at):
+        seq.append(eng3.step(seq[-1]))
+    np.testing.assert_array_equal(np.stack(seq, axis=1), out_full)
+    assert all(torch.equal(v, eng3.cache[k]) for k, v in final.items())
+    store.free()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("factor", [None, "0.5"])
+def test_moe_session_files_byte_identical(tmp_path, arch, factor):
+    """The same cache (bf16 bits: MLA's latent ``ckv``/``kr`` and tails,
+    or llama4's k/v), pos and tokens saved by both packages: the same
+    flushed byte count and the same window file."""
+    jcfg, cfg = moe_configs(arch, "bfloat16")
+    rng = np.random.default_rng(13)
+    jspecs, specs = j_cache_specs(jcfg, B, MAX_LEN), init_cache_specs(
+        cfg, B, MAX_LEN)
+    assert sorted(jspecs) == sorted(specs)
+    bits = {k: rng.integers(0, 1 << 15, size=s.shape, dtype=np.uint16)
+            for k, s in specs.items()}
+    toks = rng.integers(0, cfg.vocab, size=B * 7).astype(np.int32)
+    out = []
+    for name, store_cls, comm, spec, cache in (
+            ("ref.bin", JSessionStore, jcore.Communicator(1), jspecs,
+             {k: jnp.asarray(b.view(ml_dtypes.bfloat16))
+              for k, b in bits.items()}),
+            ("port.bin", SessionStore, tcore.Communicator(1), specs,
+             tree_from_numpy({k: b.view(ml_dtypes.bfloat16)
+                              for k, b in bits.items()}, device="cpu"))):
+        store = store_cls(comm, str(tmp_path / name), spec, factor=factor)
+        flushed = store.save(cache, PROMPT + 7, toks)
+        store.free()
+        out.append((flushed, (tmp_path / name).read_bytes()))
+    assert out[0][0] > 0
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_serving_slice_matches_reference(tmp_path, arch):
+    """The MoE slice as a whole: ``chip_smoke.run_serving`` (phase 9's
+    routine) on the CPU at the float32 smoke config against the JAX
+    engine's greedy tokens for the same parameters and prompt: a prompt of
+    13, 12 steps across merges at 16 and 24, the session saved at token 5;
+    the consistency reading at tests/test_models.py's MoE limit."""
+    cs = _chip_smoke()
+    jcfg, cfg = moe_configs(arch)
+    params = numpy_params(jcfg, seed=4)
+    tokens = prompt(cfg.vocab, n=14, seed=8)
+    want = JEngine(jcfg, params, batch=B, max_len=MAX_LEN).generate(
+        {"inputs": jnp.asarray(tokens[:, :13])}, 12)
+    out = cs.run_serving(
+        cfg, params_from_numpy(cfg, params, device="cpu"), tokens,
+        device="cpu", directory=tmp_path, max_len=MAX_LEN, steps=12,
+        save_at=5, factor="0.5", consistency_limit=0.08)
+    np.testing.assert_array_equal(out["tokens"], np.asarray(want))
+    assert out["session_flushed_bytes"] > 0
+    assert len(out["step_ms"]) == 11
+    n_moe = sum(r * p.count("moe") for r, p in cfg.groups())
+    assert out["routing"]["of"] == B * n_moe  # the compared token's sets
+
+
+def test_serve_launcher_runs_deepseek_on_the_cpu(tmp_path):
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "deepseek-v2-236b", "--smoke", "--device", "cpu", "--steps", "4",
+         "--session", str(tmp_path / "s.bin")],
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "generated token ids" in r.stdout and "session flushed" in r.stdout

@@ -307,3 +307,97 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tree_from_numpy({"a": np.zeros(3, np.float32)})
+
+
+# phase 9's routine at the smoke configs: SERVE's shape of traffic, cut
+SMOKE_TRAFFIC = dict(batch=2, prompt=13, max_len=32, save_at=5,
+                     factor="0.5", steps=12, gate_prompt=11)
+
+
+@pytest.mark.parametrize("sub", ["9a", "9b", "9c", "9d"])
+def test_new_config_phase_at_smoke_widths(tmp_path, chip_smoke, sub):
+    """``chip_smoke.new_config_phase`` (phase 9: gemma-7b, qwen2-72b,
+    deepseek-v2-236b, llama4-maverick) on the CPU at the smoke configs:
+    generate, then the steps again (9c, 9d: through a saved and reopened
+    session) with the same tokens and the same final cache, the bf16
+    consistency reading (held at 0.02 for 9a), and the float32 gate at
+    1e-4 where the entry has one (9c's with the capacity raised: no
+    assignment dropped); the MoE configs' routing line."""
+    spec = chip_smoke.PHASE9[sub]
+    out = chip_smoke.new_config_phase(sub, "cpu", directory=tmp_path / "w",
+                                      traffic=SMOKE_TRAFFIC, smoke=True,
+                                      log=lambda *a: None)
+    assert out["tokens"].shape == (2, 12)
+    assert ("session_flushed_bytes" in out) == spec["session"]
+    assert np.isfinite(out["consistency_rel_err"])
+    cfg = chip_smoke.phase9_config(sub, smoke=True)
+    assert ("routing" in out) == bool(cfg.n_experts)
+    if cfg.n_experts:
+        n_moe = sum(r * p.count("moe") for r, p in cfg.groups())
+        assert out["routing"]["of"] == 2 * n_moe
+    if spec["f32"] is not None:
+        assert out["float32_rel_err"] < chip_smoke.F32_LIMIT
+    if sub == "9c":
+        assert out["float32_routing"]["dropped_prefill_S1"] == 0
+    assert not any(out["comparator_launches"].values())
+
+
+def test_time_attention_scan_stops_at_the_card_check():
+    """``scripts/time_attention_scan.py`` imports what it times (the
+    float32 rule from ``repro_torch.convert``) and, without a card, stops
+    at ``chip_smoke``'s card check: no ImportError first."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the script would run")
+    r = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "time_attention_scan.py"),
+         "--src", str(ROOT / "src"), "--rounds", "1"],
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "ImportError" not in r.stderr, r.stderr[-2000:]
+    assert "nvidia-smi not found" in r.stderr, r.stderr[-2000:]
+
+
+def test_kernel_resources_reads_ptxas_and_sass(monkeypatch, tmp_path):
+    """``scripts/kernel_resources.py``: ptxas's registers, stack and spills
+    per kernel, and SASS without addresses, encodings or the kernel's own
+    name, so two builds of the same code hash alike."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    try:
+        import kernel_resources as kr
+    finally:
+        sys.path.remove(str(ROOT / "scripts"))
+    ptxas = (
+        "ptxas info    : Compiling entry function '_Z1aILi1EEvv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1aILi1EEvv\n"
+        "    24 bytes stack frame, 20 bytes spill stores, 20 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n")
+    assert kr.ptxas_report(ptxas) == {
+        "_Z1aILi1EEvv": {"stack": 24, "spill": 20, "registers": 255},
+        "_Z1bv": {"stack": 0, "spill": 0, "registers": 96}}
+
+    def sass(name, addr):
+        return (f"\t\tFunction : {name}\n"
+                f"        /*{addr:04x}*/                   MOV R1, "
+                "c[0x0][0x28] ;                    /* 0x00000a0000017a02 */\n"
+                "                                                   "
+                "                          /* 0x000fe40000000f00 */\n"
+                f"        /*{addr + 16:04x}*/                   BRA "
+                f"`({name}) ;  /* 0xfffffffc00fc7947 */\n")
+
+    text = sass("_Z1aILi1EEvv", 0) + sass("_Z1aILi2EEvv", 0x10)
+
+    class Done:
+        stdout = text
+    monkeypatch.setattr(kr.subprocess, "run", lambda *a, **kw: Done)
+    monkeypatch.setattr(kr, "tool", lambda name: name)
+    got = kr.sass_by_kernel(tmp_path / "x.cubin")
+    assert got["_Z1aILi1EEvv"] == ["MOV R1, c[0x0][0x28] ;",
+                                   "BRA `(<self>) ;"]
+    assert got["_Z1aILi1EEvv"] == got["_Z1aILi2EEvv"]

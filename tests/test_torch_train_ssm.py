@@ -499,8 +499,9 @@ def test_chip_smoke_training_routine_on_cpu(tmp_path, arch, monkeypatch):
         get_config(arch), n_layers=full.n_layers).groups()
     out = cs.run_training(cfg, device="cpu", directory=tmp_path, seq=32,
                           phase=phase, log=lambda *a: None)
-    steps = cs.TRAIN["steps"]
+    steps, microbatches = spec["steps"], spec["microbatches"]
     assert len(out["losses"]) == steps and len(out["step_ms"]) == steps - 1
+    assert out["tokens_per_step"] == 2 * microbatches * 32
     assert out["loss0_rel_err"] <= cs.TRAIN_F32_TOL
     assert "offload_losses" not in out
     if "B" in spec["runs"]:
