@@ -50,17 +50,17 @@ into ``build/repro_torch``), and then:
 * phase 3 drives the serving path, ``Engine`` with a ``SessionStore``, at
   internlm2-1.8b's full widths and depth (24 layers, 1.89 B parameters
   made on the card from a seed, cast once to bf16): 4 requests of 2000
-  prompt tokens, 200 greedy steps in a 4096-position cache (the two-tier
+  prompt tokens, 150 greedy steps in a 4096-position cache (the two-tier
   tail merges into main at 2048).  Run 1 is ``Engine.generate``; run 2
   saves the session (factor 0.5, under ``build/chip_smoke/``) at token
   100, drops the engine, opens a fresh one on the same store, loads, and
-  runs on.  Run 2's 200 tokens must equal run 1's, the bf16 flash kernel
+  runs on.  Run 2's 150 tokens must equal run 1's, the bf16 flash kernel
   (``flash_attention_tc``) must have launched once per layer in each
   prefill, and decode after
   prefill(2000) must agree with prefill(2001) to 0.02 relative
   (``tests/test_models.py``), with finite logits.  The same reading for
-  two parameter seeds and four prompts is printed beside it, to show its
-  spread.  Beside it, a float32 gate outside the bf16 noise: internlm2-1.8b
+  four prompts is printed beside it, to show its spread.  Beside it, a
+  float32 gate outside the bf16 noise: internlm2-1.8b
   at full widths cut to 4 layers, ``dtype="float32"``, a float32 cache,
   TF32 off; decode after prefill(2000) against prefill(2001) within 1e-4
   relative, with the float32 kernel (``flash_attention_tc32``) launched
@@ -99,10 +99,10 @@ into ``build/repro_torch``), and then:
   mamba2-2.7b's full widths and depth (64 layers, 2.70 B parameters made
   on the card from a seed, ``A_log`` and ``dt_bias`` set in the published
   ranges, cast once to bf16), with phase 3's traffic and session: run 2's
-  200 tokens must equal run 1's, ``ssd_scan_tc`` must launch once per
+  150 tokens must equal run 1's, ``ssd_scan_tc`` must launch once per
   layer in each prefill, and the float32 gate (4 layers) must hold at 1e-4.  The
   bf16 full-depth readings for phase 3's seeds are printed beside it, not
-  held: at 64 layers on an H100 all eight read above phase 3's 0.02, while
+  held: at 64 layers on an H100 all read above phase 3's 0.02, while
   the float32 gate reads about 3e-6 (PERF.md).
 * phase 5 drives RecurrentGemma serving the same way at
   recurrentgemma-2b's full widths and depth (26 layers: 18 ``rglru`` and
@@ -116,7 +116,7 @@ into ``build/repro_torch``), and then:
   that the window binds in the prefill and the ring has wrapped before the
   decode step, must hold at 1e-4.  As in phase 3, the bf16 full-depth reading on seed 0 must
   be under 0.02, with the readings for phase 3's seeds printed beside it
-  (on an H100 all eight read 0.011-0.015; PERF.md).  In phases 3 to 5 the
+  (on an H100 all read 0.011-0.015; PERF.md).  In phases 3 to 5 the
   resumed run's final decode state must also equal the uninterrupted
   run's, bit for bit: a random recurrentgemma-2b repeats one token id,
   which would hide a wrong resume from the tokens alone.
@@ -125,17 +125,17 @@ into ``build/repro_torch``), and then:
   the card from seed 0, its own remat="full") on the repo's train_4k
   shape cut to one card (seq 4096, 2 sequences x 2 microbatches a step,
   ``SyntheticLM`` batches), under ``torch.use_deterministic_algorithms``
-  (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts).  Run A takes 6
+  (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts).  Run A takes 4
   fused AdamW steps; run B the same with asynchronous A/B window
-  checkpoints every 2 steps under ``build/chip_smoke/``, stopped after 4;
-  run C, a fresh ``Trainer`` on that directory, must restore step 4 and
-  continue to 6 with its params, moments, step and two losses equal to
+  checkpoints every 2 steps under ``build/chip_smoke/``, stopped after 2;
+  run C, a fresh ``Trainer`` on that directory, must restore step 2 and
+  continue to 4 with its params, moments, step and two losses equal to
   run A's, bit for bit.  Each save's window file read back must equal the
   tree saved, and its flushed bytes the tree's changed pages times the
   page size (counted by the phase from its own host copy); the newest
   manifest must validate through ``restore()``; step 0's loss must lie
-  within 0.5 of a random model's ln V + 1/2.  Two offload-mode steps
-  follow (bf16 params on the card, ``OutOfCoreAdamW`` on the host): finite
+  within 0.5 of a random model's ln V + 1/2.  One offload-mode step
+  follows (bf16 params on the card, ``OutOfCoreAdamW`` on the host): finite
   losses, and after the sync the window file must equal the masters.  No
   kernel of the package may launch in phase 6: the reference's training
   path runs none (its loss runs ``blockwise_attention`` in XLA, and no
@@ -146,7 +146,8 @@ into ``build/repro_torch``), and then:
   in phases 4 and 5): 6b mamba2-2.7b at full widths, depth cut to 2
   layers (209,141,728 parameters; the chunked SSD scan in plain torch),
   runs A, B and C with C equal to A bit for bit and each save checked,
-  one microbatch a step (cut for time), no offload run; 6c
+  one microbatch a step and 4 steps (both cut for time), no offload run;
+  6c
   recurrentgemma-2b at full widths, depth cut to one (rglru, rglru,
   local_attn) group (912,314,880 parameters; the RG-LRU through the
   log-depth ``linear_scan``, the window of 2048 binding at seq 4096), run
@@ -164,14 +165,18 @@ into ``build/repro_torch``), and then:
   groups of about equal bytes, puts each into the storage window of one
   of ranks 1-3 of ``Communicator(4, transport="mp")`` and syncs each
   group's first phase-2 change there with ``sync_shards_from_device``
-  (flushed bytes = that rank's changed pages x 4096, one ``wsync`` each);
+  (flushed bytes = that rank's changed pages x 4096, one ``wsync`` each),
+  under inproc, mp and tcp: the tcp world is a 4-rank loopback fleet
+  built with ``REPRO_SANITIZE=1``, whose runtime RMA sanitizer must report
+  no finding, and whose files must equal the other two worlds';
   7c fills a 4 x 4,096-slot storage DHT to 80% with random keys
   (``benchmarks/dht_bench.py``'s traffic and table, cut from 4 x 16,384
   slots for time; ``items()`` must equal a dict of the keys); 7d runs ``MapReduce1S`` with a checkpoint a task over
   ``benchmarks/mapreduce_bench.py``'s 24 tasks of 20,000 words (the
-  result must equal ``wordcount_reduce``).  7b-7d run under inproc and mp,
-  whose window files must be byte-identical.  A worker that cannot start
-  or a ``TransportError`` ends the run; nothing falls back to inproc.
+  result must equal ``wordcount_reduce``).  7c and 7d run under inproc and
+  mp (tcp would pay a round trip an insert), whose window files must be
+  byte-identical.  A worker that cannot start or a ``TransportError`` ends
+  the run; nothing falls back to inproc.
 * phase 8 drives fault tolerance with the card as the origin.  8a puts
   7b's three groups into a storage window with
   ``storage_alloc_replication=2`` (rank r's copy on rank r + 1, rank 3's
@@ -206,10 +211,10 @@ into ``build/repro_torch``), and then:
   head_dim 256), 64 steps and no session, the bf16 reading on seed 0
   under 0.02; 9b qwen2-72b cut to 4 layers (QKV bias), 64 steps, no
   session; 9c deepseek-v2-236b cut to 3 layers (the dense first layer
-  and two MoE layers of 160 experts, top-6, MLA), 200 steps with the
+  and two MoE layers of 160 experts, top-6, MLA), 150 steps with the
   session saved at token 100 and reopened (the latent tail merges at
   2048); 9d llama4-maverick cut to one (attn, moe) pair (128 experts,
-  top-1), 200 steps and the session.  Resumed tokens and final cache
+  top-1), 150 steps and the session.  Resumed tokens and final cache
   must equal the uninterrupted run's; ``flash_attention_tc`` must launch
   once per layer in each prefill (``moe`` blocks and MLA count as
   attention); float32 gates, with the float32 kernel, hold 9a and 9b at
@@ -222,6 +227,22 @@ into ``build/repro_torch``), and then:
   kernel but B3 may launch.  B3 is then timed at each config's prefill
   shape in both dtypes against SDPA (``library_refused`` where SDPA does
   not take the shape).
+* phase 10 trains with every rank an origin: ``SpmdLauncher`` spawns two
+  ranks, each running ``repro_torch.launch.spmd_train_resume``'s drill
+  entry (``launch.train._spmd_entry`` with the depth cut) with its own
+  ``Trainer`` on the card, under deterministic algorithms: mamba2-2.7b at
+  full widths, depth cut to 2 layers (phase 6b's config, 209,141,728
+  parameters, a 2.51 GB checkpoint window a rank) on TRAIN's shape, one
+  microbatch a step.  Job 1 takes 4 steps with a checkpoint every 2; rank
+  1 waits at a file gate once its first manifest has committed, is
+  SIGKILLed and ``rebuild_rank`` respawns it, and the respawn must resume
+  at step 2 from its own manifest.  Job 2, a whole-job restart to 6
+  steps, must resume every rank at step 4.  The launcher's data-path
+  operations must be 0 in both jobs; ranks 0 and 1 draw the same data from
+  the same seed, so they must end each job with the same final loss and
+  the same newest checkpoint partition, bit for bit; no kernel may launch
+  in a rank.  The phase's host memory is reckoned before it runs and held
+  under 48 GB, and measured on the launcher and every rank process.
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
@@ -230,14 +251,16 @@ staging, flush), phase 7's mp and inproc times, wire bytes and host
 memory, phase 8's sync ms per step beside 7b's, control messages, respawn
 and rebuild seconds, DHT rates and checkpoint times, phases 6b's and 6c's
 step times, step profiles, saves and restore, phase 9's serving times,
-readings and peak device bytes, the phase walls and the command's wall,
-and one JSON line
+readings and peak device bytes, phase 10's step times per rank, respawn
+and restore seconds and peak host and device bytes, the phase walls and
+the command's wall, and one JSON line
 ``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
-library times (B1 and B2 launch in phases 2, 7a, 7b and 8a: their launches
-are the sum; every row splits its launches by phase in
-``launches_by_phase``, the training phases 6, 6b and 6c at 0, phase 9 at
-0 but for B3, whose rows carry phase 9's shapes under ``phase9``; B3 and
+library times (B1 and B2 launch in phases 2, 7a, 7b (inproc and mp, and
+its tcp world) and 8a: their launches are the sum; every row splits its
+launches by phase in ``launches_by_phase``, the training phases 6, 6b, 6c
+and 10 at 0, phase 9 at 0 but for B3, whose rows carry phase 9's shapes
+under ``phase9``; B3 and
 B4 have a bf16 and a float32 tensor-core kernel each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
 with its launches in phases 3 to 5, counted there and required to be 0;
@@ -290,15 +313,18 @@ F32_MMA_FLOPS = 495e12 / 3
 SMOKE_LAYERS = 2             # depth cut of internlm2-1.8b (24 layers)
 WORKDIR = ROOT / "build" / "chip_smoke"
 TRAIN_DIR = WORKDIR / "train"
-# phase 3 traffic: 4 requests of 2000 prompt tokens, 200 greedy steps in a
+# phase 3 traffic: 4 requests of 2000 prompt tokens, 150 greedy steps in a
 # 4096-position cache, the session saved at token 100 into a combined
-# window that keeps half of it in memory
-SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=200, save_at=100,
+# window that keeps half of it in memory (cut from 200 steps for the time
+# limit when phase 10 came; decode is host-bound, 50-110 ms a step)
+SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=150, save_at=100,
              factor=0.5)
-# the consistency reading is also taken for these parameter and prompt
-# seeds, to show its spread beside the check on seed 0 (0.02, the limit of
-# tests/test_models.py)
-CONSISTENCY_SEEDS = dict(params=(0, 1), prompts=(0, 1, 2, 3))
+# the consistency reading is also taken for these prompt seeds, to show its
+# spread beside the check on seed 0 (0.02, the limit of
+# tests/test_models.py); parameter seed 1 was read too before phase 10
+# came (its readings fell in seed 0's spread in every run), cut for the
+# time limit
+CONSISTENCY_SEEDS = dict(params=(0,), prompts=(0, 1, 2, 3))
 # one prefill layer's attention at the SERVE shape: B, H, K, S = T, d
 ATTN_MAIN = (4, 16, 8, 2000, 128)
 # recurrentgemma-2b's local attention at the SERVE shape (its window of 2048
@@ -316,9 +342,12 @@ F32_LIMIT = 1e-4
 # phase's microbatches a step (phase 6: 2, 16,384 tokens); run A trains the
 # phase's steps, run B the same with a checkpoint every CKPT_EVERY steps and
 # stops after KILL_AFTER, run C restores and continues to the phase's
-# steps; the offload run takes OFFLOAD_STEPS steps
-TRAIN = dict(shape="train_4k", batch=2, ckpt_every=2, kill_after=4,
-             offload_steps=2)
+# steps; the offload run takes OFFLOAD_STEPS steps.  Phases 6 and 6b were
+# cut from 6 steps to 4 (a kill after 2, not 4: one save fewer, of a 6.06
+# and a 2.51 GB tree) and the offload run from 2 steps to 1, for the time
+# limit, when phase 10 came
+TRAIN = dict(shape="train_4k", batch=2, ckpt_every=2, kill_after=2,
+             offload_steps=1)
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
 # a random model's step-0 loss: the reference's init gives logits of unit
 # variance (lm_head at fan_in^-1/2 over a unit-rms input), so its
@@ -340,11 +369,11 @@ TRAIN_PHASES = {
     "6": dict(arch="internlm2-1.8b", n_layers=SMOKE_LAYERS,
               why="host memory: about five copies of the checkpoint tree at "
                   "once, run time limit and disk",
-              runs="ABC", offload=True, steps=6, microbatches=2),
+              runs="ABC", offload=True, steps=4, microbatches=2),
     "6b": dict(arch="mamba2-2.7b", n_layers=2,
                why="phase 6's budget: a 2.51 GB params, m and v window "
                    "against phase 6's 6.06 GB",
-               runs="ABC", offload=False, steps=6, microbatches=1),
+               runs="ABC", offload=False, steps=4, microbatches=1),
     "6c": dict(arch="recurrentgemma-2b", n_layers=3,
                why="one (rglru, rglru, local_attn) group; its 912 M "
                    "parameters make a 10.95 GB window, whose kill and "
@@ -1857,14 +1886,23 @@ class PeakRss:
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def rss(self) -> int:
-        for line in self.status.read_text().splitlines():
+        """The resident set now; raises ``ProcessLookupError`` once the
+        process has exited (its status is gone, or has no VmRSS line)."""
+        try:
+            text = self.status.read_text()
+        except FileNotFoundError:
+            raise ProcessLookupError(f"{self.status} is gone") from None
+        for line in text.splitlines():
             if line.startswith("VmRSS:"):
                 return int(line.split()[1]) * 1024
-        raise RuntimeError(f"no VmRSS in {self.status}")
+        raise ProcessLookupError(f"no VmRSS in {self.status}")
 
     def _run(self) -> None:
         while not self._stop.is_set():
-            now = self.rss()
+            try:
+                now = self.rss()
+            except ProcessLookupError:
+                return  # the process exited: its peak is final
             self.peak = max(self.peak, now)
             self._since = max(self._since, now)
             self._stop.wait(self.interval)
@@ -1883,7 +1921,10 @@ class PeakRss:
     def __exit__(self, *exc):
         self._stop.set()
         self._thread.join()
-        self.peak = max(self.peak, self.rss())
+        try:
+            self.peak = max(self.peak, self.rss())
+        except ProcessLookupError:
+            pass
 
 
 class SaveChecks:
@@ -2223,7 +2264,7 @@ def run_shards(cfg, comm, *, device, directory: Path, seed: int = 0,
     window holding one group of the masters; each group's first phase-2
     change goes to its rank with ``sync_shards_from_device``.  Checks
     every rank's flushed bytes against its changed pages (and one
-    ``wsync`` per rank under mp)."""
+    ``wsync`` per rank under mp and tcp)."""
     from repro_torch.core import Window
     from repro_torch.kernels import dirty_diff, pack_diff
     from repro_torch.models import param_specs
@@ -2235,7 +2276,8 @@ def run_shards(cfg, comm, *, device, directory: Path, seed: int = 0,
     change = mutation_plan(shapes, seed)[0]
     masters = make_masters(cfg, seed, device)
     snapshot = {k: v.clone() for k, v in masters.items()}
-    channel = ChannelCount(comm.transport) if kind == "mp" else None
+    channel = (ChannelCount(comm.transport) if kind in ("mp", "tcp")
+               else None)
     win = Window.allocate(comm, size, info={
         "alloc_type": "storage",
         "storage_alloc_filename": str(directory / "shards.bin")})
@@ -2279,7 +2321,7 @@ def run_shards(cfg, comm, *, device, directory: Path, seed: int = 0,
                       f"7b {kind} rank {r}: kernels not launched: {rec}")
             if channel is not None:
                 check(channel.ops == [(r, "wsync")],
-                      f"7b rank {r}: control messages {channel.ops}")
+                      f"7b {kind} rank {r}: control messages {channel.ops}")
             out["ranks"].append(rec)
         wire1 = comm.transport.wire_stats_snapshot()
         out["wire"] = {k: wire1[k] - wire0[k] for k in wire1}
@@ -2363,26 +2405,67 @@ def same_files(a: Path, b: Path) -> list[str]:
     return names
 
 
-def _over_worlds(cfg, dev, worlds: dict, directory: Path, dht: dict,
-                 mr: dict, log) -> dict:
-    """Phases 7b-7d in each of ``worlds`` (``inproc``, ``mp``): the same
-    flushed bytes, items and results, and byte-identical files."""
-    out = {}
+def sanitized_world(size: int, kind: str):
+    """A communicator over ``kind`` built with ``REPRO_SANITIZE=1``: its
+    transport is wrapped in the runtime RMA sanitizer (raise mode)."""
+    from repro_torch.core import Communicator
+    before = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        return Communicator(size, transport=kind)
+    finally:
+        if before is None:
+            del os.environ["REPRO_SANITIZE"]
+        else:
+            os.environ["REPRO_SANITIZE"] = before
+
+
+def shards_over_worlds(cfg, dev, worlds: dict, directory: Path,
+                       log=print) -> dict:
+    """Phase 7b in each of ``worlds`` (``inproc``, ``mp`` and ``tcp``, the
+    last built by :func:`sanitized_world`): the same flushed bytes and
+    byte-identical files, and a tcp world whose sanitizer found nothing.
+    ``launches`` counts B1/B2 in the inproc and mp worlds, ``tcp_launches``
+    in the tcp world."""
+    from repro_torch.analysis import WindowSanitizer, sanitize_report
     runs = {}
     for kind, comm in worlds.items():
         d = directory / f"shards_{kind}"
         d.mkdir(parents=True)
         runs[kind] = run_shards(cfg, comm, device=dev, directory=d, log=log)
     files = same_files(directory / "shards_inproc", directory / "shards_mp")
-    check([r["flushed_bytes"] for r in runs["mp"]["ranks"]]
-          == [r["flushed_bytes"] for r in runs["inproc"]["ranks"]],
-          "7b: flushed bytes differ between inproc and mp")
-    out["7b"] = {"files_identical": files, **runs}
-    out["7b"]["launches"] = {
-        name: sum(rec[f"{name}_launches"] for r in runs.values()
-                  for rec in r["ranks"])
-        for name in ("dirty_diff", "diff_pack")}
+    check(same_files(directory / "shards_inproc", directory / "shards_tcp")
+          == files, "7b: the tcp world wrote other files")
+    for kind in ("mp", "tcp"):
+        check([r["flushed_bytes"] for r in runs[kind]["ranks"]]
+              == [r["flushed_bytes"] for r in runs["inproc"]["ranks"]],
+              f"7b: flushed bytes differ between inproc and {kind}")
+    tcp = worlds["tcp"].transport
+    check(isinstance(tcp, WindowSanitizer),
+          "7b: the tcp world is not sanitized")
+    report = sanitize_report()
+    check(tcp.findings == [] and report["gates_passed"],
+          f"7b: the sanitizer found {report['findings']}")
+    out = {"files_identical": files, **runs,
+           "tcp_sanitizer": {"findings": len(report["findings"]),
+                             "gates_passed": report["gates_passed"]}}
+    for key, kinds in (("launches", ("inproc", "mp")),
+                       ("tcp_launches", ("tcp",))):
+        out[key] = {name: sum(rec[f"{name}_launches"] for k in kinds
+                              for rec in runs[k]["ranks"])
+                    for name in ("dirty_diff", "diff_pack")}
+    return out
+
+
+def _over_worlds(cfg, dev, worlds: dict, directory: Path, dht: dict,
+                 mr: dict, log) -> dict:
+    """Phases 7b-7d: 7b in each of ``worlds`` (:func:`shards_over_worlds`),
+    7c and 7d in its ``inproc`` and ``mp`` worlds (tcp would pay a round
+    trip an insert): the same items and results, and byte-identical
+    files."""
+    out = {"7b": shards_over_worlds(cfg, dev, worlds, directory, log)}
     shutil.rmtree(directory)
+    worlds = {kind: worlds[kind] for kind in ("inproc", "mp")}
     runs = {}
     for kind, comm in worlds.items():
         d = directory / f"dht_{kind}"
@@ -2411,8 +2494,9 @@ def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
 
     7a runs phase 2's main path with the storage window owned by a spawned
     worker (``Communicator(1, transport="mp")``); 7b sends each of three
-    groups of the masters to the rank (1-3) that owns it under mp and
-    under inproc, whose files must be byte-identical; 7c and 7d run the
+    groups of the masters to the rank (1-3) that owns it under inproc, mp
+    and tcp (a loopback fleet with the sanitizer on), whose files must be
+    byte-identical; 7c and 7d run the
     paper's DHT and MapReduce under inproc and mp, with the same items,
     results and files.  ``phase2`` is phase 2's result (its per-sync
     times are printed beside 7a's); everything is written under
@@ -2448,12 +2532,14 @@ def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
                          for r, p in zip(a["records"], phase2["records"])]}
         mark("7a")
         shutil.rmtree(directory)  # free the 6 GB window file before 7b
-        # 7b-7d: one 4-rank world per transport; the mp world's workers
-        # start once (each also imports this script's modules)
+        # 7b-7d: one 4-rank world per transport, whose workers start once
         t0 = time.perf_counter()
         worlds = {"inproc": Communicator(4),
                   "mp": Communicator(4, transport="mp")}
         mp_world_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        worlds["tcp"] = sanitized_world(4, "tcp")
+        tcp_world_s = time.perf_counter() - t0
         try:
             out.update(_over_worlds(cfg, dev, worlds, directory, dht, mr,
                                     log))
@@ -2461,6 +2547,7 @@ def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
             for comm in worlds.values():
                 comm.close()
         out["7b"]["mp_world_s"] = mp_world_s
+        out["7b"]["tcp_world_s"] = tcp_world_s
         mark("7b-7d")
     finally:
         shutil.rmtree(directory, ignore_errors=True)
@@ -2789,6 +2876,132 @@ def replicated_phase(cfg, dev, shards7b: dict, directory: Path, *,
     return out
 
 
+# -- phase 10: SPMD training, every rank an origin on the card ----------------
+
+SPMD_DIR = WORKDIR / "spmd"
+# launch/spmd_train_resume.py's drill with each rank's Trainer on the card:
+# phase 6b's config and shape (mamba2-2.7b at full widths, depth 64 -> 2,
+# TRAIN's train_4k cut to one card, one microbatch a step), two ranks on
+# one card.  Job 1 takes 4 steps with a checkpoint every 2, rank 1 is
+# SIGKILLed once its first manifest commits and respawned; job 2 runs the
+# whole job again to 6 steps.  Not internlm2-1.8b: phase 6 peaked at 39.25
+# GB of host memory, and two such ranks would pass half of the card host's
+# 96 GB
+SPMD = dict(arch="mamba2-2.7b", n_layers=2, nranks=2, victim=1,
+            steps=(4, 6), microbatches=1)
+# the phase's host memory, launcher and ranks together: half the host.
+# Reckoned before the phase from the checkpoint tree (params, m and v in
+# float32) at phase 6's measured ratio of a training process's peak host
+# memory to its tree (39.25 GB over 6.06 GB on an H100 host), a rank,
+# plus the launcher's resident set; measured by PeakRss on every process
+SPMD_HOST_LIMIT = 48_000_000_000
+SPMD_TREE_COPIES = 6.5
+
+
+def spmd_config(smoke: bool = False):
+    """Phase 10's config: SPMD's arch at full widths with its depth cut
+    (``smoke``: the smoke config, as tests/test_torch_slice.py runs it)."""
+    from repro_torch.configs import get_config
+    if smoke:
+        return get_config(SPMD["arch"], smoke=True)
+    return dataclasses.replace(get_config(SPMD["arch"]),
+                               n_layers=SPMD["n_layers"])
+
+
+def spmd_phase(dev, *, directory: Path = SPMD_DIR, seq: int | None = None,
+               batch: int = TRAIN["batch"], smoke: bool = False,
+               log=print) -> dict:
+    """Phase 10: ``repro_torch.launch.spmd_train_resume.run`` with every
+    rank's Trainer on ``dev``.  The drill checks that the respawned rank
+    resumes at its first checkpoint, that job 2 resumes every rank at job
+    1's last step, that the launcher issued no data-path operation, and
+    that the ranks end with equal final losses and newest checkpoint
+    partitions, bit for bit.  Here: the host memory reckoned first and
+    held under SPMD_HOST_LIMIT, measured on the launcher and every rank
+    process; finite losses; ranks on ``dev``; no kernel launched in any
+    rank (the training path runs none)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import spmd_train_resume as drill
+    from repro_torch.models import param_specs
+    cfg = spmd_config(smoke)
+    seq = seq or SHAPES[TRAIN["shape"]].seq
+    nranks = SPMD["nranks"]
+    nparams = sum(int(np.prod(s.shape)) for s in param_specs(cfg).values())
+    tree_bytes = 12 * nparams
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    launcher_rss = PeakRss().rss()
+    reckoned = launcher_rss + nranks * int(SPMD_TREE_COPIES * tree_bytes)
+    log(f"phase 10, {cfg.name}, reduced: n_layers "
+        f"{get_config(SPMD['arch']).n_layers}->{cfg.n_layers} ({nparams} "
+        f"parameters, a {tree_bytes} B checkpoint tree a rank); {nranks} "
+        f"SPMD ranks on {dev.type}, seq {seq}, {batch} sequences x "
+        f"{SPMD['microbatches']} microbatch a step, steps {SPMD['steps']}; "
+        f"host memory reckoned {reckoned} B (launcher {launcher_rss} B "
+        f"now), limit {SPMD_HOST_LIMIT}")
+    check(reckoned <= SPMD_HOST_LIMIT,
+          f"phase 10 would take {reckoned} B of host memory")
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    over = dict(arch=SPMD["arch"], smoke=smoke, batch=batch, seq=seq,
+                microbatches=SPMD["microbatches"])
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    ranks: list[tuple[int, int, PeakRss]] = []
+
+    def on_spawn(rank, pid):
+        job = 1 if len(ranks) <= nranks else 2  # job 1: its ranks, respawn
+        ranks.append((job, rank, PeakRss(pid=pid).__enter__()))
+
+    try:
+        with PeakRss() as rss:
+            out = drill.run(
+                drill.train_opts(SPMD["steps"][0], str(directory), device,
+                                 **over),
+                drill.train_opts(SPMD["steps"][1], str(directory), device,
+                                 **over),
+                nranks=nranks, victim=SPMD["victim"],
+                n_layers=None if smoke else SPMD["n_layers"],
+                log=lambda m: log("10 " + m), on_spawn=on_spawn)
+    finally:
+        for _, _, r in ranks:
+            r.__exit__(None, None, None)
+        shutil.rmtree(directory, ignore_errors=True)
+    peaks = {}
+    for job, rank, r in ranks:  # a respawn is not alive beside its victim
+        peaks.setdefault(job, {})[rank] = max(
+            peaks.get(job, {}).get(rank, 0), r.peak)
+    host = {"reckoned_bytes": reckoned, "launcher_start_bytes": rss.start,
+            "launcher_peak_bytes": rss.peak,
+            "rank_peak_bytes": [[r.peak for j, _, r in ranks if j == job]
+                                for job in (1, 2)],
+            "sum_of_peaks_bytes": max(rss.peak + sum(p.values())
+                                      for p in peaks.values())}
+    check(host["sum_of_peaks_bytes"] <= SPMD_HOST_LIMIT,
+          f"phase 10 took {host['sum_of_peaks_bytes']} B of host memory")
+    results = out["job1"] + out["job2"]
+    check(all(math.isfinite(x) for res in results for x in res["losses"]),
+          "phase 10: a loss is not finite")
+    check(all(res["device"].startswith(device) for res in results),
+          f"phase 10: a rank trained off {device}: "
+          f"{[res['device'] for res in results]}")
+    launches = {}
+    for res in results:
+        for name, n in res["kernel_launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    check(not any(launches.values()),
+          f"phase 10's training launched a kernel: {launches}")
+    return {"nparams": nparams, "tree_bytes": tree_bytes, "seq": seq,
+            "host": host, "kernel_launches": launches,
+            **{k: out[k] for k in ("spawn_s", "respawn_s", "job1_s",
+                                   "job2_s", "job1_data_ops",
+                                   "job2_data_ops")},
+            "ranks": {job: [{k: res.get(k) for k in (
+                "rank", "first_step", "resumed_from", "steps_run",
+                "final_loss", "step_s", "restore_ms", "peak_device_bytes")}
+                for res in out[job]] for job in ("job1", "job2")}}
+
+
 # -- measurements ----------------------------------------------------------------
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -2965,10 +3178,11 @@ def main() -> int:
     # at 64 layers they spread 0.022-0.030 over CONSISTENCY_SEEDS on an
     # H100, every one above phase 3's 0.02, while the float32 gate reads
     # about 3e-6 (PERF.md); the gate holds the cache and the scan.  The
-    # readings at 4 (the gate's depth) and 24 layers show how they grow
-    # with depth in bf16
+    # readings at 4 layers (the gate's depth) show how they grow with
+    # depth in bf16 (24 layers were read too, 0.015-0.019, until phase 10
+    # came: cut for the time limit)
     ssm = serving_phase("mamba2-2.7b", dev, consistency_limit=None,
-                        depths=(F32_LAYERS, 24))
+                        depths=(F32_LAYERS,))
     print(f"serve mamba2 ({card}): " + json.dumps(
         {k: v for k, v in ssm.items() if k not in ("tokens", "step_ms")}))
     print("serve mamba2 tokens (request 0, first 16): "
@@ -3084,7 +3298,8 @@ def main() -> int:
           f"more than {MP_HOST_LIMIT} over its start: {rss.marks}")
     print(f"mp 7a, the main path into a worker-owned window, beside phase "
           f"2's inproc numbers ({card}): " + json.dumps(mp["7a"]))
-    print(f"mp 7b, ranks 1-3 as targets ({card}): " + json.dumps(mp["7b"]))
+    print(f"mp 7b, ranks 1-3 as targets under inproc, mp and a sanitized "
+          f"tcp fleet ({card}): " + json.dumps(mp["7b"]))
     print(f"mp 7c, DHT ({card}): " + json.dumps(mp["7c"]))
     print(f"mp 7d, MapReduce ({card}): " + json.dumps(mp["7d"]))
     marks.append(time.perf_counter())
@@ -3105,11 +3320,13 @@ def main() -> int:
           + json.dumps(rep["8b"]))
     print(f"rep 8c, a checkpoint restored with its owner dead ({card}): "
           + json.dumps(rep["8c"]))
-    # B1/B2 run on four paths: phase 2, 7a, 7b and 8a, each counted from 0
+    # B1/B2 run on five paths: phase 2, 7a, 7b (inproc and mp; tcp) and
+    # 8a, each counted from 0
     for row in kernels[:2]:
         by_phase = {"2": launches[row["name"]],
                     "7a": mp["7a"]["launches"][row["name"]],
                     "7b": mp["7b"]["launches"][row["name"]],
+                    "7b tcp": mp["7b"]["tcp_launches"][row["name"]],
                     "8a": rep["8a"]["launches"][row["name"]]}
         check(all(by_phase.values()),
               f"{row['name']} never launched on a path: {by_phase}")
@@ -3174,6 +3391,14 @@ def main() -> int:
             for arch, (shape, dv) in ATTN_NEW.items()}
     marks.append(time.perf_counter())
 
+    # phase 10: SPMD training, two ranks on the card, each an origin; the
+    # ranks count their own kernel launches (the training path runs none)
+    spmd = spmd_phase(dev)
+    print(f"spmd 10, two ranks training on the card, a rank killed and "
+          f"respawned, the whole job restarted ({card}): "
+          + json.dumps(spmd))
+    marks.append(time.perf_counter())
+
     # B3-B5 run in the serving phases' prefills (and float32 gates)
     for row in kernels[2:]:
         name, path = row["name"], ("float32_launches" if row["name"].endswith(
@@ -3188,11 +3413,12 @@ def main() -> int:
         row["launches_by_phase"].update(
             {ph: out["kernel_launches"][stem] for ph, out in trained.items()})
         row["launches_by_phase"]["9"] = phase9_launches[stem]
+        row["launches_by_phase"]["10"] = spmd["kernel_launches"].get(stem, 0)
     print("phase walls (s): " + json.dumps(
         {name: round(b - a, 1) for name, a, b in zip(
             ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
              "phase 5", *(f"phase {ph}" for ph in TRAIN_PHASES), "phase 7",
-             "phase 8", "phase 9"), marks, marks[1:])}))
+             "phase 8", "phase 9", "phase 10"), marks, marks[1:])}))
     print(f"command wall (s): {time.perf_counter() - START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

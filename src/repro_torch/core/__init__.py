@@ -28,8 +28,9 @@ The names that need ``torch`` (the window layer and what builds on it) are
 imported lazily, on first use: an ``mp`` worker process imports this
 package on its way to its entry point and must stay free of ``torch``.
 
-Not ported yet (ROADMAP.md queue A): the tcp transport and SPMD launch,
-and the sanitizer.
+The tcp fabric and the SPMD launcher (every rank an origin) live in
+``repro_torch.core.transport.tcp`` and ``.spmd``; the runtime RMA sanitizer
+(``REPRO_SANITIZE=1``) in ``repro_torch.analysis``.
 """
 
 from .comm import Communicator

@@ -77,7 +77,10 @@ class Communicator:
         .RankLocalTransport``), materializing only its own window
         partitions with the shared on-disk naming.  Requesting the
         (driver-only, world-spawning) ``mp`` transport from a nonzero rank
-        raises.
+        raises.  ``REPRO_TRANSPORT=tcp`` with a roster (``REPRO_HOSTS`` or
+        ``REPRO_RENDEZVOUS``) joins that fleet as rank ``REPRO_RANK``
+        (``TcpPeerTransport``, every rank an origin); without one, rank 0
+        spawns a loopback fleet.
         """
         size = nranks if nranks is not None else env_nranks(default_size)
         return cls(size, rank=env_rank(0), transport=transport)

@@ -1,8 +1,8 @@
 """Pluggable transports for MPI-style windows.
 
 ``Window``/``Communicator`` never talk to segments or processes directly --
-they go through a :class:`Transport`.  This package carries three backends
-of the JAX package's matrix (``repro.core.transport``):
+they go through a :class:`Transport`.  This package carries the JAX
+package's whole matrix (``repro.core.transport``):
 
 =============  ================================================================
 ``inproc``     every rank in this process (single-controller; the default).
@@ -14,27 +14,50 @@ of the JAX package's matrix (``repro.core.transport``):
                file backings (already cross-process); atomics and storage
                access are serviced by the owner's progress thread over a
                socketpair control channel (passive-target progress), with
-               spans and op trains on the lossless wire codec.  The
-               spawning process is the only origin (driver-origin mode):
-               in this package typically the GPU process, whose device
-               syncs reach each owner as one ``wsync`` message.
+               spans and op trains on the lossless wire codec.
                *Bootstrap:* driver spawns the fleet (driver-only,
                ``REPRO_RANK=0``).  *Addressing:* inherited pipes.
                *Failure model:* ``probe`` (process liveness + ping),
                ``kill_rank`` for drills, ``respawn_rank`` replaces dead
                workers; un-synced page-cache bytes die with the worker,
-               synced ones restore under any backend.  Single-host.
+               synced ones restore under any backend.  Single-host.  Two
+               origin modes share this transport: *driver-origin* (the
+               spawning process issues all application ops -- in this
+               package typically the GPU process, whose device syncs
+               reach each owner as one ``wsync`` message -- and workers
+               are passive targets) and *SPMD program execution*
+               (:class:`~repro_torch.core.transport.spmd.SpmdLauncher`
+               ships an entry point and every rank becomes an origin over
+               its own rank-local transport view, peers dialed over
+               authenticated AF_UNIX sockets; the driver shrinks to a
+               launcher/monitor issuing zero data-path ops).
 ``ranklocal``  one externally-launched process *is* one rank: windows
                materialize only this rank's partition (peers are ``None``),
                collectives are rank-local no-ops, but file naming matches
                the other transports exactly, so n such processes produce
                one driver-origin-identical on-disk layout.  Host-agnostic
                (ranks never talk).
+``tcp``        the inter-host fabric: every ``Transport`` primitive rides a
+               framed TCP control channel (length-prefixed frames, payload
+               bytes never pickled), memory windows live in the owning
+               rank's address space, storage windows keep the
+               byte-identical file layout -- crash on one host, recover on
+               another (or under ``mp``/``inproc``).  *Bootstrap:* with a
+               ``REPRO_HOSTS``/``REPRO_RENDEZVOUS`` roster each
+               externally-launched process joins as rank ``REPRO_RANK``
+               of the fleet (:class:`~repro_torch.core.transport.tcp
+               .TcpPeerTransport`, SPMD across machines); without one,
+               rank 0 spawns a loopback fleet
+               (:class:`~repro_torch.core.transport.tcp.TcpTransport`,
+               driver-origin -- the CI/conformance configuration).
+               *Addressing:* ``host:port`` per rank, lazy-dialed,
+               HMAC-authenticated, retry-with-backoff redial to respawned
+               peers, hung replies poisoned after ``REPRO_TCP_TIMEOUT``.
+               *Failure model:* ``probe`` ping, ``respawn_rank`` spawns a
+               replacement (spawned mode) or waits for the external
+               launcher to rebind the address (joined mode); replicated
+               storage windows fail over across hosts.  Multi-host.
 =============  ================================================================
-
-``tcp`` (the inter-host fabric) and the mp transport's SPMD program
-execution mode are recognised and raise :class:`NotImplementedError`
-naming the ROADMAP item that ports them (queue A: A1's tcp/spmd rest, A14).
 
 Rank-symmetric bootstrap contract
 ---------------------------------
@@ -45,22 +68,31 @@ Every process -- driver or worker -- resolves its identity the same way:
   Explicit arguments (``Communicator(n, transport=...)``,
   ``make_transport(kind=...)``) always beat the environment.
 * ``REPRO_RANK=0`` (or unset) may assume driver identity: it is the only
-  rank allowed to *spawn* (the mp transport's workers).
+  rank allowed to *spawn* (the mp transport's workers, a loopback tcp
+  fleet, or an :class:`~repro_torch.core.transport.spmd.SpmdLauncher`
+  fleet under ``python -m repro_torch.launch.train --spmd``).
 * ``REPRO_RANK>0`` means some external launcher already placed this
   process as a worker rank: ``Communicator.from_env`` then returns a
   rank-local view (``ranklocal``) instead of assuming driver identity --
   requesting ``mp`` with a nonzero rank is an error, since that transport
-  spawns a fresh world instead of joining one.
+  spawns a fresh world instead of joining one.  Requesting ``tcp`` with a
+  nonzero rank requires a roster (``REPRO_HOSTS`` or
+  ``REPRO_RENDEZVOUS``) to join.
+* Under ``--spmd`` the launcher ships the entry point to spawned ranks,
+  which build their own :class:`Communicator` over an internal per-rank
+  transport; application code sees the same API in every mode.
 
-The on-disk layout (``<file>.<rank>`` naming, offsets) is byte-identical
-across all of the above and to the JAX package's, so window files written
-by either package under any backend restore under any other.
+The on-disk layout (``<file>.<rank>`` naming, offsets, replica naming) is
+byte-identical across all of the above and to the JAX package's, so window
+files written by either package under any backend restore under any other
+-- including across hosts via ``tcp``.
 
-Timeout knobs (``REPRO_MP_TIMEOUT``, ``REPRO_MP_PROBE_TIMEOUT``) resolve
-through :func:`repro_torch.core.transport.base.env_timeout_s`; see
+Timeout/retry knobs (``REPRO_MP_TIMEOUT``, ``REPRO_TCP_TIMEOUT``, ...)
+resolve through :func:`repro_torch.core.transport.base.env_timeout_s`; see
 :data:`repro_torch.core.transport.base.ENV_TIMEOUTS` for the documented
-defaults.  ``REPRO_SANITIZE`` (the runtime RMA sanitizer) is not honoured
-yet; it is a ROADMAP item of its own (A4).
+defaults.  ``REPRO_SANITIZE=1`` wraps every transport
+:func:`make_transport` builds in the runtime RMA sanitizer
+(:class:`repro_torch.analysis.sanitizer.WindowSanitizer`).
 """
 
 from __future__ import annotations
@@ -71,7 +103,8 @@ from .base import ENV_TIMEOUTS, Transport, TransportError, env_timeout_s
 from .local import InprocTransport, RankLocalTransport
 
 __all__ = ["Transport", "TransportError", "InprocTransport",
-           "RankLocalTransport", "MultiprocessTransport", "ENV_TIMEOUTS",
+           "RankLocalTransport", "MultiprocessTransport", "SpmdLauncher",
+           "TcpTransport", "TcpPeerTransport", "ENV_TIMEOUTS",
            "env_timeout_s", "make_transport", "env_transport_kind",
            "env_nranks", "env_rank", "env_hosts"]
 
@@ -80,11 +113,20 @@ TRANSPORT_KINDS = ("inproc", "mp", "ranklocal", "tcp")
 
 
 def __getattr__(name):
-    # lazy: importing the mp backend pulls in multiprocessing machinery the
-    # common in-process path never needs
+    # lazy: importing the mp/spmd/tcp backends pulls in multiprocessing
+    # and socket machinery the common in-process path never needs
     if name == "MultiprocessTransport":
         from .multiproc import MultiprocessTransport
         return MultiprocessTransport
+    if name == "SpmdLauncher":
+        from .spmd import SpmdLauncher
+        return SpmdLauncher
+    if name == "TcpTransport":
+        from .tcp import TcpTransport
+        return TcpTransport
+    if name == "TcpPeerTransport":
+        from .tcp import TcpPeerTransport
+        return TcpPeerTransport
     raise AttributeError(name)
 
 
@@ -110,8 +152,7 @@ def env_hosts() -> list[str] | None:
     per line (blank lines and ``#`` comments ignored) -- the file form is
     the rendezvous for launchers that materialize the roster after
     scheduling.  ``REPRO_HOSTS`` wins when both are set.  Returns ``None``
-    when neither is set.  (The roster's parsing is the JAX package's; the
-    tcp backend that joins it is not ported yet.)
+    when neither is set.
     """
     raw = os.environ.get("REPRO_HOSTS", "").strip()
     if raw:
@@ -136,10 +177,26 @@ def make_transport(size: int, rank: int = 0,
     Enforces the rank-symmetric bootstrap contract: a nonzero ``rank``
     never assumes driver identity -- ``inproc``/``mp`` requests from a
     worker-placed process resolve to (or reject toward) the rank-local
-    view instead of spawning a second world.  ``tcp`` raises
-    :class:`NotImplementedError` naming the ROADMAP item that ports it,
-    never a silent fallback to another backend.
+    view instead of spawning a second world, and ``tcp`` requests join
+    the roster fleet (``REPRO_HOSTS``/``REPRO_RENDEZVOUS``) when one is
+    named, else rank 0 spawns a loopback fleet.
+
+    ``REPRO_SANITIZE=1`` wraps the built backend in the runtime RMA
+    sanitizer (:class:`repro_torch.analysis.sanitizer.WindowSanitizer`).
     """
+    return _maybe_sanitize(_make_transport(size, rank, kind))
+
+
+def _maybe_sanitize(transport: Transport) -> Transport:
+    if os.environ.get("REPRO_SANITIZE", "").strip().lower() in (
+            "1", "true", "yes", "on"):
+        from ...analysis.sanitizer import maybe_sanitize
+        return maybe_sanitize(transport)
+    return transport
+
+
+def _make_transport(size: int, rank: int = 0,
+                    kind: str | None = None) -> Transport:
     kind = (kind or env_transport_kind()).strip().lower()
     if kind == "inproc":
         if rank != 0:
@@ -154,14 +211,24 @@ def make_transport(size: int, rank: int = 0,
             raise ValueError(
                 "the mp transport spawns a fresh worker world and is "
                 "driver-only (REPRO_RANK=0); externally-launched worker "
-                "ranks use REPRO_TRANSPORT=ranklocal")
+                "ranks use REPRO_TRANSPORT=ranklocal (or tcp with a "
+                "REPRO_HOSTS roster), SPMD jobs use --spmd")
         from .multiproc import MultiprocessTransport
         return MultiprocessTransport(size, rank)
     if kind == "tcp":
-        raise NotImplementedError(
-            "transport 'tcp' is not ported to repro_torch yet: see "
-            "ROADMAP.md queue A, A1's tcp/spmd rest (the inter-host "
-            "fabric; mp, ranklocal and inproc are ported)")
+        hosts = env_hosts()
+        if hosts is not None:
+            from .tcp import TcpPeerTransport
+            return TcpPeerTransport(size, rank, hosts)
+        if rank != 0:
+            raise ValueError(
+                "tcp transport with REPRO_RANK>0 needs a fleet roster to "
+                "join: set REPRO_HOSTS to a comma-separated host:port "
+                "list (index = rank, length = REPRO_NRANKS) or "
+                "REPRO_RENDEZVOUS to a roster file; only REPRO_RANK=0 "
+                "may spawn a loopback fleet")
+        from .tcp import TcpTransport
+        return TcpTransport(size, rank)
     raise ValueError(
         f"unknown transport {kind!r}: REPRO_TRANSPORT (or the explicit "
         f"kind argument) must be one of {', '.join(TRANSPORT_KINDS)}; "

@@ -29,9 +29,8 @@ module defines that boundary: a :class:`Transport` owns
 * **collectives** -- ``barrier``, ``allreduce``, ``bcast``, ``split``.
 
 :class:`~repro_torch.core.window.Window` programs exclusively against this
-interface; swapping ``InprocTransport`` for ``MultiprocessTransport`` (or
-the TCP backend, a later slice of this package, see ROADMAP) changes no
-window, DHT, MapReduce or checkpoint code.
+interface; swapping ``InprocTransport`` for ``MultiprocessTransport`` or
+the tcp backends changes no window, DHT, MapReduce or checkpoint code.
 
 Batched op wire form
 --------------------
@@ -86,21 +85,34 @@ class TransportError(RuntimeError):
 #: Every transport timeout env knob of this package, with its default
 #: (seconds).  All backends resolve these through :func:`env_timeout_s` --
 #: one table to read, one table to document -- instead of scattered
-#: ``os.environ`` lookups.  The names and defaults are the JAX package's;
-#: the tcp backend's knobs arrive with that backend:
+#: ``os.environ`` lookups.  The names and defaults are the JAX package's:
 #:
 #: ==========================  =======  ===================================
 #: knob                        default  governs
 #: ==========================  =======  ===================================
-#: REPRO_MP_TIMEOUT            120      mp control-channel reply wait
+#: REPRO_MP_TIMEOUT            120      mp/spmd control-channel reply wait
 #:                                      (0 disables; on expiry the channel
 #:                                      is poisoned -- its reply stream is
 #:                                      off by one)
-#: REPRO_MP_PROBE_TIMEOUT      5        mp liveness-ping reply wait
+#: REPRO_MP_PROBE_TIMEOUT      5        mp/spmd liveness-ping reply wait
+#: REPRO_TCP_TIMEOUT           120      tcp control-channel reply wait
+#:                                      (0 disables; expiry poisons the
+#:                                      connection the same way)
+#: REPRO_TCP_PROBE_TIMEOUT     5        tcp liveness-ping reply wait
+#: REPRO_TCP_CONNECT_TIMEOUT   10       total tcp dial budget, including
+#:                                      retry-with-backoff redials to a
+#:                                      peer that is still binding (fleet
+#:                                      startup skew) or respawning
+#: REPRO_TCP_RETRY_BACKOFF     0.05     initial tcp redial backoff
+#:                                      (doubles per retry, capped at 1s)
 #: ==========================  =======  ===================================
 ENV_TIMEOUTS = {
     "REPRO_MP_TIMEOUT": 120.0,
     "REPRO_MP_PROBE_TIMEOUT": 5.0,
+    "REPRO_TCP_TIMEOUT": 120.0,
+    "REPRO_TCP_PROBE_TIMEOUT": 5.0,
+    "REPRO_TCP_CONNECT_TIMEOUT": 10.0,
+    "REPRO_TCP_RETRY_BACKOFF": 0.05,
 }
 
 
@@ -386,17 +398,29 @@ class Transport(abc.ABC):
                 f"probe rank {rank} outside transport of size {self.size}")
         return True
 
+    #: does every op from this origin to one target ride a single FIFO
+    #: channel, so a later op is applied at the target strictly after
+    #: every earlier (even posted/notified) op?  Every backend of this
+    #: package guarantees this ("channel-FIFO completion": one conn/socket
+    #: per rank, served in receive order) -- it is what makes a blocking
+    #: ``get`` after a waited ``rput`` train well-defined without a
+    #: flush.  The portable-MPI assumption is False (an RDMA fabric may
+    #: reorder), and the runtime sanitizer checks same-epoch data
+    #: hazards only where this is False (or REPRO_SANITIZE_PORTABLE=1
+    #: forces the portable model).
+    ordered_channels = False
+
     def kill_rank(self, rank: int, timeout: float = 10.0) -> None:
         """SIGKILL ``rank``'s worker (fault injection for failure drills).
 
         The public alternative to reaching into backend privates:
-        process-backed transports (mp) kill and join the worker; backends
-        with no killable worker process refuse.
+        process-backed transports (mp, tcp) kill and join the worker;
+        backends with no killable worker process refuse.
         """
         raise TransportError(
             f"{self.kind} transport has no worker process to kill "
             f"(rank {rank}); fault injection needs a process-backed "
-            "transport (mp)")
+            "transport (mp, tcp)")
 
     # -- one-sided data movement ------------------------------------------
     def put(self, seg, offset: int, data: np.ndarray) -> None:

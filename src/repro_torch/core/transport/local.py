@@ -130,6 +130,7 @@ class InprocTransport(Transport):
     """All ranks in one process; segments are direct local objects."""
 
     kind = "inproc"
+    ordered_channels = True  # synchronous calls: trivially ordered
 
     def allocate_segments(self, size: int, hints, spec: dict) -> list:
         return [_make_segment(size, hints, r, self.size, **spec)

@@ -24,11 +24,11 @@ control channel -- a ``multiprocessing.Pipe(duplex=True)``, which on Unix
 is a ``socket.socketpair()``.  The target application never has to enter
 MPI calls for an origin to make progress, the property Schuchart et al.
 ("Quo Vadis MPI RMA?") identify as the precondition for one-sided
-semantics to pay off.  The worker's main thread only joins the progress
-thread (driver-origin mode: the spawning process issues every application
-op, the workers are passive targets).  The JAX package's second mode,
-*program execution* (an SPMD launcher ships an entry point and every rank
-becomes an origin), is not ported yet: ROADMAP queue A, A14.
+semantics to pay off.  In the default driver-origin mode the worker's
+main thread only joins the progress thread; in *program-execution* mode
+(:mod:`repro_torch.core.transport.spmd`) the main thread runs the
+application itself while the same :class:`_SegmentService` answers peer
+origins beside it -- every rank both issues and services one-sided traffic.
 
 This is the JAX package's ``repro.core.transport.multiproc``, message for
 message: the same control-channel vocabulary, the same wire codec
@@ -65,6 +65,7 @@ import os
 import struct
 import threading
 import time
+from multiprocessing import connection as mpc
 from multiprocessing.reduction import ForkingPickler
 
 import numpy as np
@@ -110,8 +111,13 @@ def _send(conn, obj) -> None:
 
     Same framing as :class:`multiprocessing.connection.Connection` (a
     ``!i`` length, or ``-1`` and a ``!Q`` length past 2 GiB, then the
-    pickle), so either side may use the stock ``send``/``recv``.
+    pickle), so either side may use the stock ``send``/``recv``.  Any
+    other connection object (the tcp fabric's framed sockets) frames its
+    own messages: its ``send`` is called.
     """
+    if not isinstance(conn, mpc.Connection):
+        conn.send(obj)
+        return
     buf = memoryview(ForkingPickler.dumps(obj))
     n = buf.nbytes
     hdr = (struct.pack("!i", n) if n <= 0x7FFFFFFF
@@ -143,8 +149,11 @@ def _recv(conn):
     ``Connection.recv`` reads a message with reads that each ask for (and
     allocate) every byte still missing; on the H100's host a message of
     hundreds of MB then crawls (``scripts/time_channel.py`` times both
-    ways; PERF.md has the numbers).
+    ways; PERF.md has the numbers).  Other connection objects read their
+    own frames, as in :func:`_send`.
     """
+    if not isinstance(conn, mpc.Connection):
+        return conn.recv()
     fd = conn.fileno()
     n, = struct.unpack("!i", _read_exact(fd, 4))
     if n == -1:
@@ -454,15 +463,22 @@ def _seg_meta(seg) -> dict:
 class _SegmentService:
     """A rank's segment registry plus the target-side op interpreter.
 
-    :func:`_serve` wraps it -- one progress thread, one channel, requests
-    interpreted in FIFO order.  :meth:`execute` serializes on the service
-    lock all the same, so target-side atomics stay atomic with respect to
-    every thread that reaches the service (the JAX package's SPMD and tcp
-    modes share one service across several server threads).
+    Driver mode wraps it in :func:`_serve` -- one progress thread, one
+    channel, requests interpreted in FIFO order.  SPMD and tcp modes share
+    one service across several server threads (the driver control channel
+    plus one per connected peer origin), so :meth:`execute` serializes on
+    the service lock: target-side atomics stay atomic with respect to
+    *every* origin process, exactly as the single progress thread
+    guaranteed.
     """
 
-    def __init__(self, rank: int):
+    def __init__(self, rank: int, use_shm: bool = True):
         self.rank = rank
+        #: memory-window backing: shared-memory mappings the driver can view
+        #: zero-copy (mp/spmd, same host) vs. plain process-private buffers
+        #: served over the control channel (tcp: peers are on other hosts,
+        #: there is nothing to map)
+        self.use_shm = use_shm
         self.segments: dict[object, object] = {}
         self.lock = threading.RLock()
 
@@ -483,9 +499,15 @@ class _SegmentService:
         with self.lock:
             if op == "alloc":
                 _, win_id, size, hints_kw, name_rank, name_nranks, spec = msg
+                if win_id in self.segments:
+                    # idempotent: under SPMD every origin rank requests the
+                    # same deterministic win_id for a shared (e.g. replica)
+                    # segment -- the holder materializes it exactly once
+                    return _seg_meta(self.segments[win_id])
                 hints = WindowHints(**hints_kw)
                 if not hints.is_storage:
-                    seg = _ShmBuf(size, create=True)
+                    seg = (_ShmBuf(size, create=True) if self.use_shm
+                           else _MemorySegment(size))
                 else:
                     seg = _make_segment(size, hints, name_rank,
                                         name_nranks, **spec)
@@ -573,16 +595,18 @@ class _SegmentService:
                 return np.asarray(msg[1])
             if op == "bcast":
                 # driver-origin delivery: ack with the value -- the round
-                # trip through the rank's process is the delivery
+                # trip through the rank's process is the delivery.  SPMD
+                # ranks never see this op; their collectives run through
+                # the launcher's coordinator (see transport/spmd.py).
                 return msg[1]
             raise TransportError(f"unknown transport op {op!r}")
 
-    def serve_conn(self, conn, *, ready=None) -> None:
+    def serve_conn(self, conn, *, ready=None, handlers=None) -> None:
         """Service one origin's control channel until shutdown or EOF.
 
         ``ping`` is answered without taking the service lock: a probe must
-        report "alive" even while another thread holds the lock through a
-        long storage sync.
+        report "alive" even while another origin (or the local application
+        thread, under SPMD) holds the lock through a long storage sync.
         **AUDIT EXEMPTION (lock discipline):** this is the one sanctioned
         lock-free path on the service.  It is safe because the ping reply
         reads only ``self.rank`` (immutable after construction) and this
@@ -600,6 +624,12 @@ class _SegmentService:
         back in one reply.  The state is per origin channel, so each
         origin reads exactly the completions -- and errors -- of its own
         posts.
+
+        ``handlers`` extends the op vocabulary for ops that are not
+        segment ops (``{op: callable(msg) -> reply}``, e.g. the tcp
+        fleet's rank-0 collective rounds).  They run *outside* the service
+        lock -- a handler may block waiting on other origins' connections
+        (a collective round) without wedging one-sided traffic.
         """
         nb_count: dict[object, int] = {}
         nb_err: dict[object, BaseException] = {}
@@ -652,7 +682,10 @@ class _SegmentService:
                         f"{payload[1]}"))))
                 continue
             try:
-                reply = self.execute(msg)
+                if handlers is not None and op in handlers:
+                    reply = handlers[op](msg)
+                else:
+                    reply = self.execute(msg)
             except BaseException as e:  # surfaced at the origin's call site
                 try:
                     _send(conn, ("err", e))
@@ -698,14 +731,16 @@ def _worker_main(conn, rank: int, spmd: dict | None = None) -> None:
     joins it, mirroring an MPI implementation's asynchronous progress
     engine running beside the application.
 
-    Program-execution mode (``spmd`` carries a launcher's config) is the
-    JAX package's SPMD launcher, which this package does not port yet.
+    Program-execution mode (``spmd`` carries the launcher's config): the
+    progress engine still runs beside the application -- but now there *is*
+    an application.  The main thread builds a rank-local transport +
+    ``Communicator`` view and calls the shipped entry point; see
+    :mod:`repro_torch.core.transport.spmd`.
     """
     if spmd is not None:
-        raise NotImplementedError(
-            "SPMD program execution is not ported to repro_torch yet: see "
-            "ROADMAP.md queue A, A14 'launch' (the mp transport's "
-            "driver-origin mode is)")
+        from .spmd import _run_spmd_worker
+        _run_spmd_worker(conn, rank, spmd)
+        return
     t = threading.Thread(target=_serve, args=(conn, rank),
                          name=f"repro-progress-{rank}", daemon=True)
     t.start()
@@ -716,6 +751,10 @@ class MultiprocessTransport(Transport):
     """Spawned worker processes, one per rank, driven over socketpairs."""
 
     kind = "mp"
+    # One socketpair per rank served in receive order: channel-FIFO
+    # completion (see test_barrier_ordering / the rput->wait->rget
+    # conformance pipeline).
+    ordered_channels = True
 
     def __init__(self, size: int, rank: int = 0):
         super().__init__(size, rank)
@@ -1056,6 +1095,7 @@ class _MpSubTransport(Transport):
     """
 
     kind = "mp"
+    ordered_channels = True  # delegates to the parent's FIFO channels
 
     def __init__(self, parent: MultiprocessTransport, ranks: list[int]):
         super().__init__(len(ranks))

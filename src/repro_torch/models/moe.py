@@ -19,7 +19,7 @@ any Pallas kernel.  Two choices keep it equal to the reference:
   the card would add them in an order that changes from run to run.
 
 Only the dense dispatch is ported: the reference's explicit
-expert-parallel ``shard_map`` variant needs a mesh (ROADMAP queue A14).
+expert-parallel ``shard_map`` variant needs a mesh (ROADMAP queue A14b).
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def moe_mlp(cfg, p, x: torch.Tensor, *, capacity: int | None = None,
     if mesh is not None:
         raise NotImplementedError(
             "the expert-parallel MoE (shard_map over a mesh) is not ported "
-            "to repro_torch yet: see ROADMAP.md queue A14")
+            "to repro_torch yet: see ROADMAP.md queue A14b, A14's mesh half")
     return moe_mlp_dense(cfg, p, x, capacity=capacity)
 
 

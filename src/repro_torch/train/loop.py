@@ -65,6 +65,10 @@ class TrainConfig:
     compression: bool = False      # int8 + error feedback on grads
     log_every: int = 10
     seed: int = 0
+    # FailureDetector probe rate-limit (seconds): SPMD runs and tests
+    # tighten it to catch rank death quickly; 1s keeps probing off the
+    # hot path in production
+    probe_interval_s: float = 1.0
 
 
 class Trainer:
@@ -81,8 +85,12 @@ class Trainer:
         self.specs = param_specs(model_cfg)
         self.metrics_log: list[dict[str, float]] = []
         self.hb = HeartbeatMonitor(self.comm.size)
-        # probes rate-limited to one a second (the reference's default)
-        self.detector = FailureDetector(self.comm, self.hb, interval=1.0)
+        # probe-driven liveness: under the mp, spmd and tcp transports the
+        # other ranks are real processes, and only Transport.probe can
+        # observe their death.  interval rate-limits the actual probing so
+        # the per-step poll() stays off the hot path
+        self.detector = FailureDetector(self.comm, self.hb,
+                                        interval=tcfg.probe_interval_s)
         self.straggler = StragglerDetector(self.comm.size)
         # the checkpoint manager and the out-of-core optimizer of the last
         # run() (None until a run makes them)

@@ -23,6 +23,11 @@ mods = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+# the multi-origin layer is walked too: the sanitizer, spmd and tcp
+for m in ("repro_torch.analysis.sanitizer", "repro_torch.core.transport.spmd",
+          "repro_torch.core.transport.tcp", "repro_torch.launch.train",
+          "repro_torch.launch.spmd_train_resume"):
+    assert m in mods, m
 leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
@@ -42,6 +47,8 @@ def test_every_module_imports_with_jax_blocked():
 _WORKER_CHAIN = """
 import sys
 import repro_torch.core.transport.multiproc
+import repro_torch.core.transport.spmd
+import repro_torch.core.transport.tcp
 import repro_torch.core.codec  # noqa: F401
 heavy = sorted(m for m in ("torch", "jax", "repro") if m in sys.modules)
 assert not heavy, heavy
@@ -49,9 +56,10 @@ assert not heavy, heavy
 
 
 def test_mp_worker_import_chain_has_no_torch():
-    """An mp worker imports the module of its entry point and its parents
-    (``repro_torch``, ``repro_torch.core``): none of them may pull in
-    ``torch``, or every spawned worker pays for it."""
+    """An mp or tcp worker imports the module of its entry point and its
+    parents (``repro_torch``, ``repro_torch.core``): none of them may pull
+    in ``torch``, or every spawned worker pays for it.  (An SPMD rank
+    imports what its application's entry point needs.)"""
     r = subprocess.run([sys.executable, "-c", _WORKER_CHAIN],
                        env={"PYTHONPATH": str(ROOT / "src"),
                             "PATH": "/usr/bin:/bin"},

@@ -105,12 +105,40 @@ def test_mp_phase_at_smoke_widths(tmp_path, chip_smoke):
     assert b["files_identical"] == [f"shards.bin.{r}" for r in range(4)]
     assert [r["rank"] for r in b["mp"]["ranks"]] == [1, 2, 3]
     assert all(r["flushed_bytes"] > 0 for r in b["mp"]["ranks"])
+    # the sanitized tcp fleet: the same bytes, and no finding
+    assert [r["flushed_bytes"] for r in b["tcp"]["ranks"]] \
+        == [r["flushed_bytes"] for r in b["mp"]["ranks"]]
+    assert b["tcp_sanitizer"] == {"findings": 0, "gates_passed": True}
+    assert "7b" in out and "tcp" not in out["7c"]
     c = out["7c"]
     assert c["mp"]["inserts"] == c["inproc"]["inserts"] == int(4 * 128 * 0.8)
     assert c["files_identical"] == [f"dht.bin.{r}" for r in range(4)]
     d = out["7d"]
     assert d["mp"]["tasks"] == 6 and len(d["files_identical"]) == 8
     assert not (tmp_path / "mp").exists()
+
+
+def test_spmd_phase_at_smoke_widths(tmp_path, chip_smoke):
+    """Phase 10's routine on the CPU with the smoke mamba2-2.7b config:
+    two SPMD ranks train, rank 1 is killed after its first checkpoint and
+    resumes there, the whole job restarts at job 1's last step, the
+    launcher issues no data-path op, and the ranks end equal (checked
+    inside, exact); host memory is reckoned and measured per process."""
+    out = chip_smoke.spmd_phase(torch.device("cpu"),
+                                directory=tmp_path / "spmd", seq=32,
+                                smoke=True, log=lambda *_: None)
+    first, last = chip_smoke.SPMD["steps"]
+    job1, job2 = out["ranks"]["job1"], out["ranks"]["job2"]
+    assert [r["resumed_from"] for r in job1] == [None, 2]
+    assert [r["resumed_from"] for r in job2] == [first, first]
+    assert [r["steps_run"] for r in job2] == [last - first] * 2
+    assert job1[0]["final_loss"] == job1[1]["final_loss"]
+    assert out["job1_data_ops"] == out["job2_data_ops"] == 0
+    assert not any(out["kernel_launches"].values())
+    host = out["host"]
+    assert 0 < host["sum_of_peaks_bytes"] <= chip_smoke.SPMD_HOST_LIMIT
+    assert [len(p) for p in host["rank_peak_bytes"]] == [3, 2]
+    assert not (tmp_path / "spmd").exists()
 
 
 class _RefTwin:

@@ -607,7 +607,13 @@ def test_chip_smoke_training_routine_on_cpu(tmp_path):
                                   seq=32, log=lambda *a: None)
     steps = chip_smoke.TRAIN_PHASES["6"]["steps"]
     assert len(out["losses"]) == steps and len(out["step_ms"]) == steps - 1
-    assert [r["step"] for r in out["saves"]] == [2, 4, 6]
-    assert [r["target"] for r in out["saves"]] == ["a", "b", "a"]
+    # run B saves to a, b, ... up to the kill; run C's manager starts at a
+    every, kill = chip_smoke.TRAIN["ckpt_every"], chip_smoke.TRAIN["kill_after"]
+    saves_b = list(range(every, kill + 1, every))
+    saves_c = list(range(kill + every, steps + 1, every))
+    assert [r["step"] for r in out["saves"]] == saves_b + saves_c
+    assert [r["target"] for r in out["saves"]] == [
+        "ab"[i % 2] for i in range(len(saves_b))] + [
+        "ab"[i % 2] for i in range(len(saves_c))]
     assert len(out["offload_losses"]) == chip_smoke.TRAIN["offload_steps"]
     assert not torch.are_deterministic_algorithms_enabled()

@@ -505,8 +505,15 @@ def test_chip_smoke_training_routine_on_cpu(tmp_path, arch, monkeypatch):
     assert out["loss0_rel_err"] <= cs.TRAIN_F32_TOL
     assert "offload_losses" not in out
     if "B" in spec["runs"]:
-        assert [r["step"] for r in out["saves"]] == [2, 4, 6]
-        assert [r["target"] for r in out["saves"]] == ["a", "b", "a"]
+        # run B saves to a, b, ... up to the kill; run C's manager starts
+        # at a
+        every, kill = cs.TRAIN["ckpt_every"], cs.TRAIN["kill_after"]
+        saves_b = list(range(every, kill + 1, every))
+        saves_c = list(range(kill + every, steps + 1, every))
+        assert [r["step"] for r in out["saves"]] == saves_b + saves_c
+        assert [r["target"] for r in out["saves"]] == [
+            "ab"[i % 2] for i in range(len(saves_b))] + [
+            "ab"[i % 2] for i in range(len(saves_c))]
     else:
         assert "saves" not in out and not list(tmp_path.iterdir())
     assert not torch.are_deterministic_algorithms_enabled()

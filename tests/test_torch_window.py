@@ -452,13 +452,9 @@ def test_replicated_window_refused(tmp_path):
 
 @pytest.mark.parametrize("kind", ["mp", "tcp", "ranklocal"])
 def test_unported_transports_raise(kind):
-    """Of the JAX package's backends only tcp is still unported: it raises
-    naming the ROADMAP item.  mp and ranklocal build working
-    communicators whose windows round-trip bytes."""
-    if kind == "tcp":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcore.Communicator(2, transport=kind)
-        return
+    """Every backend of the JAX package is ported now, tcp the last: none
+    raises, and mp, tcp and ranklocal build working communicators whose
+    windows round-trip bytes."""
     comm = tcore.Communicator(2, transport=kind)
     try:
         assert comm.transport.kind == kind
