@@ -46,11 +46,15 @@ into ``build/repro_torch``), and then:
   are (q and k wide, at their limits, the same bits twice): gemma-7b's B
   4, H = K 16, S 2000, d 256; qwen2-72b's H 64 and llama4-maverick's H 40
   over K 8 at d 128; and deepseek-v2's MLA prefill, B 4, H = K 128, d 192
-  for q and k, dv 128.
+  for q and k, dv 128.  So are the frontends' (phases 9e and 9f):
+  llava-next-mistral-7b's B 4, H 32, K 8, S = T 2576, d 128, causal;
+  whisper-base's encoder, B 4, H = K 8, S = T 1500, d 64, full; its
+  decoder's self-attention, S = T 8, causal; and its cross-attention
+  from 8 queries to 1500 keys, full.
 * phase 3 drives the serving path, ``Engine`` with a ``SessionStore``, at
   internlm2-1.8b's full widths and depth (24 layers, 1.89 B parameters
   made on the card from a seed, cast once to bf16): 4 requests of 2000
-  prompt tokens, 150 greedy steps in a 4096-position cache (the two-tier
+  prompt tokens, 110 greedy steps in a 4096-position cache (the two-tier
   tail merges into main at 2048).  Run 1 is ``Engine.generate``; run 2
   saves the session (factor 0.5, under ``build/chip_smoke/``) at token
   100, drops the engine, opens a fresh one on the same store, loads, and
@@ -206,19 +210,29 @@ into ``build/repro_torch``), and then:
   published widths through phase 3's routine, random parameters from
   seed 0 (float32 cast once to bf16, or bf16 where the config's
   ``param_dtype`` is), SERVE's 4 x 2000-token prompts in a 4096-position
-  cache, depth cut only where the card's 80 GB forces it, each cut
-  printed with its reason: 9a gemma-7b at its 28 layers (8.5 B; MHA at
-  head_dim 256), 64 steps and no session, the bf16 reading on seed 0
+  cache, depth cut only where the card's 80 GB (9b-9d) or the script's
+  time (9e) forces it, each cut printed with its reason: 9a gemma-7b at
+  its 28 layers (8.5 B; MHA at head_dim 256), 32 steps (cut from 64 for
+  time when 9e and 9f came) and no session, the bf16 reading on seed 0
   under 0.02; 9b qwen2-72b cut to 4 layers (QKV bias), 64 steps, no
   session; 9c deepseek-v2-236b cut to 3 layers (the dense first layer
-  and two MoE layers of 160 experts, top-6, MLA), 150 steps with the
+  and two MoE layers of 160 experts, top-6, MLA), 110 steps with the
   session saved at token 100 and reopened (the latent tail merges at
   2048); 9d llama4-maverick cut to one (attn, moe) pair (128 experts,
-  top-1), 150 steps and the session.  Resumed tokens and final cache
-  must equal the uninterrupted run's; ``flash_attention_tc`` must launch
-  once per layer in each prefill (``moe`` blocks and MLA count as
-  attention); float32 gates, with the float32 kernel, hold 9a and 9b at
-  4 layers and 9c at 3 (its prompt 500 and capacity factor E/k, so that
+  top-1), 110 steps and the session; 9e llava-next-mistral-7b cut to 8
+  layers (2.02 B; 576 patch embeddings, normal from a seeded generator,
+  before the 2000 text tokens: 2576 positions), 64 steps, no session; 9f
+  whisper-base at its 6 + 6 layers (1500 normal frames encoded in full
+  attention, an 8-token decoder prompt cross-attending them, Whisper's
+  448-position context), 150 steps and the session.  Resumed tokens and
+  final cache must equal the uninterrupted run's; ``flash_attention_tc``
+  must launch once per layer in each prefill (``moe`` blocks and MLA
+  count as attention; Whisper's decoder layers twice, to the prompt and
+  to the frames, and its encoder layers once; every launch is filed
+  under its call's (B, H, K, S, T, d) and mask, and each of the
+  frontends' shapes of phase 1b must have launched); float32 gates, with
+  the float32 kernel, hold 9a, 9b and 9e at 4 layers, 9f at its 6 + 6,
+  and 9c at 3 (its prompt 500 and capacity factor E/k, so that
   no assignment can drop: at the published 1.25 the capacity drops
   different assignments for S and S + 1 tokens) within 1e-4.  The other
   bf16 readings are printed, with each MoE config's routing line: how many
@@ -260,7 +274,8 @@ library times (B1 and B2 launch in phases 2, 7a, 7b (inproc and mp, and
 its tcp world) and 8a: their launches are the sum; every row splits its
 launches by phase in ``launches_by_phase``, the training phases 6, 6b, 6c
 and 10 at 0, phase 9 at 0 but for B3, whose rows carry phase 9's shapes
-under ``phase9``; B3 and
+under ``phase9``, a frontend's with its launches in all and filed by the
+shape of each call; B3 and
 B4 have a bf16 and a float32 tensor-core kernel each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
 with its launches in phases 3 to 5, counted there and required to be 0;
@@ -313,11 +328,12 @@ F32_MMA_FLOPS = 495e12 / 3
 SMOKE_LAYERS = 2             # depth cut of internlm2-1.8b (24 layers)
 WORKDIR = ROOT / "build" / "chip_smoke"
 TRAIN_DIR = WORKDIR / "train"
-# phase 3 traffic: 4 requests of 2000 prompt tokens, 150 greedy steps in a
+# phase 3 traffic: 4 requests of 2000 prompt tokens, 110 greedy steps in a
 # 4096-position cache, the session saved at token 100 into a combined
-# window that keeps half of it in memory (cut from 200 steps for the time
-# limit when phase 10 came; decode is host-bound, 50-110 ms a step)
-SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=150, save_at=100,
+# window that keeps half of it in memory (cut from 200 steps to 150 for the
+# time limit when phase 10 came, and to 110 when phases 9e and 9f came;
+# decode is host-bound, 50-110 ms a step)
+SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=110, save_at=100,
              factor=0.5)
 # the consistency reading is also taken for these prompt seeds, to show its
 # spread beside the check on seed 0 (0.02, the limit of
@@ -767,6 +783,20 @@ ATTN_NEW = {
     "llama4-maverick-400b-a17b": ((4, 40, 8, 2000, 128), None),
     "deepseek-v2-236b": ((4, 128, 128, 2000, 192), 128),
 }
+# phases 9e and 9f's prefill attention, per config and part: (B, H, K, S,
+# T, d) and the mask.  LLaVA: 576 patches + 2000 text positions, causal;
+# Whisper: the encoder's full attention over 1500 frames, the decoder's
+# causal self-attention over its 8-token prompt and its cross-attention
+# from those 8 queries to the 1500 frames (queries far fewer than keys:
+# the last query tile is partial, every key tile up to T must be
+# visited).  Held like the main shapes in phase 1b, timed against SDPA,
+# and each must launch in its config's prefills (``ShapeLaunches``)
+ATTN_FRONTEND = {
+    "llava-next-mistral-7b": {"self": ((4, 32, 8, 2576, 2576, 128), True)},
+    "whisper-base": {"encoder": ((4, 8, 8, 1500, 1500, 64), False),
+                     "decoder self": ((4, 8, 8, 8, 8, 64), True),
+                     "cross": ((4, 8, 8, 8, 1500, 64), False)},
+}
 
 
 def attention_inputs(B, H, K, S, T, d, dtype, gen, dev, qk_std=0.4,
@@ -883,6 +913,22 @@ def phase1b(dev, log=print) -> dict:
             check(torch.equal(again[0], again[1]),
                   f"flash_attention gave different bits on the same inputs "
                   f"at {shape}")
+    # the frontends' shapes: S != T and full attention among them
+    for arch, parts in ATTN_FRONTEND.items():
+        for part, (shape, causal) in parts.items():
+            B, H, K, S, T, d = shape
+            for dtype, tol in ATTN_MAIN_TOL.items():
+                q, k, v = attention_inputs(B, H, K, S, T, d, dtype, gen, dev,
+                                           qk_std=ATTN_MAIN_QK_STD)
+                main_err[f"{arch} {part} {shape} causal {causal}, "
+                         f"{str(dtype).removeprefix('torch.')}"] = \
+                    _attention_err(ops, ref, q, k, v, tol=tol, causal=causal)
+                ncases += 1
+            again = [ops.flash_attention(q, k, v, causal=causal)
+                     for _ in range(2)]
+            check(torch.equal(again[0], again[1]),
+                  f"flash_attention gave different bits on the same inputs "
+                  f"at {shape}")
     torch.cuda.synchronize(dev)
     every = (*mods.values(), flash_attention)
     check(all(mod.launches > 0 for mod in every),
@@ -897,8 +943,9 @@ def phase1b(dev, log=print) -> dict:
         f"and {ATTN_TOL[torch.bfloat16]} (bf16, worst "
         f"{worst[torch.bfloat16]:.3g}) of its plain version, dv != d "
         f"included ({len(ATTN_DV_SWEEP)} shapes, d 16 and 192, dv 8 to "
-        f"256); main shapes (phase 9's too, MLA's d 192, dv 128), "
-        f"causal, q and k std {ATTN_MAIN_QK_STD}, f32 at rtol = atol = 2e-5 "
+        f"256); main shapes (phase 9's too, MLA's d 192, dv 128; the "
+        f"frontends' causal and full, S = T and S << T), "
+        f"q and k std {ATTN_MAIN_QK_STD}, f32 at rtol = atol = 2e-5 "
         "and bf16 at rtol 1e-2, atol 1e-4, max abs err: "
         + json.dumps(main_err) + "; deterministic")
     return {key: max(v for k, v in main_err.items() if k.endswith(suffix))
@@ -908,50 +955,56 @@ def phase1b(dev, log=print) -> dict:
 
 
 def measure_attention(dev, shape=ATTN_MAIN, window=None,
-                      dtype=torch.bfloat16, dv=None) -> dict:
+                      dtype=torch.bfloat16, dv=None, *, T=None,
+                      causal=True) -> dict:
     """Kernel, plain-version and library times of one prefill layer's
-    attention at a main path's shape (causal, ``window``; v of head
-    dimension ``dv``, by default d) in ``dtype``, which picks the kernel
+    attention at a main path's shape (B, H, K, S, d) against T keys (by
+    default S; ``causal`` needs T = S), ``window``, v of head dimension
+    ``dv`` (by default d), in ``dtype``, which picks the kernel
     (``flash_attention_tc`` or ``flash_attention_tc32``; for float32 with
     dv = d the comparator, the CUDA-core ``flash_attention``, is timed
     beside it on the same inputs), and its bound at the card's rate for
     that dtype's products (float32: float32-accurate products on the tensor
-    cores): 2·B·H·(d + dv)·S(S+1)/2 FLOP against q, k, v and the output
-    read or written once.  The library call is causal attention without a
-    window: the same function wherever the window does not bind (S <=
-    window).  Where SDPA refuses the shape, ``library_ms`` is None and
-    ``library_refused`` says why; nothing stands in for it."""
+    cores): 2·B·H·(d + dv)·S(S+1)/2 FLOP causal, 2·B·H·(d + dv)·S·T full,
+    against q, k, v and the output read or written once.  The library call
+    is SDPA with the same mask but without a window: the same function
+    wherever the window does not bind (S <= window).  Where SDPA refuses
+    the shape, ``library_ms`` is None and ``library_refused`` says why;
+    nothing stands in for it."""
     from repro_torch.kernels import ops, ref
     B, H, K, S, d = shape
+    T = S if T is None else T
     dv = d if dv is None else dv
     check(window is None or S <= window,
           f"the library call has no window, which binds at S {S}")
+    check(not causal or S == T, f"causal attention with S {S} != T {T}")
     gen = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = attention_inputs(B, H, K, S, S, d, dtype, gen, dev, dv=dv)
-    flops = 2 * B * H * (d + dv) * (S * (S + 1) // 2)  # causal pairs
+    q, k, v = attention_inputs(B, H, K, S, T, d, dtype, gen, dev, dv=dv)
+    pairs = S * (S + 1) // 2 if causal else S * T
+    flops = 2 * B * H * (d + dv) * pairs
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
                                  + B * H * S * dv)
     t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16
                      else F32_MMA_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     out = {
-        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+        "ms": cuda_ms(lambda: ops.flash_attention(q, k, v, causal=causal,
                                                   window=window)),
         "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, window=window)),
+            q, k, v, causal=causal, window=window)),
         "flops": flops, "bytes": nbytes,
         "bound_ms": max(t_ops, t_bytes) * 1e3,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
     }
     try:
         out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+            q, k, v, is_causal=causal, enable_gqa=True))
     except RuntimeError as err:  # a shape no SDPA backend takes
         out["library_ms"] = None
         out["library_refused"] = str(err).splitlines()[0][:200]
     if dtype == torch.float32 and dv == d:
         out["comparator_ms"] = cuda_ms(lambda: _comparator_attention(
-            q, k, v, causal=True, window=window))
+            q, k, v, causal=causal, window=window))
     return out
 
 
@@ -1311,18 +1364,21 @@ def device_profile(fn, nrep: int = 1) -> dict:
                        for e in events if OWN_KERNELS.search(e.key)}}
 
 
-def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
+def consistency_rel_err(cfg, eng, tokens: np.ndarray,
+                        extra: dict | None = None) -> float:
     """Decode after prefill(S) against prefill(S + 1) on ``eng`` (S =
-    ``tokens.shape[1] - 1``, ``tokens[:, -1]`` the decoded token): the
+    ``tokens.shape[1] - 1``, ``tokens[:, -1]`` the decoded token; a
+    frontend's ``extra`` inputs, on the engine's device, in both): the
     largest absolute difference of the logits over the largest |logit|.
     Fails on a non-finite logit."""
     from repro_torch.models import make_prefill_fn
+    extra = extra or {}
     S = tokens.shape[1] - 1
-    eng.prefill({"inputs": tokens[:, :S]})
+    eng.prefill({"inputs": tokens[:, :S], **extra})
     dec = eng.decode_logits(tokens[:, S:])
     full, _ = make_prefill_fn(cfg)(
-        eng.params, {"inputs": torch.from_numpy(tokens).long().to(eng.device)},
-        eng.cache)
+        eng.params, {"inputs": torch.from_numpy(tokens).long().to(eng.device),
+                     **extra}, eng.cache)
     a, b = dec.float().cpu().numpy(), full.float().cpu().numpy()
     check(bool(np.isfinite(a).all() and np.isfinite(b).all()),
           "non-finite logits")
@@ -1332,20 +1388,23 @@ def consistency_rel_err(cfg, eng, tokens: np.ndarray) -> float:
 def prefill_kernels(cfg) -> dict:
     """``{kernel module: launches in one prefill of cfg}``: each layer's
     prefill launches its kind's kernel once (a ``moe`` block's attention,
-    GQA or MLA, is attention), attention and the SSD scan
-    the one for ``cfg.dtype`` (``flash_attention_tc``/``ssd_scan_tc`` for
-    bf16, ``flash_attention_tc32``/``ssd_scan_tc32`` for float32), the
+    GQA or MLA, is attention; an ``xattn`` block attends twice, to the
+    prompt and to the frames; an encoder-decoder model's encoder attends
+    once a layer), attention and the SSD scan the one for ``cfg.dtype``
+    (``flash_attention_tc``/``ssd_scan_tc`` for bf16,
+    ``flash_attention_tc32``/``ssd_scan_tc32`` for float32), the
     recurrence ``rg_lru_pipe`` for both."""
     from repro_torch.kernels import ops
     dtype = getattr(torch, cfg.dtype)
     attn = ops.kernel_module("flash_attention", dtype)
-    of_kind = {"attn": attn, "local_attn": attn, "moe": attn,
+    of_kind = {"attn": attn, "local_attn": attn, "moe": attn, "xattn": attn,
                "ssm": ops.kernel_module("ssd_scan", dtype),
                "rglru": ops.kernel_module("rg_lru", dtype)}
-    out: dict = {}
+    out: dict = {attn: cfg.enc_layers} if cfg.is_encdec else {}
     for reps, pattern in cfg.groups():
         for kind in pattern:
-            out[of_kind[kind]] = out.get(of_kind[kind], 0) + reps
+            n = 2 if kind == "xattn" else 1
+            out[of_kind[kind]] = out.get(of_kind[kind], 0) + n * reps
     return out
 
 
@@ -1354,17 +1413,49 @@ def _kernel_name(module) -> str:
 
 
 def float32_consistency(cfg, params: dict, tokens: np.ndarray, *,
-                        device) -> float:
+                        device, extra: dict | None = None) -> float:
     """:func:`consistency_rel_err` with everything in float32: ``cfg`` at
     ``dtype="float32"`` (``Engine`` turns TF32 off) and the cache allocated
     in float32 too (the reference's cache specs are bf16 even in a float32
-    config, which would put bf16 rounding into the reading)."""
+    config, which would put bf16 rounding into the reading); a frontend's
+    ``extra`` inputs as :func:`frontend_inputs` makes them."""
     from repro_torch.serve import Engine
+    extra = extra or {}
     cfg = dataclasses.replace(cfg, dtype="float32")
-    eng = Engine(cfg, params, batch=tokens.shape[0], max_len=tokens.shape[1],
-                 device=device)
+    eng = Engine(cfg, params, batch=tokens.shape[0],
+                 max_len=tokens.shape[1] + image_positions(cfg),
+                 enc_len=encoder_context(extra), device=device)
     eng.cache = {k: v.float() for k, v in eng.cache.items()}
-    return consistency_rel_err(cfg, eng, tokens)
+    return consistency_rel_err(cfg, eng, tokens, extra)
+
+
+def image_positions(cfg) -> int:
+    """The positions a VLM's patches take before the text (0 otherwise)."""
+    return cfg.img_tokens if cfg.frontend == "vlm_stub" else 0
+
+
+def encoder_context(extra: dict) -> int:
+    """An encoder-decoder model's encoder context: its frames (0 without)."""
+    return extra["frames"].shape[1] if "frames" in extra else 0
+
+
+def frontend_inputs(cfg, batch: int, device, seed: int = 0) -> dict:
+    """A frontend's inputs beside the prompt, as the reference's input
+    specs give them (bf16; its launcher draws them normal): a VLM's
+    ``patches`` (batch, img_tokens, d_model) and an encoder-decoder
+    model's ``frames`` (batch, enc_seq, d_model), normal from a generator
+    seeded with ``seed`` on ``device``; {} for a decoder-only model."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(n):
+        return torch.randn(batch, n, cfg.d_model, generator=gen,
+                           device=device).to(torch.bfloat16)
+    out = {}
+    if cfg.frontend == "vlm_stub":
+        out["patches"] = normal(cfg.img_tokens)
+    if cfg.is_encdec:
+        out["frames"] = normal(cfg.enc_seq)
+    return out
 
 
 def ssm_dynamics(cfg, seed: int) -> dict[str, np.ndarray]:
@@ -1385,6 +1476,47 @@ def ssm_dynamics(cfg, seed: int) -> dict[str, np.ndarray]:
             out[name] = np.log(rng.uniform(1, 16, spec.shape)).astype(
                 np.float32)
     return out
+
+
+def attention_key(shape, causal: bool, dv: int | None = None) -> str:
+    """The key :class:`ShapeLaunches` files an attention call under: its
+    (B, H, K, S, T, d), dv where it differs from d, and the mask."""
+    dv = "" if dv is None or dv == shape[-1] else f" dv {dv}"
+    return f"{tuple(shape)}{dv} {'causal' if causal else 'full'}"
+
+
+class ShapeLaunches:
+    """Until :meth:`close`, counts the launches of the attention kernels
+    in ``mods`` (their own counters) by the shape of the call that made
+    them: ``ops.flash_attention`` is wrapped, and each call's growth of
+    each counter is added under :func:`attention_key` of its q, k and v,
+    beside the number of such calls (on the CPU the counters stay 0)."""
+
+    def __init__(self, mods):
+        from repro_torch.kernels import ops
+        self.counts: dict[str, dict[str, int]] = {}
+        self._ops, self._orig = ops, ops.flash_attention
+        mods = [m for m in mods if _kernel_name(m).startswith(
+            "flash_attention")]
+
+        def counted(q, k, v, *, causal=True, **kw):
+            before = [m.launches for m in mods]
+            out = self._orig(q, k, v, causal=causal, **kw)
+            B, H, S, d = q.shape
+            key = attention_key((B, H, k.shape[1], S, k.shape[2], d),
+                                causal, v.shape[3])
+            tally = self.counts.setdefault(
+                key, {"calls": 0, **{_kernel_name(m): 0 for m in mods}})
+            tally["calls"] += 1
+            for m, n in zip(mods, before):
+                tally[_kernel_name(m)] += m.launches - n
+            return out
+
+        ops.flash_attention = counted
+
+    def close(self) -> dict[str, dict[str, int]]:
+        self._ops.flash_attention = self._orig
+        return self.counts
 
 
 class RouteLog:
@@ -1446,8 +1578,10 @@ def route_flips(n_moe: int, calls: list[dict]) -> dict:
 def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
                 directory: Path, max_len: int, steps: int,
                 save_at: int | None, factor,
-                consistency_limit: float | None = 0.02) -> dict:
-    """Phase 3: greedy serving of ``tokens[:, :-1]`` through ``Engine``.
+                consistency_limit: float | None = 0.02,
+                extra: dict | None = None) -> dict:
+    """Phase 3: greedy serving of ``tokens[:, :-1]`` through ``Engine``
+    (with a frontend's ``extra`` inputs, :func:`frontend_inputs`).
 
     Run 1 is ``Engine.generate(steps)``.  Run 2 takes ``save_at`` tokens,
     saves the session into a ``SessionStore`` under ``directory``, drops
@@ -1464,35 +1598,41 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
     kernel launched as often in each prefill as :func:`prefill_kernels`
     says; the logits are finite and, unless ``consistency_limit`` is None,
     consistent within it.  Returns the tokens, the counts (``launches``:
-    per kernel, over both prefills) and the times."""
+    per kernel, over both prefills; ``launches_by_shape``: the attention's,
+    by :func:`attention_key`) and the times."""
     from repro_torch.core import Communicator
     from repro_torch.models import init_cache_specs
     from repro_torch.serve import Engine, SessionStore
 
     dev = torch.device(device)
+    extra = extra or {}
     batch, S = tokens.shape[0], tokens.shape[1] - 1
-    inputs = {"inputs": tokens[:, :S]}
+    inputs = {"inputs": tokens[:, :S], **extra}
+    enc_len = encoder_context(extra)
+    img = image_positions(cfg)
     on_card = dev.type == "cuda"
     out = {}
 
     def engine(**kw):
         return Engine(cfg, params, batch=batch, max_len=max_len,
-                      device=dev, **kw)
+                      enc_len=enc_len, device=dev, **kw)
 
-    # the main path: counts at 0 just before it, read just after
+    # the main path: counts at 0 just before it, read just after (by the
+    # attention's shapes too)
     kernels = prefill_kernels(cfg)
     for mod in kernels:
         mod.launches = 0
-    eng = engine()
-    run1, out["generate_ms"] = _timed_ms(
-        lambda: eng.generate(inputs, steps), dev)
-    launches_run1 = {mod: mod.launches for mod in kernels}
-    final1 = {k: v.cpu() for k, v in eng.cache.items()}  # host: no peak
-    del eng
-    store = None if save_at is None else SessionStore(
-        Communicator(1), str(directory / "session.bin"),
-        init_cache_specs(cfg, batch, max_len), factor=factor)
+    by_shape, store = ShapeLaunches(kernels), None
     try:
+        eng = engine()
+        run1, out["generate_ms"] = _timed_ms(
+            lambda: eng.generate(inputs, steps), dev)
+        launches_run1 = {mod: mod.launches for mod in kernels}
+        final1 = {k: v.cpu() for k, v in eng.cache.items()}  # host: no peak
+        del eng
+        store = None if save_at is None else SessionStore(
+            Communicator(1), str(directory / "session.bin"),
+            init_cache_specs(cfg, batch, max_len, enc_len), factor=factor)
         eng = engine(session=store)
         first, out["prefill_ms"] = _timed_ms(lambda: eng.prefill(inputs), dev)
         launches_prefill2 = {mod: mod.launches - launches_run1[mod]
@@ -1516,10 +1656,12 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
             eng, out["engine_open_ms"] = _timed_ms(
                 lambda: engine(session=store), dev)
             _, out["load_ms"] = _timed_ms(eng.load_session, dev)
-            check(eng.pos == S + save_at - 1,
-                  f"loaded position {eng.pos}, saved {S + save_at - 1}")
+            check(eng.pos == img + S + save_at - 1,
+                  f"loaded position {eng.pos}, saved "
+                  f"{img + S + save_at - 1}")
             take(steps - save_at)
         out["launches"] = {_kernel_name(mod): mod.launches for mod in kernels}
+        out["launches_by_shape"] = by_shape.close()
         run2 = np.stack(seq, axis=1)
         out["tokens"] = run2
         check(np.array_equal(run1, run2),
@@ -1529,6 +1671,7 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
                   if not torch.equal(v, eng.cache[k].cpu())]
         check(not differ, "the resumed session's final decode state differs "
               f"from the uninterrupted run's in {differ[:3]}")
+        out["resumed_equal"] = {"tokens": True, "final_state": True}
         out["distinct_tokens"] = int(np.unique(run2).size)
         if on_card:
             for mod, want in kernels.items():
@@ -1549,7 +1692,7 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
                     for reps, pattern in cfg.groups())
         with RouteLog() as routes:
             out["consistency_rel_err"] = consistency_rel_err(cfg, eng,
-                                                             tokens)
+                                                             tokens, extra)
         if n_moe:
             out["routing"] = route_flips(n_moe, routes.calls)
         if consistency_limit is not None:
@@ -1558,13 +1701,14 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
                   f"error {out['consistency_rel_err']}")
         del eng
     finally:
+        by_shape.close()
         if store is not None:
             store.free()
     out["step_ms"] = step_ms
     out["decode_ms_per_step"] = float(np.mean(step_ms))
     out["decode_ms_per_step_median"] = float(np.median(step_ms))
     out["decode_tokens_per_s"] = batch * 1e3 / out["decode_ms_per_step"]
-    out["prefill_tokens_per_s"] = batch * S * 1e3 / out["prefill_ms"]
+    out["prefill_tokens_per_s"] = batch * (img + S) * 1e3 / out["prefill_ms"]
     return out
 
 
@@ -1697,7 +1841,9 @@ def serving_phase(arch: str, dev, *, consistency_limit: float | None,
 # bf16 consistency reading on seed 0 (None: printed, not held) and the
 # float32 gate: its depth, prompt and config changes (None: no gate)
 PHASE9 = {
-    "9a": dict(arch="gemma-7b", n_layers=None, why=None, steps=64,
+    # 9a's 32 steps were 64 until 9e and 9f came (cut for the time limit;
+    # phase 3 crosses the dense tail merge at 2048)
+    "9a": dict(arch="gemma-7b", n_layers=None, why=None, steps=32,
                session=False, consistency_limit=0.02,
                f32=dict(n_layers=F32_LAYERS, prompt=SERVE["prompt"])),
     "9b": dict(arch="qwen2-72b", n_layers=4,
@@ -1722,10 +1868,28 @@ PHASE9 = {
                    "18.7 B parameters",
                steps=SERVE["steps"], session=True, consistency_limit=None,
                f32=None),
+    # the frontends: LLaVA's 576 patch embeddings (the base tile) before
+    # SERVE's 2000 text tokens, 2576 positions (B3 causal at d 128, S not a
+    # multiple of 128); Whisper's 1500 frames (enc_seq) encoded in full
+    # attention and cross-attended from an 8-token prompt (the reference's
+    # prefill spec) in Whisper's 448-position decoder context (B3
+    # non-causal at d 64, S = T and S << T)
+    "9e": dict(arch="llava-next-mistral-7b", n_layers=8,
+               why="the whole script's time: at 32 layers 9e took 20.5 s and "
+                   "the script 1006.5 s on an H100 80GB HBM3, at 16 layers "
+                   "10.3-11.2 s and the script 908.9-969.3 s, against its "
+                   "950 s budget; 8 layers are 2.02 B parameters",
+               steps=64, session=False, consistency_limit=None,
+               f32=dict(n_layers=F32_LAYERS, prompt=SERVE["prompt"])),
+    "9f": dict(arch="whisper-base", n_layers=None, why=None,
+               steps=150, session=True, consistency_limit=None,
+               f32=dict(n_layers=6, prompt=8),
+               traffic=dict(prompt=8, max_len=448)),
 }
 
 
-# phase 9's traffic: SERVE's requests and cache; the steps are PHASE9's
+# phase 9's traffic: SERVE's requests and cache; the steps are PHASE9's,
+# and an entry's ``traffic`` replaces what it names
 PHASE9_TRAFFIC = {k: SERVE[k] for k in ("batch", "prompt", "max_len",
                                         "save_at", "factor")}
 
@@ -1755,20 +1919,24 @@ def phase9_gate_config(cfg, gate: dict):
 
 
 def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
-                     traffic: dict = PHASE9_TRAFFIC, smoke: bool = False,
+                     traffic: dict | None = None, smoke: bool = False,
                      log=print) -> dict:
     """One PHASE9 sub-phase: ``run_serving`` with ``traffic``'s batch,
-    prompt and cache and the entry's steps and session, then the float32
-    gate (for a MoE config with the compared token's routing beside it).
-    The comparators must not launch; on a card the attention kernel must
-    launch once per layer in each prefill (``run_serving`` and the gate
-    check it).  ``smoke`` and a small ``traffic`` (with ``steps`` and
+    prompt and cache (by default PHASE9_TRAFFIC with the entry's own) and
+    the entry's steps and session, a frontend's inputs from
+    :func:`frontend_inputs`, then the float32 gate (for a MoE config with
+    the compared token's routing beside it).  The comparators must not
+    launch; on a card the attention kernel must launch as often as
+    :func:`prefill_kernels` says in each prefill (``run_serving`` and the
+    gate check it).  ``smoke`` and a small ``traffic`` (with ``steps`` and
     ``gate_prompt``) run it on the CPU."""
     from repro_torch.kernels import flash_attention, rg_lru, ssd_scan
     comparators = (flash_attention, ssd_scan, rg_lru)
     for mod in comparators:
         mod.launches = 0
     spec = PHASE9[sub]
+    if traffic is None:
+        traffic = {**PHASE9_TRAFFIC, **spec.get("traffic", {})}
     t0 = time.perf_counter()
     dev = torch.device(dev)
     cfg = phase9_config(sub, smoke)
@@ -1793,17 +1961,31 @@ def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
     directory.mkdir(parents=True)
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
+    extra = frontend_inputs(cfg, traffic["batch"], dev)
     try:
         out = run_serving(
             cfg, params, tokens(traffic["prompt"]), device=dev,
             directory=directory, max_len=traffic["max_len"], steps=steps,
             save_at=traffic["save_at"] if spec["session"] else None,
             factor=traffic["factor"],
-            consistency_limit=spec["consistency_limit"])
+            consistency_limit=spec["consistency_limit"], extra=extra)
     finally:
         shutil.rmtree(directory, ignore_errors=True)
     if on_card:
         out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+        # every attention launch was filed under its call's shape, and each
+        # of a frontend's shapes launched the kernel
+        shapes = out["launches_by_shape"]
+        for name, n in out["launches"].items():
+            filed = sum(t.get(name, 0) for t in shapes.values())
+            check(not name.startswith("flash_attention") or filed == n,
+                  f"{cfg.name}: {n} {name} launches, {filed} by shape: "
+                  f"{shapes}")
+        for part, (shape, causal) in ATTN_FRONTEND.get(cfg.name, {}).items():
+            got = shapes.get(attention_key(shape, causal), {})
+            check(any(n for k, n in got.items() if k != "calls"),
+                  f"{cfg.name}: its {part} attention at {shape} launched no "
+                  f"kernel: {shapes}")
     out["nparams"] = nparams
     del params
     if on_card:
@@ -1817,10 +1999,14 @@ def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
         n_moe = sum(reps * pattern.count("moe")
                     for reps, pattern in gcfg.groups())
         gate_prompt = traffic.get("gate_prompt", gate["prompt"])
-        with RouteLog() as routes:
-            out["float32_rel_err"] = float32_consistency(
-                gcfg, model_params(gcfg, 0, dev), tokens(gate_prompt),
-                device=dev)
+        by_shape = ShapeLaunches(f32_kernels)
+        try:
+            with RouteLog() as routes:
+                out["float32_rel_err"] = float32_consistency(
+                    gcfg, model_params(gcfg, 0, dev), tokens(gate_prompt),
+                    device=dev, extra=extra)
+        finally:
+            out["float32_launches_by_shape"] = by_shape.close()
         if n_moe:
             out["float32_routing"] = route_flips(n_moe, routes.calls)
         out["float32_launches"] = {_kernel_name(mod): mod.launches
@@ -3375,6 +3561,21 @@ def main() -> int:
             print(f"attention at {shape}, dv {dv or shape[4]}, {arch}, "
                   f"{str(dtype).removeprefix('torch.')} ({card}): "
                   + json.dumps(m))
+    # and at the frontends' (9e, 9f), S != T and full attention among them
+    for arch, parts in ATTN_FRONTEND.items():
+        for part, (shape, causal) in parts.items():
+            B, H, K, S, T, d = shape
+            for dtype in (torch.bfloat16, torch.float32):
+                m = attn_new[arch, part, dtype] = measure_attention(
+                    dev, (B, H, K, S, d), dtype=dtype, T=T, causal=causal)
+                print(f"attention at {shape}, causal {causal}, {arch} "
+                      f"{part}, {str(dtype).removeprefix('torch.')} "
+                      f"({card}): " + json.dumps(m))
+
+    def arch_launches(arch, name, path):
+        return sum(out[path].get(name, 0) for sub, out in new.items()
+                   if PHASE9[sub]["arch"] == arch and path in out)
+
     for row in kernels[2:4]:
         dtype = torch.float32 if row["name"].endswith("32") else \
             torch.bfloat16
@@ -3382,13 +3583,27 @@ def main() -> int:
         row["launches"] += phase9_launches[row["name"]]
         row["phase9"] = {
             arch: {"shape": list(shape), "dv": dv or shape[4],
-                   "launches": sum(out[path].get(row["name"], 0)
-                                   for sub, out in new.items()
-                                   if PHASE9[sub]["arch"] == arch
-                                   and path in out),
+                   "launches": arch_launches(arch, row["name"], path),
                    **{k: attn_new[arch, dtype].get(k) for k in
                       (*times, "library_refused")}}
             for arch, (shape, dv) in ATTN_NEW.items()}
+        # a frontend's launches, in all and at each of its shapes, as
+        # ShapeLaunches counted them on its main path (the serving
+        # prefills, or the float32 gate's: prefill(S) and prefill(S + 1))
+        for arch, parts in ATTN_FRONTEND.items():
+            by_shape = {key: n[row["name"]] for sub, out in new.items()
+                        if PHASE9[sub]["arch"] == arch
+                        for key, n in out.get(f"{path}_by_shape", {}).items()
+                        if n.get(row["name"])}
+            row["phase9"][arch] = {
+                "launches": arch_launches(arch, row["name"], path),
+                "launches_by_shape": by_shape,
+                **{part: {"shape": list(shape), "causal": causal,
+                          "launches": by_shape.get(
+                              attention_key(shape, causal), 0),
+                          **{k: attn_new[arch, part, dtype].get(k) for k in
+                             (*times, "library_refused")}}
+                   for part, (shape, causal) in parts.items()}}
     marks.append(time.perf_counter())
 
     # phase 10: SPMD training, two ranks on the card, each an origin; the

@@ -1,18 +1,19 @@
 """Architecture registry: the configurations ported so far.
 
-The counterpart of ``repro.configs``: its eight decoder-only
-configurations, the dense family (internlm2-1.8b and -20b, gemma-7b,
-qwen2-72b), the MoE family (deepseek-v2-236b with MLA, llama4-maverick),
-mamba2-2.7b (SSM) and recurrentgemma-2b (RG-LRU + local attention).  The
-frontends (llava-next-mistral-7b, whisper-base) are not ported yet
-(ROADMAP queue A item 12).
+The counterpart of ``repro.configs``: all ten of its configurations, the
+dense family (internlm2-1.8b and -20b, gemma-7b, qwen2-72b), the MoE
+family (deepseek-v2-236b with MLA, llama4-maverick), mamba2-2.7b (SSM),
+recurrentgemma-2b (RG-LRU + local attention) and the two frontends,
+llava-next-mistral-7b (projected patch embeddings before the text) and
+whisper-base (encoder-decoder over frame embeddings).
 """
 
 from __future__ import annotations
 
 from ..models.config import ModelConfig
 from . import (deepseek_v2_236b, gemma_7b, internlm2_1p8b, internlm2_20b,
-               llama4_maverick_400b, mamba2_2p7b, qwen2_72b, recurrentgemma_2b)
+               llama4_maverick_400b, llava_next_mistral_7b, mamba2_2p7b,
+               qwen2_72b, recurrentgemma_2b, whisper_base)
 from .base import (SHAPES, Shape, batch_specs, cache_len_for, decode_specs,
                    reduce_for_smoke, shape_applicable)
 
@@ -24,6 +25,8 @@ ARCHS = {
     "internlm2-20b": internlm2_20b.config,
     "internlm2-1.8b": internlm2_1p8b.config,
     "qwen2-72b": qwen2_72b.config,
+    "llava-next-mistral-7b": llava_next_mistral_7b.config,
+    "whisper-base": whisper_base.config,
     "recurrentgemma-2b": recurrentgemma_2b.config,
 }
 

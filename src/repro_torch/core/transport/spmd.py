@@ -818,6 +818,7 @@ class _Coordinator(threading.Thread):
         self._pending: dict[tuple, dict] = {}
         self._cache: dict[tuple, dict] = {}
         self.results: dict[int, tuple] = {}
+        self._closing: list = []
         self._stopped = False
 
     # -- membership --------------------------------------------------------
@@ -832,7 +833,17 @@ class _Coordinator(threading.Thread):
             conn = self._conns.pop(rank, None)
             self._excluded.add(rank)
             self._recheck_locked()
-        if conn is not None:
+            if conn is not None:
+                # closed by the matching loop between two waits: closed
+                # here, its fd could go to the respawn's channel while the
+                # loop still reads the old one, and the loop would read
+                # the new channel's bytes as the old one's
+                self._closing.append(conn)
+
+    def _close_dropped(self) -> None:
+        with self._lock:
+            closing, self._closing = self._closing, []
+        for conn in closing:
             try:
                 conn.close()
             except Exception:
@@ -845,10 +856,13 @@ class _Coordinator(threading.Thread):
     def stop(self) -> None:
         self._stopped = True
         self.join(timeout=_SHUTDOWN_JOIN_S)
+        if not self.is_alive():
+            self._close_dropped()
 
     # -- the matching loop -------------------------------------------------
     def run(self) -> None:
         while not self._stopped:
+            self._close_dropped()
             with self._lock:
                 conns = dict(self._conns)
             if not conns:
@@ -861,16 +875,22 @@ class _Coordinator(threading.Thread):
                 continue
             for conn in ready:
                 rank = by_conn[id(conn)]
+                with self._lock:
+                    current = self._conns.get(rank) is conn
+                if not current:
+                    continue  # dropped (``mark_dead``) since the snapshot
                 try:
                     msg = _recv(conn)
                 except (EOFError, OSError):
-                    self._on_eof(rank)
+                    self._on_eof(rank, conn)
                     continue
                 self._handle(rank, msg)
 
-    def _on_eof(self, rank: int) -> None:
+    def _on_eof(self, rank: int, conn) -> None:
         with self._lock:
-            self._conns.pop(rank, None)
+            if self._conns.get(rank) is not conn:
+                return  # a stale channel: the rank was attached anew
+            del self._conns[rank]
             if rank not in self.results:
                 # died without reporting: exclude so pending rounds of the
                 # survivors can complete (the launcher's monitor decides

@@ -36,16 +36,14 @@ __all__ = ["SyntheticLM", "WindowBackedDataset", "make_batch_iter"]
 
 
 class SyntheticLM:
-    """Deterministic LM batches (token inputs and shifted targets).  The
-    reference's extra inputs of the vision and encoder-decoder frontends
-    wait for those frontends (ROADMAP A12)."""
+    """Deterministic LM batches for any architecture: token inputs and
+    shifted targets, and the frontends' inputs, drawn after the tokens
+    from the same generator (the reference's order): a VLM's ``patches``
+    (its ``seq`` counts them, the text is ``seq - img_tokens``) and an
+    encoder-decoder model's ``frames`` (``seq`` of them), float32."""
 
     def __init__(self, cfg: ModelConfig, *, batch: int, seq: int,
                  microbatches: int = 1, seed: int = 0, rank: int = 0):
-        if cfg.frontend != "none" or cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: batches for the {cfg.frontend} frontend and "
-                "encoder-decoder models wait for ROADMAP A12")
         self.cfg = cfg
         self.batch = batch
         self.seq = seq
@@ -58,14 +56,26 @@ class SyntheticLM:
             np.random.SeedSequence([self.seed, step, self.rank]))
 
     def batch_at(self, step: int) -> dict[str, np.ndarray]:
+        cfg = self.cfg
         rng = self._rng(step)
-        shape = (self.mb, self.batch, self.seq)
-        toks = rng.integers(0, self.cfg.vocab, size=shape,
+        vlm = cfg.frontend == "vlm_stub"
+        St = self.seq - cfg.img_tokens if vlm else self.seq
+        shape = (self.mb, self.batch, St)
+        toks = rng.integers(0, cfg.vocab, size=shape,
                             dtype=np.int64).astype(np.int32)
         # next-token objective: targets are inputs shifted left
         tgt = np.roll(toks, -1, axis=-1)
         tgt[..., -1] = -1  # no target for the last position
-        return {"inputs": toks, "targets": tgt}
+        out = {"inputs": toks, "targets": tgt}
+        if vlm:
+            out["patches"] = rng.standard_normal(
+                (self.mb, self.batch, cfg.img_tokens, cfg.d_model),
+                dtype=np.float32)
+        if cfg.is_encdec:
+            out["frames"] = rng.standard_normal(
+                (self.mb, self.batch, self.seq, cfg.d_model),
+                dtype=np.float32)
+        return out
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         step = 0

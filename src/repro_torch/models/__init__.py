@@ -1,12 +1,12 @@
 """Model configuration, parameter specs and the language model.
 
-Every decoder-only family of the reference: dense GQA ``attn`` blocks
-(internlm2, gemma-7b, qwen2-72b with QKV bias), MoE blocks with GQA or
-MLA attention (llama4-maverick, deepseek-v2), Mamba-2 ``ssm`` blocks and
-the RG-LRU hybrid (``rglru`` and ``local_attn`` blocks): parameter and
-cache specs, initialization, the loss, and the prefill and decode
-forwards.  The encoder-decoder and VLM frontends are a later slice
-(ROADMAP queue A item 12).
+Every family of the reference: dense GQA ``attn`` blocks (internlm2,
+gemma-7b, qwen2-72b with QKV bias), MoE blocks with GQA or MLA attention
+(llama4-maverick, deepseek-v2), Mamba-2 ``ssm`` blocks, the RG-LRU hybrid
+(``rglru`` and ``local_attn`` blocks), LLaVA's projected patch prefix and
+Whisper's encoder (``enc_attn`` blocks) and cross-attending decoder
+(``xattn`` blocks): parameter and cache specs, initialization, the loss,
+and the prefill and decode forwards.
 """
 
 from .config import ModelConfig

@@ -7,8 +7,8 @@ accumulation on the TPU) becomes :func:`f32_einsum`, its runnable form:
 both operands upcast to float32.  :func:`gelu_tanh` is
 ``jax.nn.gelu(approximate=True)`` as the reference runs it: operation by
 operation in the input's dtype.  :func:`causal_conv1d` serves the SSM and
-RG-LRU families; ``layer_norm`` and ``sinusoidal_positions`` belong to the
-families still to port (ROADMAP queue A).
+RG-LRU families; :func:`sinusoidal_positions` is Whisper's position
+table (both of its stacks), in float32 like the reference's.
 """
 
 from __future__ import annotations
@@ -18,8 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "gelu_tanh", "apply_act", "mlp", "f32_einsum",
-           "causal_conv1d"]
+__all__ = ["rms_norm", "rope", "sinusoidal_positions", "gelu_tanh",
+           "apply_act", "mlp", "f32_einsum", "causal_conv1d"]
 
 
 def f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,6 +53,23 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Transformer sinusoidal table for arbitrary positions (Whisper):
+    (..., d_model) float32, sines then cosines.  Callers cast it to the
+    activations' dtype before adding it, as the reference does.  The
+    frequencies are the float32 exponents' powers rounded once from
+    float64: XLA's float32 power is correctly rounded there and
+    PyTorch's is not always (an ulp of a frequency is an ulp of the
+    angle times the position, 1e-4 at position 1500)."""
+    pos = positions.float()
+    expo = -torch.arange(0, d_model, 2, dtype=torch.float32,
+                         device=positions.device) / d_model
+    inv = (10000.0 ** expo.double()).float()
+    ang = pos[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

@@ -1,22 +1,28 @@
-"""Language model assembly for every decoder-only family: specs, loss,
-prefill, decode.
+"""Language model assembly for every family: specs, loss, prefill, decode.
 
 The counterpart of ``repro.models.lm`` for dense GQA ``attn`` blocks (with
 or without QKV bias), DeepSeek-V2's MLA attention, ``moe`` blocks (GQA or
-MLA attention and a routed MLP with shared experts), Mamba-2 ``ssm`` blocks
-and RecurrentGemma's ``rglru`` and ``local_attn`` blocks:
-``param_specs``, ``init_cache_specs``, the prefill and decode forwards and
-their factories; names, shapes, dtypes, logical axes and init kinds are the
-reference's.  ``make_loss_fn`` (training) covers every ported kind with the
+MLA attention and a routed MLP with shared experts), Mamba-2 ``ssm`` blocks,
+RecurrentGemma's ``rglru`` and ``local_attn`` blocks, and the two
+frontends: LLaVA's projected patch embeddings (``mm_proj``) before the
+text, and Whisper's encoder (``enc_attn`` blocks, full attention over the
+frame embeddings, ``enc_norm``) under a decoder of ``xattn`` blocks (causal
+self-attention, then cross-attention to the encoder's output), both
+stacks with sinusoidal positions and no RoPE.  ``param_specs``,
+``init_cache_specs``, the prefill and decode forwards and their
+factories; names, shapes, dtypes, logical axes and init kinds are the
+reference's.  ``make_loss_fn`` (training) covers every kind with the
 reference's differentiable paths, which autograd differentiates:
-:func:`~.attention.blockwise_attention` for ``attn``, ``moe`` and
-(windowed) ``local_attn`` blocks and MLA, :func:`~.moe.moe_mlp` for the
-routed MLP (with the load-balance loss, weighted ``MOE_AUX_WEIGHT``),
-:func:`~.ssm.ssd_chunked` for ``ssm`` blocks and
-:func:`~.griffin.linear_scan` for ``rglru`` blocks; no kernel of the
-package runs in it (none has a backward).  The encoder-decoder and VLM
-frontends wait for a later slice (ROADMAP queue A item 12); asking for one
-raises ``NotImplementedError`` naming it.
+:func:`~.attention.blockwise_attention` for ``attn``, ``moe``,
+(windowed) ``local_attn``, ``enc_attn`` and both halves of ``xattn``
+blocks and MLA, :func:`~.moe.moe_mlp` for the routed MLP (with the
+load-balance loss, weighted ``MOE_AUX_WEIGHT``), :func:`~.ssm.ssd_chunked`
+for ``ssm`` blocks and :func:`~.griffin.linear_scan` for ``rglru``
+blocks; no kernel of the package runs in it (none has a backward).  In
+prefill every whole-sequence attention goes to the kernel through
+:func:`~.attention.prefill_attention`: causal self-attention, the
+encoder's full attention over the frames, and the decoder's
+cross-attention from the prompt to the frames (queries fewer than keys).
 
 Conventions: params and caches are flat dicts ``g{gi}/p{pj}/<name>`` with
 a leading "layers" axis of length ``reps``; the reference's scan over that
@@ -26,17 +32,27 @@ functions, prefill and decode write the cache they are given in place (a
 KV cache is the largest tensor of a serving run; copying it per step would
 double it).
 
+Positions: LLaVA's patches take positions 0 .. img_tokens - 1 and the
+text follows, so its decode positions count the patches; the loss drops
+the patch positions before the head.
+
 Two-tier KV cache: ``k``/``v`` (main, length ``cache_len``) and
 ``tk``/``tv`` (tail, ``decode_tail`` slots; position p at slot p % Tt);
 an MLA block's is the latent ``ckv``/``kr`` (main) and ``tckv``/``tkr``
-(tail), the same way.  Decode writes the tail; the engine merges a full
-tail into main before the step at a multiple of Tt.  Prefill leaves the
+(tail), the same way, and so is an ``xattn`` block's self half.  Decode
+writes the tail; the engine merges a full tail into main before the step
+at a multiple of Tt.  Prefill leaves the
 state that decoding the prompt one token at a time would leave: the tail
 holds the prompt's last ``(S - 1) % Tt + 1`` positions, so a prompt whose
 length is a multiple of Tt ends with a full tail, which the first step's
 merge writes exactly.  (The reference puts all S positions in main in that
 case, and its first merge then writes the empty tail over them: ROADMAP
 queue C.)
+
+Cross-attention cache (``xattn``): ``xk``/``xv`` (B, enc_len, K, hd), the
+encoder output's keys and values, written by prefill from slot 0 and read
+by every decode step, which attends all ``enc_len`` slots (as the
+reference's does); the engine takes frames of exactly ``enc_len``.
 
 SSM cache: ``h`` (B,H,N,P) float32, the SSD state after the last position,
 and ``conv`` (B,K-1,conv_dim) bf16, the last K-1 conv inputs.  Prefill
@@ -64,7 +80,7 @@ from .attention import (blockwise_attention, decode_attention,
                         decode_attention_two_tier, prefill_attention)
 from .config import ModelConfig
 from .griffin import griffin_decode_step, griffin_forward
-from .layers import mlp, rms_norm, rope
+from .layers import mlp, rms_norm, rope, sinusoidal_positions
 from .mla import mla_attention, mla_decode_two_tier
 from .moe import moe_mlp
 from .spec import ParamSpec, sub
@@ -78,25 +94,15 @@ MOE_AUX_WEIGHT = 0.01
 # parameters kept in f32 inside the (bf16) forward pass
 _KEEP_F32 = {"A_log", "dt_bias", "D", "lam", "b_i", "b_r", "router"}
 
-# the block kinds of the frontends, planned for ROADMAP queue A item 12
-_UNPORTED = {"xattn", "enc_attn"}
-_FRONTENDS = "item 12 (frontends)"
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet: "
-                               f"see ROADMAP.md queue A {item}")
-
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the forward does not cover: the encoder-decoder and
-    VLM frontends (their blocks too), and attention kinds that no
-    configuration of the reference pairs with a block kind."""
+    """Raise for attention kinds that no configuration of the reference
+    pairs with a block kind: MLA serves ``attn`` and ``moe`` blocks only."""
     kinds = {kind for _, pattern in cfg.groups() for kind in pattern}
-    if cfg.frontend != "none" or cfg.is_encdec or kinds & _UNPORTED:
-        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder",
-                        _FRONTENDS)
-    if ("local_attn" in kinds and cfg.attn_kind != "gqa") or (
+    if cfg.is_encdec:
+        kinds.add("enc_attn")
+    if (kinds & {"local_attn", "xattn", "enc_attn"}
+            and cfg.attn_kind != "gqa") or (
             kinds & {"attn", "moe"} and cfg.attn_kind not in ("gqa", "mla")):
         raise ValueError(f"{cfg.attn_kind} attention in {sorted(kinds)} "
                          "blocks: not a configuration of the reference")
@@ -228,20 +234,20 @@ def _block_specs(cfg: ModelConfig, kind: str) -> dict[str, ParamSpec]:
     if kind == "rglru":
         return {"norm1": _norm(D), **_rglru_specs(cfg), "norm2": _norm(D),
                 **_mlp_specs(cfg)}
-    if kind not in ("attn", "local_attn", "moe"):
-        raise _unported(f"{kind!r} blocks", _FRONTENDS)
+    if kind not in ("attn", "local_attn", "moe", "xattn", "enc_attn"):
+        raise ValueError(f"unknown block kind {kind!r}")
     s: dict[str, ParamSpec] = {"norm1": _norm(D)}
     s.update(_mla_specs(cfg) if cfg.attn_kind == "mla" else _attn_specs(cfg))
     s["norm2"] = _norm(D)
+    if kind == "xattn":  # whisper decoder: + cross attention
+        s["normx"] = _norm(D)
+        s.update(_attn_specs(cfg, prefix="x_"))
     s.update(_moe_specs(cfg) if kind == "moe" else _mlp_specs(cfg))
     return s
 
 
 def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
-    """Full parameter spec dict for a decoder-only architecture."""
-    if cfg.frontend != "none" or cfg.is_encdec:
-        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder "
-                        "specs", _FRONTENDS)
+    """Full parameter spec dict for an architecture."""
     D, V = cfg.d_model, cfg.vocab
     out: dict[str, ParamSpec] = {
         "embed/tok": ParamSpec((V, D), cfg.param_dtype, ("vocab", "fsdp"),
@@ -250,6 +256,12 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
     }
     if not cfg.tie_embeddings:
         out["lm_head"] = ParamSpec((D, V), cfg.param_dtype, ("fsdp", "vocab"))
+    if cfg.frontend == "vlm_stub":
+        out["mm_proj"] = ParamSpec((D, D), cfg.param_dtype, ("fsdp", None))
+    if cfg.is_encdec:
+        for name, spec in _block_specs(cfg, "enc_attn").items():
+            out[f"enc/g0/p0/{name}"] = spec.stack(cfg.enc_layers)
+        out["enc_norm"] = _norm(D)
     for gi, (reps, pattern) in enumerate(cfg.groups()):
         for pj, kind in enumerate(pattern):
             for name, spec in _block_specs(cfg, kind).items():
@@ -261,8 +273,8 @@ def param_specs(cfg: ModelConfig) -> dict[str, ParamSpec]:
 # Cache specs
 # ---------------------------------------------------------------------------
 
-def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
-                       T: int) -> dict[str, ParamSpec]:
+def _block_cache_specs(cfg: ModelConfig, kind: str, B: int, T: int,
+                       enc_T: int = 0) -> dict[str, ParamSpec]:
     if kind == "ssm":
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
         return {
@@ -277,8 +289,8 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
             "conv": ParamSpec((B, cfg.ssm_conv - 1, cfg.lru), "bfloat16",
                               ("batch", "conv", "state")),
         }
-    if kind not in ("attn", "local_attn", "moe"):
-        raise _unported(f"the cache of {kind!r} blocks", _FRONTENDS)
+    if kind not in ("attn", "local_attn", "moe", "xattn"):
+        raise ValueError(f"no decoder cache for {kind!r} blocks")
     Tt = min(cfg.decode_tail, max(1, T))
     if cfg.attn_kind == "mla":
         r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
@@ -300,7 +312,7 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
             "v": ParamSpec((B, W, K, hd), "bfloat16",
                            ("batch", "cache_seq", "kv_heads", None)),
         }
-    return {
+    s = {
         "k": ParamSpec((B, T, K, hd), "bfloat16",
                        ("batch", "cache_seq", "kv_heads", None)),
         "v": ParamSpec((B, T, K, hd), "bfloat16",
@@ -310,18 +322,23 @@ def _block_cache_specs(cfg: ModelConfig, kind: str, B: int,
         "tv": ParamSpec((B, Tt, K, hd), "bfloat16",
                         ("batch", None, None, None)),
     }
+    if kind == "xattn":  # the encoder output's keys and values
+        s["xk"] = ParamSpec((B, enc_T, K, hd), "bfloat16",
+                            ("batch", "cache_seq", "kv_heads", None))
+        s["xv"] = ParamSpec((B, enc_T, K, hd), "bfloat16",
+                            ("batch", "cache_seq", "kv_heads", None))
+    return s
 
 
-def init_cache_specs(cfg: ModelConfig, batch: int,
-                     cache_len: int) -> dict[str, ParamSpec]:
-    if cfg.frontend != "none" or cfg.is_encdec:
-        raise _unported(f"the {cfg.frontend!r} frontend / encoder-decoder "
-                        "cache", _FRONTENDS)
+def init_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
+                     enc_len: int = 0) -> dict[str, ParamSpec]:
+    """The decode state of every block; ``enc_len``: the encoder context
+    of an encoder-decoder model (its ``xattn`` blocks' ``xk``/``xv``)."""
     out: dict[str, ParamSpec] = {}
     for gi, (reps, pattern) in enumerate(cfg.groups()):
         for pj, kind in enumerate(pattern):
-            for name, spec in _block_cache_specs(cfg, kind, batch,
-                                                 cache_len).items():
+            for name, spec in _block_cache_specs(cfg, kind, batch, cache_len,
+                                                 enc_len).items():
                 out[f"g{gi}/p{pj}/{name}"] = spec.stack(reps)
     return out
 
@@ -329,6 +346,11 @@ def init_cache_specs(cfg: ModelConfig, batch: int,
 # ---------------------------------------------------------------------------
 # Block forwards (one layer; ``p`` and ``cache`` without the layers axis)
 # ---------------------------------------------------------------------------
+
+def _use_rope(cfg: ModelConfig) -> bool:
+    """Whisper (the audio family) has sinusoidal positions, not RoPE."""
+    return cfg.family != "audio"
+
 
 def _qkv(cfg, p, h, positions):
     B, S, _ = h.shape
@@ -341,22 +363,54 @@ def _qkv(cfg, p, h, positions):
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, K, hd)
     v = v.reshape(B, S, K, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if _use_rope(cfg):
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _attn_block(cfg, p, x, positions, window=None):
-    """Causal self-attention of a whole prompt (within ``window``, if
-    given); returns (x, (k, v)), or for MLA (x, (c_kv, k_rope))."""
+def _attend(q, k, v, *, causal: bool, window=None, train: bool = False):
+    """Attention of a whole sequence from position 0: the differentiable
+    online-softmax scan in training, the prefill kernel otherwise."""
+    if train:
+        return blockwise_attention(q, k, v, causal=causal, window=window)
+    return prefill_attention(q, k, v, causal=causal, window=window)
+
+
+def _attn_block(cfg, p, x, positions, *, causal=True, window=None,
+                train=False):
+    """Self-attention of a whole sequence (causal but in the encoder;
+    within ``window``, if given); returns (x, (k, v)), or for MLA (x,
+    (c_kv, k_rope))."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
-        o, cache = mla_attention(cfg, p, h, positions)
+        o, cache = mla_attention(cfg, p, h, positions, train=train)
         return x + o, cache
     q, k, v = _qkv(cfg, p, h, positions)
     B, S = x.shape[:2]
-    o = prefill_attention(q, k, v, causal=True, window=window)
+    o = _attend(q, k, v, causal=causal, window=window, train=train)
     return x + o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def _xattn_cross(cfg, p, x, *, enc_out=None, cached_kv=None, train=False):
+    """Cross-attention sub-block of an ``xattn`` block: queries from x,
+    keys and values from the encoder's output ``enc_out`` (full attention
+    of the whole sequence, queries fewer than keys) or from the cache
+    (``cached_kv``: one decode step over every cached slot, plain).
+    Returns (x, (k, v))."""
+    B, S, _ = x.shape
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    h = rms_norm(x, p["normx"], cfg.norm_eps)
+    q = (h @ p["x_wq"]).reshape(B, S, H, hd)
+    if cached_kv is not None:
+        k, v = cached_kv
+        o = decode_attention(q, k, v, k.shape[1])
+    else:
+        T = enc_out.shape[1]
+        k = (enc_out @ p["x_wk"]).reshape(B, T, K, hd)
+        v = (enc_out @ p["x_wv"]).reshape(B, T, K, hd)
+        o = _attend(q, k, v, causal=False, train=train)
+    return x + o.reshape(B, S, -1) @ p["x_wo"], (k, v)
 
 
 def _mlp_res(cfg, p, x):
@@ -374,8 +428,9 @@ def _ffn_res(cfg, kind, p, x):
     return _mlp_res(cfg, p, x), None
 
 
-def _block_prefill(cfg, kind, p, x, positions, cache):
-    """The prompt through one block; fills ``cache`` in place."""
+def _block_prefill(cfg, kind, p, x, positions, cache, enc_out=None):
+    """The prompt through one block; fills ``cache`` in place (an
+    ``xattn`` block's ``xk``/``xv`` from ``enc_out``)."""
     if kind == "ssm":
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         o, (hs, conv) = mamba2_forward(cfg, p, h, return_state=True)
@@ -406,14 +461,19 @@ def _block_prefill(cfg, kind, p, x, positions, cache):
     for (main, tail), t in zip(names, kv):
         cache[main][:, :base] = t[:, :base]
         cache[tail][:, :S - base] = t[:, base:]
+    if kind == "xattn":
+        x, (xk, xv) = _xattn_cross(cfg, p, x, enc_out=enc_out)
+        cache["xk"][:, :xk.shape[1]] = xk
+        cache["xv"][:, :xv.shape[1]] = xv
     return _ffn_res(cfg, kind, p, x)[0]
 
 
 def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
     """One token (x: (B,1,D)) at absolute position ``pos`` through one
-    block.  ``attn`` and ``moe``: an O(1) write into the tail (MLA: the
-    latent's); main is read only.  ``local_attn``: a write into ring slot
-    pos % W.  ``ssm`` and ``rglru``: the state and the conv carry are
+    block.  ``attn``, ``moe`` and ``xattn``: an O(1) write into the tail
+    (MLA: the latent's); main is read only; an ``xattn`` block then
+    attends the cached encoder output.  ``local_attn``: a write into ring
+    slot pos % W.  ``ssm`` and ``rglru``: the state and the conv carry are
     overwritten."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
@@ -447,6 +507,8 @@ def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
     o = decode_attention_two_tier(q, cache["k"], cache["v"], cache["tk"],
                                   cache["tv"], pos)
     x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
+    if kind == "xattn":
+        x = _xattn_cross(cfg, p, x, cached_kv=(cache["xk"], cache["xv"]))[0]
     return _ffn_res(cfg, kind, p, x)[0]
 
 
@@ -488,29 +550,67 @@ def _logits(cfg, params, x):
     return logits
 
 
+def _encode(cfg, params, frames, *, train: bool = False):
+    """Whisper's encoder over the stubbed frame embeddings (B, S_enc, D):
+    sinusoidal positions, ``enc_layers`` blocks of full self-attention
+    and MLP, then ``enc_norm``.  ``train``: the differentiable path, each
+    layer a remat unit; otherwise the attention kernel."""
+    x = frames.to(getattr(torch, cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    if train:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _ = _scan_group_train(cfg, params, "enc/g0", cfg.enc_layers,
+                                 ("enc_attn",), x, positions, aux)
+    else:
+        gp = {k: t.unbind(0) for k, t in sub(params, "enc/g0/p0").items()}
+        for layer in range(cfg.enc_layers):
+            p = {k: t[layer] for k, t in gp.items()}
+            x = _mlp_res(cfg, p, _attn_block(cfg, p, x, positions,
+                                             causal=False)[0])
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _prepare_inputs(cfg, params, batch, *, train: bool = False):
+    """The decoder's input sequence: (x, positions, enc_out, img).  A VLM
+    puts the projected patches (``batch["patches"]``, (B, img, D)) before
+    the text and returns their count ``img`` (0 otherwise); an
+    encoder-decoder model encodes ``batch["frames"]`` (``enc_out``, None
+    otherwise) and adds sinusoidal positions to the text."""
+    x = _embed(cfg, params, batch["inputs"])
+    enc_out, img = None, 0
+    if cfg.frontend == "vlm_stub":
+        patches = batch["patches"].to(x.dtype) @ params["mm_proj"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        img = patches.shape[1]
+    positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.is_encdec:
+        enc_out = _encode(cfg, params, batch["frames"], train=train)
+        x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
+    return x, positions, enc_out, img
+
+
 # ---------------------------------------------------------------------------
-# Training forward (every ported kind)
+# Training forward (every kind)
 # ---------------------------------------------------------------------------
 
-def _block_train(cfg, kind, p, x, positions, aux):
-    """Full-sequence block application (train): the reference's
-    ``_block_train`` for the ported kinds; a ``moe`` block adds its
+def _block_train(cfg, kind, p, x, positions, aux, enc_out=None):
+    """Full-sequence block application in training (the encoder's blocks
+    too): the reference's ``_block_train``; a ``moe`` block adds its
     load-balance loss to ``aux``.  Returns (x, aux).  Only differentiable
     plain paths: never a kernel of ``ops``."""
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
         return x + mamba2_forward(cfg, p, h, train=True), aux
     if kind == "rglru":
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
         return _mlp_res(cfg, p, x + griffin_forward(cfg, p, h,
                                                     train=True)), aux
-    if cfg.attn_kind == "mla":
-        x = x + mla_attention(cfg, p, h, positions, train=True)[0]
-    else:
-        q, k, v = _qkv(cfg, p, h, positions)
-        B, S = x.shape[:2]
-        window = cfg.window if kind == "local_attn" else None
-        o = blockwise_attention(q, k, v, causal=True, window=window)
-        x = x + o.reshape(B, S, -1) @ p["wo"]
+    window = cfg.window if kind == "local_attn" else None
+    x = _attn_block(cfg, p, x, positions, causal=kind != "enc_attn",
+                    window=window, train=True)[0]
+    if kind == "xattn":
+        x = _xattn_cross(cfg, p, x, enc_out=enc_out, train=True)[0]
     x, a = _ffn_res(cfg, kind, p, x)
     return x, aux if a is None else aux + a
 
@@ -540,20 +640,22 @@ def _remat(cfg: ModelConfig, fn):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)  # "full"
 
 
-def _scan_group_train(cfg, params, gi, reps, pattern, x, positions, aux):
-    """The reference's scan over a group's stacked layers, as a loop; each
-    layer is one remat unit.  Returns (x, aux)."""
-    gp = sub(params, f"g{gi}")
+def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
+                      enc_out=None):
+    """The reference's scan over the stacked layers of ``group`` (``g{gi}``,
+    or the encoder's ``enc/g0``), as a loop; each layer is one remat unit.
+    Returns (x, aux)."""
+    gp = sub(params, group)
 
-    def body(x, aux, layer_params):
+    def body(x, aux, layer_params, enc_out):
         for pj, kind in enumerate(pattern):
             x, aux = _block_train(cfg, kind, sub(layer_params, f"p{pj}"), x,
-                                  positions, aux)
+                                  positions, aux, enc_out)
         return x, aux
 
     body = _remat(cfg, body)
     for layer in range(reps):
-        x, aux = body(x, aux, {k: t[layer] for k, t in gp.items()})
+        x, aux = body(x, aux, {k: t[layer] for k, t in gp.items()}, enc_out)
     return x, aux
 
 
@@ -562,22 +664,25 @@ def make_loss_fn(cfg: ModelConfig):
 
     ``params``: the parameter tree as :func:`param_specs` gives it (not
     cast).  batch: inputs (B,S) and targets (B,S) integer tensors on the
-    parameters' device (-1 = masked).  Masked next-token cross-entropy in
-    float32 through ``logsumexp``, plus ``MOE_AUX_WEIGHT`` times the
-    summed load-balance loss of the ``moe`` blocks; metrics ``ce``, ``aux``
-    (0 without MoE blocks) and ``ntok``.
+    parameters' device (-1 = masked), and ``patches`` (B, img_tokens, D)
+    for a VLM or ``frames`` (B, S_enc, D) for an encoder-decoder model.
+    Masked next-token cross-entropy in float32 through ``logsumexp`` over
+    the text positions (a VLM's patch positions are dropped before the
+    head), plus ``MOE_AUX_WEIGHT`` times the summed load-balance loss of
+    the ``moe`` blocks; metrics ``ce``, ``aux`` (0 without MoE blocks) and
+    ``ntok``.
     """
     _check_ported(cfg)
 
     def loss_fn(params, batch):
         params = cast_params(cfg, params)
-        x = _embed(cfg, params, batch["inputs"])
-        positions = torch.arange(x.shape[1], device=x.device)
+        x, positions, enc_out, img = _prepare_inputs(cfg, params, batch,
+                                                     train=True)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, (reps, pattern) in enumerate(cfg.groups()):
-            x, aux = _scan_group_train(cfg, params, gi, reps, pattern, x,
-                                       positions, aux)
-        logits = _logits(cfg, params, x)
+            x, aux = _scan_group_train(cfg, params, f"g{gi}", reps, pattern,
+                                       x, positions, aux, enc_out)
+        logits = _logits(cfg, params, x[:, img:])
         targets = batch["targets"]
         mask = (targets >= 0).float()
         tgt = torch.clamp(targets, min=0).long()
@@ -600,18 +705,20 @@ def make_loss_fn(cfg: ModelConfig):
 def make_prefill_fn(cfg: ModelConfig):
     """Returns prefill(params, batch, cache0) -> (last_logits, cache0).
 
-    ``params`` are cast by :func:`cast_params`.  ``batch["inputs"]``: (B, S) token ids on the parameters' device.
-    ``cache0`` (zeros, sized by :func:`init_cache_specs`) is filled in
-    place and returned.
+    ``params`` are cast by :func:`cast_params`.  ``batch["inputs"]``:
+    (B, S) token ids on the parameters' device; a VLM's ``patches`` (B,
+    img_tokens, D) take positions 0 .. img_tokens - 1 before them, and an
+    encoder-decoder model's ``frames`` (B, S_enc, D) are encoded and
+    cached for cross-attention.  ``cache0`` (zeros, sized by
+    :func:`init_cache_specs`) is filled in place and returned.
     """
     _check_ported(cfg)
 
     @torch.no_grad()
     def prefill_fn(params, batch, cache0):
-        x = _embed(cfg, params, batch["inputs"])
-        positions = torch.arange(x.shape[1], device=x.device)
+        x, positions, enc_out, _ = _prepare_inputs(cfg, params, batch)
         for kind, p, c in _layers(cfg, params, cache0):
-            x = _block_prefill(cfg, kind, p, x, positions, c)
+            x = _block_prefill(cfg, kind, p, x, positions, c, enc_out)
         return _logits(cfg, params, x[:, -1:]), cache0
 
     return prefill_fn
@@ -620,7 +727,8 @@ def make_prefill_fn(cfg: ModelConfig):
 def make_decode_fn(cfg: ModelConfig):
     """Returns decode(params, cache, tokens (B,1), pos) -> (logits, cache).
 
-    ``params`` are cast by :func:`cast_params`; ``pos`` is the absolute position of ``tokens`` (a Python int); the
+    ``params`` are cast by :func:`cast_params`; ``pos`` is the absolute
+    position of ``tokens`` (a Python int; a VLM's counts its patches); the
     cache is written in place and returned.
     """
     _check_ported(cfg)
@@ -629,6 +737,9 @@ def make_decode_fn(cfg: ModelConfig):
     def decode_fn(params, cache, tokens, pos: int):
         x = _embed(cfg, params, tokens)
         positions = torch.full((1,), pos, device=x.device)
+        if cfg.is_encdec:
+            x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(
+                x.dtype)
         for kind, p, c in _layers(cfg, params, cache):
             x = _block_decode(cfg, kind, p, x, pos, positions, c)
         return _logits(cfg, params, x), cache

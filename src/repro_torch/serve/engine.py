@@ -1,15 +1,16 @@
 """Batched serving engine with window-backed session persistence.
 
 The counterpart of ``repro.serve.engine``: prefill + greedy decode of every
-decoder-only family (dense, MoE with GQA or MLA attention, SSM, RG-LRU
-hybrid) on one device.  The paper's technique appears as
-:class:`SessionStore`: the whole decode state (KV caches, position and the
-generated tokens) maps onto a *combined* storage window -- ``factor`` says
-how much of it stays pinned in host memory and how much spills to storage
--- and a selective ``sync()`` makes a session durable: an engine can be
-killed and reopened mid-generation and continue exactly.  The window
-layout is the reference's, so both packages write the same session file
-for the same state.
+family (dense, MoE with GQA or MLA attention, SSM, RG-LRU hybrid, and the
+frontends: a VLM's patch embeddings before the prompt, an encoder-decoder
+model's frames encoded once in prefill) on one device.  The paper's
+technique appears as :class:`SessionStore`: the whole decode state (KV
+caches, position and the generated tokens) maps onto a *combined* storage
+window -- ``factor`` says how much of it stays pinned in host memory and
+how much spills to storage -- and a selective ``sync()`` makes a session
+durable: an engine can be killed and reopened mid-generation and continue
+exactly.  The window layout is the reference's, so both packages write the
+same session file for the same state.
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ class Engine:
     """Prefill + greedy decode on ``device`` (``"cuda"`` unless the caller
     asks for another).  The parameters are moved there and cast to the
     compute dtype once, here; the cache is allocated once and written in
-    place."""
+    place.  ``enc_len``: an encoder-decoder model's encoder context, the
+    frames every prefill takes (the cross-attention cache's length)."""
 
     # two-tier KV cache (MLA: its latent cache): merge the append tail into
     # main every Tt steps (an SSM or RG-LRU state is overwritten every step
@@ -80,7 +82,8 @@ class Engine:
     _TAIL_TO_MAIN = {"tk": "k", "tv": "v", "tckv": "ckv", "tkr": "kr"}
 
     def __init__(self, cfg: ModelConfig, params: dict, *, batch: int,
-                 max_len: int, session: SessionStore | None = None,
+                 max_len: int, enc_len: int = 0,
+                 session: SessionStore | None = None,
                  device: str | torch.device = "cuda"):
         exact_float32()
         self.cfg = cfg
@@ -89,7 +92,11 @@ class Engine:
             cfg, {k: v.to(self.device) for k, v in params.items()})
         self.batch = batch
         self.max_len = max_len
-        self.cache_specs = init_cache_specs(cfg, batch, max_len)
+        if cfg.is_encdec and enc_len < 1:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: give "
+                             "the engine its encoder context, enc_len")
+        self.enc_len = enc_len
+        self.cache_specs = init_cache_specs(cfg, batch, max_len, enc_len)
         self._prefill = make_prefill_fn(cfg)
         self._decode = make_decode_fn(cfg)
         self.cache = {k: torch.zeros(v.shape, dtype=getattr(torch, v.dtype),
@@ -132,6 +139,22 @@ class Engine:
             raise ValueError(f"token ids must be in [0, {self.cfg.vocab})")
         return torch.from_numpy(a.astype(np.int64)).to(self.device)
 
+    def _embeddings(self, batch_inputs: dict, key: str,
+                    length: int) -> torch.Tensor:
+        """A frontend's input, ``batch_inputs[key]`` (numpy or torch, any
+        floating dtype), as a (batch, length, d_model) tensor on the
+        device, its dtype kept (the model casts it)."""
+        if key not in batch_inputs:
+            raise ValueError(f"{self.cfg.name} takes {key!r} in prefill")
+        a = batch_inputs[key]
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        want = (self.batch, length, self.cfg.d_model)
+        if tuple(t.shape) != want or not t.is_floating_point():
+            raise ValueError(f"{key} must be floating {want}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        return t.to(self.device)
+
     @staticmethod
     def _argmax(logits: torch.Tensor) -> np.ndarray:
         # like jnp.argmax, torch.argmax takes the first maximum
@@ -139,14 +162,28 @@ class Engine:
             np.int32)
 
     def prefill(self, batch_inputs: dict) -> np.ndarray:
-        toks = self._tokens(batch_inputs["inputs"])
-        if not 1 <= toks.shape[1] <= self.max_len:
-            raise ValueError(f"prompt length {toks.shape[1]} not in "
+        """The prompt, ``batch_inputs["inputs"]`` (batch, S), through the
+        model; a VLM also takes ``patches`` (batch, img_tokens, d_model),
+        which take the first img_tokens positions, and an encoder-decoder
+        model ``frames`` (batch, enc_len, d_model).  Returns the first
+        greedy token of each request."""
+        cfg = self.cfg
+        batch = {"inputs": self._tokens(batch_inputs["inputs"])}
+        length = batch["inputs"].shape[1]
+        if cfg.frontend == "vlm_stub":
+            batch["patches"] = self._embeddings(batch_inputs, "patches",
+                                                cfg.img_tokens)
+            length += cfg.img_tokens
+        if cfg.is_encdec:
+            batch["frames"] = self._embeddings(batch_inputs, "frames",
+                                               self.enc_len)
+        if not 1 <= length <= self.max_len:
+            raise ValueError(f"prompt length {length} not in "
                              f"[1, {self.max_len}]")
         for t in self.cache.values():
             t.zero_()
-        logits, _ = self._prefill(self.params, {"inputs": toks}, self.cache)
-        self.pos = toks.shape[1]
+        logits, _ = self._prefill(self.params, batch, self.cache)
+        self.pos = length
         return self._argmax(logits)
 
     def decode_logits(self, tokens) -> torch.Tensor:

@@ -77,10 +77,11 @@ def rel_err(a, b):
 # -- the registry ---------------------------------------------------------------
 
 def test_archs_are_the_reference_decoder_only_configs():
-    """Every configuration of the reference but the two frontends, field
-    for field, full and reduced for smoke; OFFLOAD_ARCHS the same."""
-    assert sorted(ARCHS) == sorted(set(J_ARCHS) - set(FRONTENDS))
-    assert len(ARCHS) == 8
+    """Every configuration of the reference, the eight decoder-only ones
+    and the two frontends, field for field, full and reduced for smoke, in
+    the reference's order; OFFLOAD_ARCHS the same."""
+    assert list(ARCHS) == list(J_ARCHS)
+    assert len(ARCHS) == 10 and set(FRONTENDS) <= set(ARCHS)
     assert OFFLOAD_ARCHS == J_OFFLOAD_ARCHS
     for arch in ARCHS:
         for smoke in (False, True):
@@ -115,14 +116,23 @@ def test_param_and_cache_specs_match_reference(arch):
 
 @pytest.mark.parametrize("arch", FRONTENDS)
 def test_frontends_raise_naming_item_12(arch):
-    """The only configurations of the reference the port does not take:
-    every entry point names ROADMAP queue A item 12 (frontends)."""
+    """The frontends, once refused naming ROADMAP queue A item 12, are
+    ported: every entry point builds for them (the config made from the
+    reference's fields, as before), and the specs carry the frontend's own
+    parameters and cross-attention cache."""
     cfg = ModelConfig(**dataclasses.asdict(j_get_config(arch, smoke=True)))
-    for fn in (param_specs, make_loss_fn, make_prefill_fn, make_decode_fn,
-               lambda c: init_cache_specs(c, 1, 8)):
-        with pytest.raises(NotImplementedError,
-                           match=r"queue A item 12 \(frontends\)"):
-            fn(cfg)
+    assert cfg == get_config(arch, smoke=True)
+    for fn in (make_loss_fn, make_prefill_fn, make_decode_fn):
+        assert callable(fn(cfg))
+    specs = param_specs(cfg)
+    cache = init_cache_specs(cfg, 1, 8, cfg.enc_seq)
+    if arch == "whisper-base":
+        assert "enc_norm" in specs and "g0/p0/x_wq" in specs
+        assert cache["g0/p0/xk"].shape == (cfg.n_layers, 1, cfg.enc_seq,
+                                           cfg.n_kv_heads, cfg.hd)
+    else:
+        assert specs["mm_proj"].shape == (cfg.d_model, cfg.d_model)
+        assert not any(k.endswith("/xk") for k in cache)
 
 
 def test_init_params_scales_in_place_bit_for_bit():

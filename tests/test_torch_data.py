@@ -46,10 +46,34 @@ def test_synthetic_batches_byte_equal(arch, mb, rank):
 @pytest.mark.parametrize("change", [{"frontend": "vlm_stub"},
                                     {"enc_layers": 2}])
 def test_synthetic_refuses_frontend_batches(change):
+    """The frontends' batches, once refused naming A12, are ported: a VLM's
+    ``patches`` (``seq`` counts them) and an encoder-decoder model's
+    ``frames``, drawn after the tokens from the same generator, byte-equal
+    to the reference's (the same change on both packages' configs)."""
+    if change.get("frontend") == "vlm_stub":
+        change = dict(change, img_tokens=8)
+    jcfg = dataclasses.replace(jconfigs.get_config("internlm2-1.8b",
+                                                   smoke=True), **change)
     cfg = dataclasses.replace(tconfigs.get_config("internlm2-1.8b",
                                                   smoke=True), **change)
-    with pytest.raises(NotImplementedError, match="A12"):
-        SyntheticLM(cfg, batch=2, seq=24)
+    for mb, rank in ((1, 0), (3, 2)):
+        want = JSyntheticLM(jcfg, batch=2, seq=24, microbatches=mb, seed=5,
+                            rank=rank)
+        got = SyntheticLM(cfg, batch=2, seq=24, microbatches=mb, seed=5,
+                          rank=rank)
+        for step in (0, 17):
+            w, g = want.batch_at(step), got.batch_at(step)
+            assert sorted(g) == sorted(w)
+            assert ("patches" in g) == ("frontend" in change)
+            assert ("frames" in g) == ("enc_layers" in change)
+            for k in w:
+                assert g[k].dtype == w[k].dtype and g[k].shape == w[k].shape
+                assert g[k].tobytes() == w[k].tobytes(), k
+    if "frontend" in change:
+        assert g["inputs"].shape[-1] == 24 - 8
+        assert g["patches"].shape == (3, 2, 8, cfg.d_model)
+    else:
+        assert g["frames"].shape == (3, 2, 24, cfg.d_model)
 
 
 def test_window_backed_dataset_file_and_reads(tmp_path):

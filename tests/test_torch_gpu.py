@@ -431,6 +431,51 @@ def test_flash_attention_tc_at_the_prefill_shapes(cuda, B, H, K, S, d,
                                atol=1e-4)
 
 
+# full attention with queries fewer than keys at d 64 (Whisper's
+# cross-attention from an 8-token prompt to 1500 frames, and shorter and
+# ragged cases: a partial last query tile against many key tiles), and
+# Whisper's encoder, S = T = 1500: (B, H, K, S, T)
+NONCAUSAL = [(4, 8, 8, 8, 1500), (2, 8, 2, 1, 1500), (1, 4, 4, 70, 1500),
+             (2, 8, 8, 130, 333), (4, 8, 8, 1500, 1500)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,K,S,T", NONCAUSAL)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_tc_full_attention_s_below_t(cuda, B, H, K, S, T,
+                                                     dtype):
+    """Both tensor-core kernels with ``causal=False`` at d 64, S <= T, at
+    phase 1b's main limits (bf16 rtol 1e-2, atol 1e-4; float32 2e-5; q and
+    k at std 1.5, model layout): a key tile skipped or a row written past S
+    fails.  The output's rows are all S rows; the kernel of the dtype
+    launches and no other."""
+    d = 64
+    rng = np.random.default_rng(S + T)
+
+    def mk(n, heads, std):
+        a = rng.standard_normal((B, n, heads, d)) * std
+        return torch.from_numpy(a.astype(np.float32)).to(
+            cuda, dtype).transpose(1, 2)
+    q, k, v = mk(S, H, 1.5), mk(T, K, 1.5), mk(T, K, 0.4)
+    mine = flash_attention_tc if dtype == torch.bfloat16 \
+        else flash_attention_tc32
+    mods = (mine, flash_attention_tc32 if mine is flash_attention_tc
+            else flash_attention_tc, flash_attention)
+    before = [m.launches for m in mods]
+    got = ops.flash_attention(q, k, v, causal=False)
+    again = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert [m.launches for m in mods] == [before[0] + 2, *before[1:]]
+    assert got.shape == (B, H, S, d) and torch.equal(got, again)
+    rtol, atol = (1e-2, 1e-4) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    # the last key tile matters: without it the result moves far
+    cut = ref.flash_attention_ref(q, k, v, causal=False, t_actual=T - 64)
+    assert (cut.float() - want.float()).abs().max() > 100 * atol
+
+
 @pytest.mark.gpu
 def test_flash_attention_tc_refuses_what_it_does_not_take(cuda):
     """Head dimensions past D_MAX, other dtypes, and each kernel's other

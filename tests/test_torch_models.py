@@ -256,9 +256,12 @@ def test_reference_engine_inconsistent_at_multiple_of_decode_tail():
 
 
 def test_unported_blocks_raise():
-    """A block kind still to port names its ROADMAP item: the frontends'
-    (an encoder-decoder's ``xattn`` blocks, item 12); ``attn``, ``moe``,
-    ``ssm``, ``rglru`` and ``local_attn`` blocks are ported."""
+    """Every block kind is ported: ``attn``, ``moe``, ``ssm``, ``rglru`` and
+    ``local_attn``, and the frontends' (an encoder-decoder's ``xattn``
+    decoder blocks over its ``enc_attn`` encoder, once refused naming
+    item 12) build: specs with the encoder's stack and the cross-attention
+    weights, a cache with ``xk``/``xv``; MLA still pairs with no
+    encoder-decoder configuration of the reference."""
     from repro_torch.models import ModelConfig
     moe = ModelConfig(name="m", family="moe", n_layers=2, d_model=64,
                       n_heads=4, n_kv_heads=2, d_ff=128, vocab=64,
@@ -268,10 +271,14 @@ def test_unported_blocks_raise():
     assert "g0/p0/tk" in init_cache_specs(moe, 1, 8)
     encdec = dataclasses.replace(moe, family="audio", n_experts=0,
                                  enc_layers=2, enc_seq=16)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A item 12"):
-        make_prefill_fn(encdec)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
-        init_cache_specs(encdec, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 12"):
-        param_specs(encdec)
+    assert encdec.groups() == [(2, ("xattn",))]
+    make_prefill_fn(encdec)
+    cache = init_cache_specs(encdec, 1, 8, 16)
+    assert cache["g0/p0/xk"].shape == (2, 1, 16, 2, 16)
+    assert list(cache) == [f"g0/p0/{k}" for k in ("k", "v", "tk", "tv",
+                                                  "xk", "xv")]
+    specs = param_specs(encdec)
+    assert specs["enc/g0/p0/wq"].shape == (2, 64, 64)
+    assert {"enc_norm", "g0/p0/normx", "g0/p0/x_wk"} <= set(specs)
+    with pytest.raises(ValueError, match="not a configuration"):
+        make_prefill_fn(dataclasses.replace(encdec, attn_kind="mla"))

@@ -342,18 +342,22 @@ SMOKE_TRAFFIC = dict(batch=2, prompt=13, max_len=32, save_at=5,
                      factor="0.5", steps=12, gate_prompt=11)
 
 
-@pytest.mark.parametrize("sub", ["9a", "9b", "9c", "9d"])
+@pytest.mark.parametrize("sub", ["9a", "9b", "9c", "9d", "9e", "9f"])
 def test_new_config_phase_at_smoke_widths(tmp_path, chip_smoke, sub):
     """``chip_smoke.new_config_phase`` (phase 9: gemma-7b, qwen2-72b,
-    deepseek-v2-236b, llama4-maverick) on the CPU at the smoke configs:
-    generate, then the steps again (9c, 9d: through a saved and reopened
-    session) with the same tokens and the same final cache, the bf16
-    consistency reading (held at 0.02 for 9a), and the float32 gate at
-    1e-4 where the entry has one (9c's with the capacity raised: no
-    assignment dropped); the MoE configs' routing line."""
+    deepseek-v2-236b, llama4-maverick, and the frontends, LLaVA and
+    Whisper) on the CPU at the smoke configs: generate, then the steps
+    again (9c, 9d, 9f: through a saved and reopened session) with the same
+    tokens and the same final cache, the bf16 consistency reading (held at
+    0.02 for 9a), and the float32 gate at 1e-4 where the entry has one
+    (9c's with the capacity raised: no assignment dropped); the MoE
+    configs' routing line.  LLaVA's cache holds its 8 patch positions
+    too."""
     spec = chip_smoke.PHASE9[sub]
+    traffic = dict(SMOKE_TRAFFIC, max_len=40) if sub == "9e" \
+        else SMOKE_TRAFFIC
     out = chip_smoke.new_config_phase(sub, "cpu", directory=tmp_path / "w",
-                                      traffic=SMOKE_TRAFFIC, smoke=True,
+                                      traffic=traffic, smoke=True,
                                       log=lambda *a: None)
     assert out["tokens"].shape == (2, 12)
     assert ("session_flushed_bytes" in out) == spec["session"]
@@ -368,6 +372,25 @@ def test_new_config_phase_at_smoke_widths(tmp_path, chip_smoke, sub):
     if sub == "9c":
         assert out["float32_routing"]["dropped_prefill_S1"] == 0
     assert not any(out["comparator_launches"].values())
+    # the main path's attention calls filed by shape: two prefills, each
+    # attending once a layer of a kind (twice in an xattn layer); no launch
+    # on the CPU
+    shapes = out["launches_by_shape"]
+    assert not any(n for t in shapes.values() for k, n in t.items()
+                   if k != "calls")
+    B, H, K, hd = 2, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = SMOKE_TRAFFIC["prompt"] + (cfg.img_tokens if sub == "9e" else 0)
+    want = {chip_smoke.attention_key((B, H, K, S, S, hd), True):
+            2 * cfg.n_layers}
+    if sub == "9f":
+        T = cfg.enc_seq
+        want = {**want,
+                chip_smoke.attention_key((B, H, K, T, T, hd), False):
+                2 * cfg.enc_layers,
+                chip_smoke.attention_key((B, H, K, S, T, hd), False):
+                2 * cfg.n_layers}
+    if sub in ("9e", "9f"):
+        assert {k: t["calls"] for k, t in shapes.items()} == want
 
 
 def test_time_attention_scan_stops_at_the_card_check():

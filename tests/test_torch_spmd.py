@@ -208,3 +208,37 @@ def test_kill_one_rank_resumes_exactly(tmp_path):
                                       _tree(r, 8)["w"])
         mgr.close()
         comm.close()
+
+
+def test_stale_channel_keeps_the_respawned_rank_attached():
+    """The coordinator reads a dead rank's end of file late, after
+    ``rebuild_rank`` attached the respawn's channel (a loaded host): the
+    new channel must stay, and the respawned rank's next round must
+    complete.  The dropped channel is closed by the coordinator's own
+    loop, never while the loop may still read it (its fd would go to the
+    new channel)."""
+    import multiprocessing as mp
+    from repro_torch.core.transport.multiproc import _recv, _send
+    from repro_torch.core.transport.spmd import _Coordinator
+    coord = _Coordinator(2)
+    ranks = {0: mp.Pipe(duplex=True)}
+    coord.attach(0, ranks[0][0])
+    old, old_child = mp.Pipe(duplex=True)
+    coord.attach(1, old)
+    coord.mark_dead(1)                      # rebuild_rank drops it ...
+    assert not old.closed
+    ranks[1] = mp.Pipe(duplex=True)
+    coord.attach(1, ranks[1][0])            # ... and attaches the respawn
+    old_child.close()
+    coord._on_eof(1, old)                   # the stale end of file, late
+    assert coord._conns[1] is ranks[1][0] and 1 not in coord._excluded
+    coord.start()
+    try:
+        for r, (_, child) in ranks.items():
+            _send(child, ("round", r, (0, 1), 0, f"from {r}"))
+        for r, (_, child) in ranks.items():
+            assert child.poll(_WAIT_S), f"rank {r} got no reply"
+            assert _recv(child) == ("ok", {0: "from 0", 1: "from 1"})
+        assert old.closed
+    finally:
+        coord.stop()

@@ -172,19 +172,13 @@ def test_remat_does_not_change_a_bit(loss_case):
                                        ("llama4-maverick-400b-a17b", "item 12"),
                                        ("whisper-base", "item 12")])
 def test_untrained_kinds_raise_naming_their_item(arch, item):
-    """Each family's training under the ROADMAP item that ports it: item
-    16 (ssm, rglru and local_attn blocks) and item 12's MoE and MLA half
-    are ported, so those configs build a loss and take a finite one (with
-    the MoE load-balance term); item 12's frontends still raise, naming
-    it."""
+    """Each family's training under the ROADMAP item that ported it: item
+    16 (ssm, rglru and local_attn blocks) and item 12 (the MoE and MLA
+    half, and the frontends: Whisper's encoder-decoder, once refused) are
+    ported, so those configs build a loss and take a finite one (with the
+    MoE load-balance term) on a ``SyntheticLM`` batch (Whisper's with its
+    frames)."""
     jcfg = j_get_config(arch, smoke=True)
-    if arch == "whisper-base":  # not a config of the port: its fields
-        from repro_torch.models.config import ModelConfig
-        cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
-                             for f in dataclasses.fields(ModelConfig)})
-        with pytest.raises(NotImplementedError, match=item):
-            make_loss_fn(cfg)
-        return
     cfg = get_config(arch, smoke=True)
     batch = SyntheticLM(cfg, batch=2, seq=16, seed=0).batch_at(0)
     params = params_from_numpy(cfg, numpy_params(jcfg), "cpu")
