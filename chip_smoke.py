@@ -54,11 +54,11 @@ into ``build/repro_torch``), and then:
 * phase 3 drives the serving path, ``Engine`` with a ``SessionStore``, at
   internlm2-1.8b's full widths and depth (24 layers, 1.89 B parameters
   made on the card from a seed, cast once to bf16): 4 requests of 2000
-  prompt tokens, 110 greedy steps in a 4096-position cache (the two-tier
+  prompt tokens, 60 greedy steps in a 4096-position cache (the two-tier
   tail merges into main at 2048).  Run 1 is ``Engine.generate``; run 2
   saves the session (factor 0.5, under ``build/chip_smoke/``) at token
-  100, drops the engine, opens a fresh one on the same store, loads, and
-  runs on.  Run 2's 150 tokens must equal run 1's, the bf16 flash kernel
+  50, drops the engine, opens a fresh one on the same store, loads, and
+  runs on.  Run 2's 60 tokens must equal run 1's, the bf16 flash kernel
   (``flash_attention_tc``) must have launched once per layer in each
   prefill, and decode after
   prefill(2000) must agree with prefill(2001) to 0.02 relative
@@ -113,7 +113,7 @@ into ``build/repro_torch``), and then:
   8 ``local_attn`` blocks, 2.89 B parameters made on the card from a seed,
   every ``lam`` set in Griffin's published range, cast once to bf16), with
   phase 3's traffic: the local-attention ring of 2048 slots wraps during
-  decode, before the session is saved at token 100.  Run 2's tokens must
+  decode, before the session is saved at token 50.  Run 2's tokens must
   equal run 1's, ``flash_attention_tc`` must launch 8 times and
   ``rg_lru_pipe`` 18 times in each prefill, and the float32 gate (4
   layers: rglru, rglru, local_attn, rglru) with a prompt of 2100 + 1, so
@@ -165,15 +165,17 @@ into ``build/repro_torch``), and then:
   window owned by a spawned worker (``Communicator(1, transport="mp")``):
   phase 2's checks, plus exactly one control message per sync reaching
   the owner (a ``wsync`` with spans and mask when a page changed, a bare
-  ``sync`` when none did).  7b splits the masters by tensor into three
-  groups of about equal bytes, puts each into the storage window of one
-  of ranks 1-3 of ``Communicator(4, transport="mp")`` and syncs each
+  ``sync`` when none did).  7b splits the masters of ``SHARDS_ARCH``
+  (whisper-base, published widths and depth: 97,166,336 parameters, 389
+  MB in float32) by tensor into three groups of about equal bytes, puts
+  each into the storage window of one of ranks 1-3 of
+  ``Communicator(4, transport="mp")`` and syncs each
   group's first phase-2 change there with ``sync_shards_from_device``
   (flushed bytes = that rank's changed pages x 4096, one ``wsync`` each),
   under inproc, mp and tcp: the tcp world is a 4-rank loopback fleet
   built with ``REPRO_SANITIZE=1``, whose runtime RMA sanitizer must report
   no finding, and whose files must equal the other two worlds';
-  7c fills a 4 x 4,096-slot storage DHT to 80% with random keys
+  7c fills a 4 x 2,048-slot storage DHT to 80% with random keys
   (``benchmarks/dht_bench.py``'s traffic and table, cut from 4 x 16,384
   slots for time; ``items()`` must equal a dict of the keys); 7d runs ``MapReduce1S`` with a checkpoint a task over
   ``benchmarks/mapreduce_bench.py``'s 24 tasks of 20,000 words (the
@@ -184,7 +186,7 @@ into ``build/repro_torch``), and then:
 * phase 8 drives fault tolerance with the card as the origin.  8a puts
   7b's three groups into a storage window with
   ``storage_alloc_replication=2`` (rank r's copy on rank r + 1, rank 3's
-  on rank 0; 6.06 GB of files), under inproc (a death is ``mark_dead``)
+  on rank 0; 1.05 GB of files), under inproc (a death is ``mark_dead``)
   and mp (a real ``kill_rank``): the baseline put and sync, after which
   every ``shards.bin.rep1.<r>`` must equal ``shards.bin.<r>``; phase 2's
   change 1 from the card (flushed bytes = changed pages x 4096, replicas
@@ -202,7 +204,7 @@ into ``build/repro_torch``), and then:
   rank 1 killed after a sync, reported dead by the ``FailureDetector`` and
   its monitor, every synced key served, 1,000 more inserts, a rebuild
   bit-exact with the replica and every key served again.  8c saves 7b's
-  second group of the masters (503 MB, ten tensors) twice, the second
+  second group of the masters (126 MB, 18 tensors) twice, the second
   selective, through ``CheckpointManager(..., replication=2)`` over a
   2-rank mp world, kills rank 0's worker, and ``restore()`` must return
   step 2 equal to the masters, bit for bit.
@@ -216,10 +218,10 @@ into ``build/repro_torch``), and then:
   time when 9e and 9f came) and no session, the bf16 reading on seed 0
   under 0.02; 9b qwen2-72b cut to 4 layers (QKV bias), 64 steps, no
   session; 9c deepseek-v2-236b cut to 3 layers (the dense first layer
-  and two MoE layers of 160 experts, top-6, MLA), 110 steps with the
-  session saved at token 100 and reopened (the latent tail merges at
+  and two MoE layers of 160 experts, top-6, MLA), 60 steps with the
+  session saved at token 50 and reopened (the latent tail merges at
   2048); 9d llama4-maverick cut to one (attn, moe) pair (128 experts,
-  top-1), 110 steps and the session; 9e llava-next-mistral-7b cut to 8
+  top-1), 60 steps and the session; 9e llava-next-mistral-7b cut to 8
   layers (2.02 B; 576 patch embeddings, normal from a seeded generator,
   before the 2000 text tokens: 2576 positions), 64 steps, no session; 9f
   whisper-base at its 6 + 6 layers (1500 normal frames encoded in full
@@ -241,6 +243,26 @@ into ``build/repro_torch``), and then:
   kernel but B3 may launch.  B3 is then timed at each config's prefill
   shape in both dtypes against SDPA (``library_refused`` where SDPA does
   not take the shape).
+* phase 9m (after phase 9) runs the mesh on one NCCL rank.  (a), inside
+  9c while its parameters are on the card: 9c's served prompt (4 x 2000
+  tokens) through deepseek-v2-236b's prefill (3 layers, published
+  widths, 160 experts, top-6) dense and then inside
+  ``use_rules(serve_rules(), mesh)`` on the 1x1 production mesh
+  (``REPRO_MESH_OVERRIDE``) over a one-rank NCCL group (a ``HashStore``),
+  destroyed at the end: both MoE layers must take the expert-parallel
+  path, and its logits must equal the dense prefill's bit for bit (at
+  one rank T_loc = T and the ops are the same); both prefills' device
+  profiles are printed.  (b), after phase 9's timings: ``launch/train.py
+  --mesh --arch internlm2-1.8b --layers 2 --mode fused --device cuda``,
+  3 steps of one of phase 6's microbatches (2 x 4096 tokens), under
+  ``torch.distributed.run`` with one process (NCCL, the 1x1 mesh: the
+  gradients' data mean over one float32 buffer of the 2-layer model's
+  full-width tensors, the global norm, the rank's rows of the batch), and
+  the same command without ``--mesh``, the two at once and no time read
+  while they run: both must end with 0, their
+  losses must be equal bit for bit, and both print their peak device
+  bytes.  The phase launches no kernel of its own; its prefills run B3 as
+  9c's do.
 * phase 10 trains with every rank an origin: ``SpmdLauncher`` spawns two
   ranks, each running ``repro_torch.launch.spmd_train_resume``'s drill
   entry (``launch.train._spmd_entry`` with the depth cut) with its own
@@ -265,7 +287,8 @@ staging, flush), phase 7's mp and inproc times, wire bytes and host
 memory, phase 8's sync ms per step beside 7b's, control messages, respawn
 and rebuild seconds, DHT rates and checkpoint times, phases 6b's and 6c's
 step times, step profiles, saves and restore, phase 9's serving times,
-readings and peak device bytes, phase 10's step times per rank, respawn
+readings and peak device bytes, phase 9m's two prefill profiles, losses,
+peak device bytes and process walls, phase 10's step times per rank, respawn
 and restore seconds and peak host and device bytes, the phase walls and
 the command's wall, and one JSON line
 ``{"kernels": [...]}`` with each of the seven
@@ -275,7 +298,8 @@ its tcp world) and 8a: their launches are the sum; every row splits its
 launches by phase in ``launches_by_phase``, the training phases 6, 6b, 6c
 and 10 at 0, phase 9 at 0 but for B3, whose rows carry phase 9's shapes
 under ``phase9``, a frontend's with its launches in all and filed by the
-shape of each call; B3 and
+shape of each call, and phase 9m's at 0 but for bf16 B3's in the
+expert-parallel prefill; B3 and
 B4 have a bf16 and a float32 tensor-core kernel each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
 with its launches in phases 3 to 5, counted there and required to be 0;
@@ -289,6 +313,7 @@ available or the package is missing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -328,12 +353,14 @@ F32_MMA_FLOPS = 495e12 / 3
 SMOKE_LAYERS = 2             # depth cut of internlm2-1.8b (24 layers)
 WORKDIR = ROOT / "build" / "chip_smoke"
 TRAIN_DIR = WORKDIR / "train"
-# phase 3 traffic: 4 requests of 2000 prompt tokens, 110 greedy steps in a
-# 4096-position cache, the session saved at token 100 into a combined
+# phase 3 traffic: 4 requests of 2000 prompt tokens, 60 greedy steps in a
+# 4096-position cache, the session saved at token 50 into a combined
 # window that keeps half of it in memory (cut from 200 steps to 150 for the
-# time limit when phase 10 came, and to 110 when phases 9e and 9f came;
-# decode is host-bound, 50-110 ms a step)
-SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=110, save_at=100,
+# time limit when phase 10 came, to 110 when phases 9e and 9f came, and to
+# 60, the save from token 100 to 50, when phase 9m came; decode is
+# host-bound, 50-110 ms a step).  The save still follows the two-tier
+# cache's merge at 2048 and recurrentgemma's ring wrap (2000 + 50 > 2048)
+SERVE = dict(batch=4, prompt=2000, max_len=4096, steps=60, save_at=50,
              factor=0.5)
 # the consistency reading is also taken for these prompt seeds, to show its
 # spread beside the check on seed 0 (0.02, the limit of
@@ -1920,7 +1947,7 @@ def phase9_gate_config(cfg, gate: dict):
 
 def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
                      traffic: dict | None = None, smoke: bool = False,
-                     log=print) -> dict:
+                     with_params=None, log=print) -> dict:
     """One PHASE9 sub-phase: ``run_serving`` with ``traffic``'s batch,
     prompt and cache (by default PHASE9_TRAFFIC with the entry's own) and
     the entry's steps and session, a frontend's inputs from
@@ -1929,7 +1956,10 @@ def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
     launch; on a card the attention kernel must launch as often as
     :func:`prefill_kernels` says in each prefill (``run_serving`` and the
     gate check it).  ``smoke`` and a small ``traffic`` (with ``steps`` and
-    ``gate_prompt``) run it on the CPU."""
+    ``gate_prompt``) run it on the CPU.  ``with_params(cfg, params,
+    prompt)``, when given, runs after the serving on its parameters and the
+    served prompt (phase 9m's expert-parallel prefill); its result is
+    ``out["mesh"]``."""
     from repro_torch.kernels import flash_attention, rg_lru, ssd_scan
     comparators = (flash_attention, ssd_scan, rg_lru)
     for mod in comparators:
@@ -1987,6 +2017,9 @@ def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
                   f"{cfg.name}: its {part} attention at {shape} launched no "
                   f"kernel: {shapes}")
     out["nparams"] = nparams
+    if with_params is not None:
+        out["mesh"] = with_params(cfg, params,
+                                  tokens(traffic["prompt"])[:, :-1])
     del params
     if on_card:
         torch.cuda.empty_cache()
@@ -2026,6 +2059,210 @@ def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
     check(not any(out["comparator_launches"].values()),
           f"{cfg.name}: a comparator on no path launched: "
           f"{out['comparator_launches']}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# -- phase 9m: the mesh, one NCCL rank -----------------------------------------
+
+# (a) runs 9c's model (its parameters, its served prompt) through the
+# prefill dense and inside use_rules(serve_rules(), mesh) on a 1x1 mesh
+# (REPRO_MESH_OVERRIDE) over a one-rank process group, so that its MoE
+# layers take the expert-parallel path: at one rank T_loc = T and the ops
+# are the dense ones, so the logits must be equal bit for bit.  (b) trains
+# the arch below at its full widths, depth cut as phase 6 cuts it, through
+# launch/train.py --mesh under torchrun with one process, beside the same
+# run without --mesh, on one of phase 6's microbatches a step: the losses
+# must be equal bit for bit (both under deterministic algorithms).  The
+# card's machine has one card and NCCL takes one rank a device, so more
+# ranks are held on the CPU (tests/test_torch_mesh_train.py, four gloo
+# processes)
+MESH_PHASE = dict(override="1x1", arch="internlm2-1.8b",
+                  n_layers=SMOKE_LAYERS, batch=TRAIN["batch"], seq=4096,
+                  steps=3, timeout_s=120)
+MESH_PHASE9 = "9c"  # the phase-9 entry whose model (a) runs
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _local_nccl_env() -> dict:
+    """NCCL's bootstrap on the loopback interface: every rank here is on
+    this host."""
+    return {"NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")}
+
+
+def mesh_prefill(cfg, params: dict, prompt: np.ndarray, dev) -> dict:
+    """Phase 9m (a): ``prompt`` through ``cfg``'s prefill (``params`` cast
+    as ``Engine`` casts them, a fresh zero cache each time) dense, then
+    inside ``use_rules(serve_rules(), mesh)`` on a one-rank process group
+    (NCCL on the card, gloo on the CPU) and the 1x1 production mesh; the
+    expert-parallel MoE must run in every MoE layer and the logits must
+    equal the dense ones bit for bit.  Returns both prefills' device
+    profiles (on the card) and the wall.  The group is destroyed at the
+    end."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import cast_params, init_cache_specs, \
+        make_prefill_fn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.runtime import serve_rules, use_rules
+    from repro_torch.runtime.sharding import mesh_shape
+
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    n_moe = sum(reps * pattern.count("moe") for reps, pattern in cfg.groups())
+    batch = {"inputs": torch.from_numpy(prompt).long().to(dev)}
+    specs = init_cache_specs(cfg, prompt.shape[0], prompt.shape[1], 0)
+    pc = cast_params(cfg, params)
+    run = make_prefill_fn(cfg)
+
+    def prefill():
+        cache = {k: torch.zeros(v.shape, dtype=getattr(torch, v.dtype),
+                                device=dev) for k, v in specs.items()}
+        return run(pc, batch, cache)[0]
+
+    calls = []
+    ep = moe_mod._moe_mlp_shard_map
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return ep(*a, **kw)
+
+    saved = {k: os.environ.get(k) for k in ("REPRO_MESH_OVERRIDE",
+                                             "NCCL_SOCKET_IFNAME")}
+    os.environ.update(REPRO_MESH_OVERRIDE=MESH_PHASE["override"],
+                      **_local_nccl_env())
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    moe_mod._moe_mlp_shard_map = counted
+    out = {}
+    try:
+        mesh = make_production_mesh(device=dev.type)
+        out["mesh"] = mesh_shape(mesh)
+        out["backend"] = dist.get_backend()
+        dense = prefill()
+        check(not calls, "the dense prefill took the expert-parallel path")
+        # its main path: the kernels' counts from 0 just before, read after
+        kernels = prefill_kernels(cfg) if on_card else {}
+        for mod in kernels:
+            mod.launches = 0
+        with use_rules(serve_rules(), mesh):
+            sharded = prefill()
+        out["ep_launches"] = {_kernel_name(mod): mod.launches
+                              for mod in kernels}
+        for mod, want in kernels.items():
+            check(mod.launches == want, f"{_kernel_name(mod)} launched "
+                  f"{mod.launches} times in the expert-parallel prefill, "
+                  f"not {want}")
+        check(len(calls) == n_moe,
+              f"the expert-parallel MoE ran {len(calls)} times in a prefill "
+              f"of {n_moe} MoE layers")
+        check(bool(torch.isfinite(dense.float()).all()), "non-finite logits")
+        differ = int((dense != sharded).sum())
+        check(differ == 0, f"{cfg.name}: the expert-parallel prefill's "
+              f"logits differ from the dense one's in {differ} places")
+        out["logits_equal"] = True
+        out["logits_shape"] = list(dense.shape)
+        if on_card:  # where the time goes, the same prefill both ways
+            out["dense_profile"] = device_profile(prefill)
+            with use_rules(serve_rules(), mesh):
+                out["ep_profile"] = device_profile(prefill)
+    finally:
+        moe_mod._moe_mlp_shard_map = ep
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _launcher_line(text: str, what: str) -> str:
+    found = re.findall(rf"^rank 0 {what}: (.*)$", text, re.M)
+    check(len(found) == 1, f"no {what} line in: {text[-2000:]}")
+    return found[0]
+
+
+def mesh_training(dev, *, smoke: bool = False) -> dict:
+    """Phase 9m (b): ``launch/train.py --mesh`` on MESH_PHASE's arch at
+    its full widths, depth cut (``smoke``: its smoke config at the
+    launcher's batch, as the CPU test runs it), in fused mode, under
+    ``torch.distributed.run`` with one process (NCCL on the card; the 1x1
+    mesh of REPRO_MESH_OVERRIDE), and the same run without ``--mesh``, the
+    two at once.  Both must end with 0 within MESH_PHASE's timeout, and
+    their losses must be finite and equal bit for bit.  Returns the
+    losses, the size of the mesh run's sharding report, each run's peak
+    device bytes (on the card) and its wall."""
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    args = ["--arch", MESH_PHASE["arch"], "--mode", "fused", "--device",
+            dev.type, "--steps", str(MESH_PHASE["steps"])]
+    args += ["--smoke"] if smoke else [
+        "--layers", str(MESH_PHASE["n_layers"]),
+        "--batch", str(MESH_PHASE["batch"]), "--seq", str(MESH_PHASE["seq"])]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_MESH_OVERRIDE=MESH_PHASE["override"],
+               **_local_nccl_env())
+    for k in ("REPRO_TRANSPORT", "REPRO_RANK", "REPRO_NRANKS"):
+        env.pop(k, None)
+    cmds = {
+        "mesh": [sys.executable, "-m", "torch.distributed.run",
+                 "--nnodes", "1", "--nproc-per-node", "1",
+                 "--master-addr", "127.0.0.1", "--master-port",
+                 str(_free_port()), "-m", "repro_torch.launch.train",
+                 "--mesh", *args],
+        "plain": [sys.executable, "-m", "repro_torch.launch.train", *args]}
+    procs = {name: subprocess.Popen(cmd, env=env, cwd=ROOT, text=True,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+             for name, cmd in cmds.items()}
+    texts, process_s = {}, {}
+    try:
+        for name, proc in procs.items():
+            try:
+                texts[name], err = proc.communicate(timeout=max(
+                    1.0, t0 + MESH_PHASE["timeout_s"] - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                check(False, f"phase 9m (b): not done in "
+                      f"{MESH_PHASE['timeout_s']} s")
+            process_s[name] = time.perf_counter() - t0
+            check(proc.returncode == 0, f"phase 9m (b), {name} run: exit "
+                  f"{proc.returncode}: {texts[name][-2000:]} {err[-4000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    losses = {name: json.loads(_launcher_line(text, "losses"))
+              for name, text in texts.items()}
+    check(len(losses["mesh"]) == MESH_PHASE["steps"]
+          and all(math.isfinite(v) for v in losses["mesh"]),
+          f"the mesh run's losses: {losses['mesh']}")
+    check(losses["mesh"] == losses["plain"],
+          f"--mesh losses {losses['mesh']} differ from the run without "
+          f"it: {losses['plain']}")
+    report = [line for line in texts["mesh"].splitlines()
+              if "sharding_report" in line]
+    check(len(report) == 1, "the mesh run printed no sharding report")
+    out = {"losses": losses["mesh"], "losses_equal": True,
+           "process_s": process_s,
+           "report_tensors": len(json.loads(
+               report[0].split("left replicated): ", 1)[1]))}
+    if dev.type == "cuda":
+        out["peak_device_bytes"] = {
+            name: int(_launcher_line(text, "peak device bytes"))
+            for name, text in texts.items()}
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -2403,11 +2640,19 @@ def training_phase(dev, phase: str = "6", log=print) -> dict:
 
 MP_DIR = WORKDIR / "mp"
 # 7c: benchmarks/dht_bench.py's traffic and table (random keys from seed 0,
-# op "sum", 80% of 4 x 4,096 slots: 13,107 inserts), cut from a table four
+# op "sum", 80% of 4 x 2,048 slots: 6,553 inserts), cut from a table eight
 # times larger for the time limit (its mp inserts, a round trip each, took
-# 60-112 s there); 7d: benchmarks/mapreduce_bench.py's 24 tasks of 20,000
-# words over its 20-word vocabulary
-MP_DHT = dict(ranks=4, lv_entries=1 << 12, fill=0.8)
+# 60-112 s there; a table of 4 x 4,096, 23.9 s, until phase 9m came);
+# 7d: benchmarks/mapreduce_bench.py's 24 tasks of 20,000 words over its
+# 20-word vocabulary
+MP_DHT = dict(ranks=4, lv_entries=1 << 11, fill=0.8)
+# 7b-8c store whisper-base's masters whole, at its published widths and
+# depth (389 MB in three groups of 131, 126 and 131 MB): the smallest
+# config the repo runs uncut.  They stored phase 2's internlm2-1.8b at 2
+# layers (2.02 GB: its 758 MB embedding and head are each a group, so a
+# depth cut moves nothing) until the whole command passed its time limit
+# on a slow host
+SHARDS_ARCH = "whisper-base"
 # host memory phase 7 may take, checked for this process's growth over
 # its start of the phase and for the peak of 7a's window owner: a quarter
 # of a 96 GiB host each, four times the 6.06 GB window.  A codec that
@@ -2673,9 +2918,15 @@ def _over_worlds(cfg, dev, worlds: dict, directory: Path, dht: dict,
     return out
 
 
+def shards_config():
+    """7b-8c's config: SHARDS_ARCH at its published size."""
+    from repro_torch.configs import get_config
+    return get_config(SHARDS_ARCH)
+
+
 def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
-             dht: dict = MP_DHT, mr: dict = MP_MR, log=print,
-             mark=lambda label: None) -> dict:
+             shards_cfg=None, dht: dict = MP_DHT, mr: dict = MP_MR,
+             log=print, mark=lambda label: None) -> dict:
     """Phase 7: the MPI layer across processes, with the card as origin.
 
     7a runs phase 2's main path with the storage window owned by a spawned
@@ -2684,7 +2935,8 @@ def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
     and tcp (a loopback fleet with the sanitizer on), whose files must be
     byte-identical; 7c and 7d run the
     paper's DHT and MapReduce under inproc and mp, with the same items,
-    results and files.  ``phase2`` is phase 2's result (its per-sync
+    results and files; 7b splits the masters of ``shards_cfg`` (``cfg``
+    if None).  ``phase2`` is phase 2's result (its per-sync
     times are printed beside 7a's); everything is written under
     ``directory``, which is removed at the end.  ``mark(label)`` runs at
     the end of 7a and of 7b-7d (``PeakRss.mark``)."""
@@ -2727,8 +2979,8 @@ def mp_phase(cfg, dev, phase2: dict, directory: Path, *,
         worlds["tcp"] = sanitized_world(4, "tcp")
         tcp_world_s = time.perf_counter() - t0
         try:
-            out.update(_over_worlds(cfg, dev, worlds, directory, dht, mr,
-                                    log))
+            out.update(_over_worlds(shards_cfg or cfg, dev, worlds,
+                                    directory, dht, mr, log))
         finally:
             for comm in worlds.values():
                 comm.close()
@@ -2949,8 +3201,9 @@ def rep_shards(cfg, comm, *, device, directory: Path, seed: int = 0,
 def ckpt_survives(cfg, comm, *, device, directory: Path, seed: int = 0,
                   log=print) -> dict:
     """Phase 8c over ``comm`` (2 ranks, mp): ``CheckpointManager(...,
-    replication=2)`` over 7b's second group of the masters (503 MB, ten
-    tensors; the whole tree is cut for the run's time limit), one window
+    replication=2)`` over 7b's second group of the masters (126 MB, 18
+    tensors of whisper-base; the whole tree is cut for the run's time
+    limit), one window
     (each save diffs against the last); the baseline save, then phase 2's
     change 1, whose save is selective; rank 0's worker is SIGKILLed, and
     ``restore()`` must return step 2 with a tree equal to the masters, bit
@@ -3474,7 +3727,8 @@ def main() -> int:
     # phase 7: the MPI layer across processes.  A failure to spawn a worker
     # or a TransportError ends the run: nothing falls back to inproc
     with PeakRss() as rss:
-        mp = mp_phase(cfg, dev, result, MP_DIR, mark=rss.mark)
+        mp = mp_phase(cfg, dev, result, MP_DIR, shards_cfg=shards_config(),
+                      mark=rss.mark)
     print(f"mp host memory, this process ({card}): " + json.dumps(
         {"start_bytes": rss.start, "peak_bytes": rss.peak,
          "stretches": rss.marks,
@@ -3493,7 +3747,8 @@ def main() -> int:
     # phase 8: fault tolerance.  A worker that cannot start, or a failover
     # that raises, ends the run
     with PeakRss() as rss:
-        rep = replicated_phase(cfg, dev, mp["7b"], REP_DIR, mark=rss.mark)
+        rep = replicated_phase(shards_config(), dev, mp["7b"], REP_DIR,
+                               mark=rss.mark)
     print(f"rep host memory, this process ({card}): " + json.dumps(
         {"start_bytes": rss.start, "peak_bytes": rss.peak,
          "stretches": rss.marks}))
@@ -3533,7 +3788,12 @@ def main() -> int:
           "allocated on the card")
     new = {}
     for sub in PHASE9:
-        out = new[sub] = new_config_phase(sub, dev)
+        # phase 9m (a) runs on 9c's parameters while they are on the card
+        hook = functools.partial(mesh_prefill, dev=dev) \
+            if sub == MESH_PHASE9 else None
+        out = new[sub] = new_config_phase(sub, dev, with_params=hook)
+        if "mesh" in out:
+            mesh_a = out.pop("mesh")
         print(f"serve {sub} {PHASE9[sub]['arch']} ({card}): " + json.dumps(
             {k: v for k, v in out.items() if k not in ("tokens", "step_ms")}))
         print(f"serve {sub} tokens (request 0, first 16): "
@@ -3606,6 +3866,17 @@ def main() -> int:
                    for part, (shape, causal) in parts.items()}}
     marks.append(time.perf_counter())
 
+    # phase 9m: the mesh on one NCCL rank.  (a) ran inside 9c, on its
+    # parameters; (b), launch/train.py --mesh under torchrun beside the
+    # run without it, runs now, after phase 9's timings
+    mesh_b = mesh_training(dev)
+    print(f"mesh 9m (a), {PHASE9[MESH_PHASE9]['arch']}'s prefill dense and "
+          f"expert-parallel on a 1x1 mesh ({card}): " + json.dumps(mesh_a))
+    print(f"mesh 9m (b), launch/train.py --mesh beside the run without it, "
+          f"{MESH_PHASE['arch']} at {MESH_PHASE['n_layers']} layers "
+          f"({card}): " + json.dumps(mesh_b))
+    marks.append(time.perf_counter())
+
     # phase 10: SPMD training, two ranks on the card, each an origin; the
     # ranks count their own kernel launches (the training path runs none)
     spmd = spmd_phase(dev)
@@ -3628,12 +3899,18 @@ def main() -> int:
         row["launches_by_phase"].update(
             {ph: out["kernel_launches"][stem] for ph, out in trained.items()})
         row["launches_by_phase"]["9"] = phase9_launches[stem]
+        row["launches_by_phase"]["9m"] = mesh_a["ep_launches"].get(stem, 0)
+        row["launches"] += row["launches_by_phase"]["9m"]
         row["launches_by_phase"]["10"] = spmd["kernel_launches"].get(stem, 0)
+    walls = {name: b - a for name, a, b in zip(
+        ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4", "phase 5",
+         *(f"phase {ph}" for ph in TRAIN_PHASES), "phase 7", "phase 8",
+         "phase 9", "phase 9m", "phase 10"), marks, marks[1:])}
+    # 9m's (a) ran inside phase 9's 9c
+    walls["phase 9"] -= mesh_a["wall_s"]
+    walls["phase 9m"] += mesh_a["wall_s"]
     print("phase walls (s): " + json.dumps(
-        {name: round(b - a, 1) for name, a, b in zip(
-            ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4",
-             "phase 5", *(f"phase {ph}" for ph in TRAIN_PHASES), "phase 7",
-             "phase 8", "phase 9", "phase 10"), marks, marks[1:])}))
+        {name: round(w, 1) for name, w in walls.items()}))
     print(f"command wall (s): {time.perf_counter() - START:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

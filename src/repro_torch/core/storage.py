@@ -260,6 +260,15 @@ class StripedFile:
                 buf[bpos + len(chunk):bpos + length] = b"\0" * (length - len(chunk))
         return bytes(buf)
 
+    def pread_into(self, offset: int, buf: np.ndarray) -> None:
+        """Fill the uint8 array ``buf`` from ``offset``, as :meth:`pread`
+        (a hole past EOF reads as zeros), without an intermediate copy."""
+        mv = memoryview(buf).cast("B")
+        for fidx, foff, length, bpos in self._segments(offset, buf.nbytes):
+            got = os.preadv(self._fds[fidx], [mv[bpos:bpos + length]], foff)
+            if got < length:
+                buf[bpos + got:bpos + length] = 0
+
     def pwrite(self, offset: int, data: bytes | memoryview) -> None:
         mv = memoryview(data)
         for fidx, foff, length, bpos in self._segments(offset, len(mv)):
@@ -516,17 +525,68 @@ class CachedBacking(_BackingBase):
             return np.arange(s, s + n)
         return np.flatnonzero(self._block_of < 0)[:n]
 
+    def _fault_in_bulk(self, b0: int, b1: int) -> bool:
+        """Load every missing block of ``[b0, b1)`` with one ``pread`` per
+        run of consecutive missing blocks (at most 64 MB a read), into the
+        lowest free slots in block order: the slots, contents and
+        ``faults`` that :meth:`_fault_in` gives block by block.  Returns
+        False, having done nothing, when they do not all fit in free slots
+        (the per-block path then evicts as the reference does)."""
+        missing = np.flatnonzero(self._slot_of[b0:b1] < 0) + b0
+        if missing.size == 0:
+            return True
+        if self._used + missing.size > self.capacity:
+            return False
+        free = self._free_slots(missing.size)
+        if free.size < missing.size:
+            return False
+        ps = self.page_size
+        run_pages = max(1, (64 << 20) // ps)
+        # [i, j) index runs of missing blocks, each cut to run_pages
+        cuts = np.flatnonzero(np.diff(missing) != 1) + 1
+        for i, j in zip(np.r_[0, cuts], np.r_[cuts, missing.size]):
+            for i0 in range(int(i), int(j), run_pages):
+                i1 = min(i0 + run_pages, int(j))
+                lo = int(missing[i0]) * ps
+                hi = min(int(missing[i1 - 1] + 1) * ps, self.size)
+                dst = free[i0:i1]
+                if dst[-1] - dst[0] == dst.size - 1:  # consecutive slots
+                    rows = self._slots[dst[0]:dst[-1] + 1]
+                    self.file.pread_into(lo, rows.reshape(-1)[:hi - lo])
+                    rows.reshape(-1)[hi - lo:] = 0  # a ragged last block
+                    continue
+                data = np.frombuffer(self.file.pread(lo, hi - lo),
+                                     dtype=np.uint8)
+                full = data.size // ps
+                self._slots[dst[:full]] = data[:full * ps].reshape(full, ps)
+                if full < dst.size:  # the file's ragged last block
+                    self._slots[dst[full], :data.size - full * ps] = \
+                        data[full * ps:]
+                    self._slots[dst[full], data.size - full * ps:] = 0
+        self._slot_of[missing] = free
+        self._block_of[free] = missing
+        self._refbit[free] = True
+        self._used += missing.size
+        self.faults += missing.size
+        return True
+
     # -- public interface ---------------------------------------------------
     def read(self, offset: int, nbytes: int) -> np.ndarray:
         self._check(offset, nbytes)
         out = np.empty(nbytes, dtype=np.uint8)
         with self._io_lock:
             b0, b1 = self.tracker.block_range(offset, nbytes)
-            # fast path: aligned read, everything resident -> one gather
-            if (offset % self.page_size == 0 and nbytes % self.page_size == 0
-                    and nbytes and (self._slot_of[b0:b1] >= 0).all()):
+            # fast path: fault the missing blocks in by runs (a restore's
+            # cold window: one pread a run, not one a page), then one gather
+            if nbytes and self._fault_in_bulk(b0, b1):
                 slots = self._slot_of[b0:b1]
-                out[:] = self._slots[slots].reshape(-1)
+                lo = offset - b0 * self.page_size
+                s0 = int(slots[0])
+                if (slots == np.arange(s0, s0 + slots.size)).all():
+                    rows = self._slots[s0:s0 + slots.size]  # one memcpy
+                else:
+                    rows = self._slots[slots]
+                out[:] = rows.reshape(-1)[lo:lo + nbytes]
                 self._refbit[slots] = True
                 return out
             pos = offset

@@ -2,8 +2,7 @@
 
 The port of ``repro.launch.train``.  Runs the real ``Trainer`` on
 ``--device`` (the card unless ``--device cpu``); ``--smoke`` runs the
-reduced config.  ``--mesh`` and ``--multi-pod`` (sharding over a
-production mesh) are not ported: they raise, naming the ROADMAP item.
+reduced config, ``--layers N`` the config cut to N layers at its widths.
 
 Rank-symmetric bootstrap
 ------------------------
@@ -31,6 +30,20 @@ environment/flags, and every mode runs the *same* training code:
   to every other mode, and runs the same Trainer code path as rank 0.
   With ``REPRO_TRANSPORT=tcp`` and a ``REPRO_HOSTS`` roster the process
   instead *joins* the inter-host tcp fleet as an origin rank.
+* **Mesh** (``--mesh [--multi-pod]``): one process per card, started by
+  ``python -m torch.distributed.run`` (or any launcher that sets
+  ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``).  Each
+  process joins the default process group (NCCL on the card, gloo under
+  ``--device cpu``), builds the production mesh (``REPRO_MESH_OVERRIDE``
+  sets its shape) and ``train_rules(multi_pod)``, and trains inside
+  ``use_rules``: data-parallel over ``("pod", "data")``, the MoE's experts
+  over "model" (``Trainer``'s mesh).  Rank 0 prints ``sharding_report()``,
+  every mapping the rules make that this port leaves replicated.  Each
+  process is also a window rank (``REPRO_RANK``/``REPRO_NRANKS`` follow
+  ``RANK``/``WORLD_SIZE`` unless they are set; the ``ranklocal``
+  transport unless ``--transport`` or ``REPRO_TRANSPORT`` names
+  another), so each saves its own block into its own checkpoint
+  partition.  ``--mesh`` with ``--spmd`` is refused.
 
 On-disk checkpoint layout is byte-identical across all three modes (and to
 the JAX package's), so a job may crash under one bootstrap and resume
@@ -44,11 +57,16 @@ CUDA starts), so a resumed rank repeats an uninterrupted one bit for bit.
         --smoke --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --smoke --device cpu --spmd --nranks 2 --steps 4
+    REPRO_MESH_OVERRIDE=2x2 PYTHONPATH=src python -m torch.distributed.run \\
+        --nproc-per-node 4 -m repro_torch.launch.train --mesh \\
+        --arch deepseek-v2-236b --smoke --device cpu --steps 4
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
 import sys
 
@@ -57,19 +75,19 @@ import torch
 from ..configs import ARCHS, OFFLOAD_ARCHS, get_config
 from ..convert import resolve_device
 from ..core.comm import Communicator
-from ..core.transport import env_nranks, env_rank
+from ..core.transport import env_nranks, env_rank, env_transport_kind
 from ..data import SyntheticLM, make_batch_iter
+from ..runtime.sharding import (mesh_shape, sharding_report, train_rules,
+                                use_rules)
 from ..train import AdamWConfig, TrainConfig, Trainer
-
-MESH_UNPORTED = ("sharding over a production mesh (--mesh, --multi-pod) is "
-                 "not ported to repro_torch yet: see ROADMAP.md queue A14b, "
-                 "A14's mesh half")
+from .mesh import make_production_mesh
 
 
 def _train_opts(args) -> dict:
     """The picklable subset of CLI options an SPMD rank needs."""
     return {
-        "arch": args.arch, "smoke": args.smoke, "steps": args.steps,
+        "arch": args.arch, "smoke": args.smoke, "layers": args.layers,
+        "steps": args.steps,
         "batch": args.batch, "seq": args.seq,
         "microbatches": args.microbatches, "lr": args.lr,
         "ckpt_dir": args.ckpt_dir, "ckpt_every": args.ckpt_every,
@@ -78,12 +96,15 @@ def _train_opts(args) -> dict:
     }
 
 
-def _build_trainer(opts: dict, comm: Communicator,
-                   cfg=None) -> tuple[Trainer, SyntheticLM]:
-    """The Trainer and its data for ``opts``; ``cfg`` replaces the config
-    of ``opts["arch"]`` (a caller that cuts its depth)."""
+def _build_trainer(opts: dict, comm: Communicator, cfg=None, *, mesh=None,
+                   rules=None) -> tuple[Trainer, SyntheticLM]:
+    """The Trainer (over ``mesh`` and ``rules`` when given) and its data for
+    ``opts``; ``cfg`` replaces the config of ``opts["arch"]`` (a caller
+    that cuts its depth)."""
     if cfg is None:
         cfg = get_config(opts["arch"], smoke=opts["smoke"])
+        if opts.get("layers"):
+            cfg = dataclasses.replace(cfg, n_layers=opts["layers"])
     mode = opts["mode"] or ("offload" if opts["arch"] in OFFLOAD_ARCHS
                             and not opts["smoke"] else "fused")
     opt = AdamWConfig(lr=opts["lr"],
@@ -97,7 +118,8 @@ def _build_trainer(opts: dict, comm: Communicator,
                      probe_interval_s=opts["probe_interval"])
     ds = SyntheticLM(cfg, batch=opts["batch"], seq=opts["seq"],
                      microbatches=opts["microbatches"])
-    return Trainer(cfg, opt, tc, comm=comm, device=opts["device"]), ds
+    return Trainer(cfg, opt, tc, comm=comm, device=opts["device"],
+                   mesh=mesh, rules=rules), ds
 
 
 class _Batches:
@@ -183,11 +205,69 @@ def _run_spmd(args) -> list[dict]:
         launcher.shutdown()
 
 
+def _report(tr: Trainer, comm: Communicator) -> None:
+    """The run's done line and its every loss (``repr``: exact)."""
+    losses = [m["loss"] for m in tr.metrics_log]
+    first = tr.metrics_log[0]["step"] if tr.metrics_log else 0
+    dev = tr.device
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"rank {comm.rank}/{comm.size} done: "
+          f"{len(losses)} step(s) from step {first}"
+          + (f", loss {losses[0]!r} -> {losses[-1]!r}" if losses else "")
+          + f" ({name}, transport={comm.transport.kind})", flush=True)
+    print(f"rank {comm.rank} losses: {json.dumps(losses)}", flush=True)
+    if dev.type == "cuda":
+        print(f"rank {comm.rank} peak device bytes: "
+              f"{torch.cuda.max_memory_allocated(dev)}", flush=True)
+
+
+def _run_mesh(args) -> int:
+    """``--mesh``: this process is one rank of the production mesh."""
+    import torch.distributed as dist
+
+    dev = resolve_device(args.device)
+    _deterministic(args.device)
+    owns_group = not dist.is_initialized()
+    if owns_group:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    comm = None
+    try:
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device=args.device)
+        rules = train_rules(args.multi_pod)
+        comm = Communicator(
+            env_nranks(dist.get_world_size()),
+            rank=env_rank(dist.get_rank()),
+            transport=args.transport or env_transport_kind("ranklocal"))
+        tr, ds = _build_trainer(_train_opts(args), comm, mesh=mesh,
+                                rules=rules)
+        if dist.get_rank() == 0:
+            print(f"mesh {mesh_shape(mesh)} "
+                  f"({dist.get_backend()}), rules {rules.name}; "
+                  "sharding_report (mappings left replicated): "
+                  + json.dumps(sharding_report()), flush=True)
+        with use_rules(rules, mesh):
+            tr.run(make_batch_iter(_Batches(tr, ds)))
+        _report(tr, comm)
+        tr.close()
+    finally:
+        if comm is not None:
+            comm.close()
+        if owns_group:
+            dist.destroy_process_group()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCHS), required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers, its "
+                         "widths kept")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=64)
@@ -198,9 +278,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=("fused", "offload"), default=None)
     ap.add_argument("--compression", action="store_true")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard over the production mesh (not ported)")
+                    help="one rank of the production mesh: start one process "
+                         "per card under python -m torch.distributed.run")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="with --mesh, across pods (not ported)")
+                    help="with --mesh, the (pod, data, model) mesh")
     ap.add_argument("--spmd", action="store_true",
                     help="launch REPRO_NRANKS/--nranks application ranks; "
                          "this process only monitors and respawns")
@@ -220,8 +301,13 @@ def main(argv=None) -> int:
                     help="where every rank's Trainer allocates (default "
                          "cuda; cpu is the only way to the CPU)")
     args = ap.parse_args(argv)
-    if args.mesh or args.multi_pod:
-        raise NotImplementedError(MESH_UNPORTED)
+
+    if args.mesh:
+        if args.spmd:
+            raise SystemExit("--mesh is refused under --spmd: a mesh is one "
+                             "process per card, started by "
+                             "python -m torch.distributed.run")
+        return _run_mesh(args)
 
     if args.spmd:
         if env_rank() != 0:
@@ -238,15 +324,7 @@ def main(argv=None) -> int:
     try:
         tr, ds = _build_trainer(_train_opts(args), comm)
         tr.run(make_batch_iter(_Batches(tr, ds)))
-        losses = [m["loss"] for m in tr.metrics_log]
-        first = tr.metrics_log[0]["step"] if tr.metrics_log else 0
-        dev = tr.device
-        name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                else "cpu")
-        print(f"rank {comm.rank}/{comm.size} done: "
-              f"{len(losses)} step(s) from step {first}"
-              + (f", loss {losses[0]!r} -> {losses[-1]!r}" if losses else "")
-              + f" ({name}, transport={comm.transport.kind})", flush=True)
+        _report(tr, comm)
         tr.close()
     finally:
         comm.close()

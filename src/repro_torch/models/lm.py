@@ -71,11 +71,15 @@ order does not matter to the softmax.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..runtime.collectives import axis_groups, psum
+from ..runtime.sharding import (batch_axes, current_mesh, current_rules,
+                                mesh_shape, use_rules)
 from .attention import (blockwise_attention, decode_attention,
                         decode_attention_two_tier, prefill_attention)
 from .config import ModelConfig
@@ -646,11 +650,15 @@ def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
     or the encoder's ``enc/g0``), as a loop; each layer is one remat unit.
     Returns (x, aux)."""
     gp = sub(params, group)
+    # a remat unit recomputes in the backward, on the autograd engine's
+    # thread on the card: it runs under the caller's rules and mesh
+    rules, mesh = current_rules(), current_mesh()
 
     def body(x, aux, layer_params, enc_out):
-        for pj, kind in enumerate(pattern):
-            x, aux = _block_train(cfg, kind, sub(layer_params, f"p{pj}"), x,
-                                  positions, aux, enc_out)
+        with use_rules(rules, mesh):
+            for pj, kind in enumerate(pattern):
+                x, aux = _block_train(cfg, kind, sub(layer_params, f"p{pj}"),
+                                      x, positions, aux, enc_out)
         return x, aux
 
     body = _remat(cfg, body)
@@ -671,6 +679,15 @@ def make_loss_fn(cfg: ModelConfig):
     head), plus ``MOE_AUX_WEIGHT`` times the summed load-balance loss of
     the ``moe`` blocks; metrics ``ce``, ``aux`` (0 without MoE blocks) and
     ``ntok``.
+
+    Under a mesh (:func:`~repro_torch.runtime.sharding.use_rules`) the
+    batch is this rank's shard over the batch axes, and the cross-entropy
+    is the reference's global one, ``sum ce / sum ntok`` over every shard
+    (a mean of the shards' means differs whenever they mask different
+    numbers of targets); ``aux`` is the expert-parallel MoE's, a mean over
+    the data axes.  The loss's value is the global loss on every rank; its
+    gradient on a rank is that rank's share times the data-parallel size,
+    so the trainer's mean over the data axes is the global gradient.
     """
     _check_ported(cfg)
 
@@ -689,11 +706,18 @@ def make_loss_fn(cfg: ModelConfig):
         lse = torch.logsumexp(logits.float(), dim=-1)
         tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
         ce = (lse - tl.float()) * mask
-        ntok = torch.clamp(mask.sum(), min=1.0)
-        loss = ce.sum() / ntok
+        ce_sum, ntok = ce.sum(), mask.sum()
+        mesh = current_mesh()
+        if mesh is not None:
+            axes = batch_axes(mesh)
+            n_dp = math.prod(mesh_shape(mesh)[a] for a in axes)
+            ce_sum = psum(ce_sum, axis_groups(mesh, axes), grad_scale=n_dp)
+            ntok = psum(ntok, axis_groups(mesh, axes))
+        ntok = torch.clamp(ntok, min=1.0)
+        loss = ce_sum / ntok
         if cfg.n_experts:
             loss = loss + MOE_AUX_WEIGHT * aux
-        return loss, {"ce": ce.sum() / ntok, "aux": aux, "ntok": ntok}
+        return loss, {"ce": ce_sum / ntok, "aux": aux, "ntok": ntok}
 
     return loss_fn
 

@@ -18,8 +18,16 @@ any Pallas kernel.  Two choices keep it equal to the reference:
   activations' dtype, in the reference's order, where ``index_add_`` on
   the card would add them in an order that changes from run to run.
 
-Only the dense dispatch is ported: the reference's explicit
-expert-parallel ``shard_map`` variant needs a mesh (ROADMAP queue A14b).
+Under a mesh with a "model" axis whose size divides the expert count,
+:func:`moe_mlp` takes the explicit expert-parallel path, as the
+reference's does: each rank routes its own data shard's tokens (replicated
+over "model"), computes LOCAL positions and capacity, runs only its own
+E/n experts, and the k contributions summed in order are then summed over
+"model"; the load-balance loss is the mean over the data axes of each
+shard's.  Its gradients come from :mod:`~repro_torch.runtime.collectives`'
+autograd reductions: the tokens and gates that enter the experts sum their
+partial cotangents over "model", and nothing else does, so the router's
+share through the load-balance loss is counted once.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..runtime.collectives import axis_groups, pmean, psum, replicated
+from ..runtime.sharding import current_mesh, mesh_coords, mesh_shape
 from .layers import apply_act
 
 __all__ = ["moe_capacity", "route", "top_k_gates", "assignment_slots",
@@ -74,15 +84,83 @@ def assignment_slots(eidx: torch.Tensor, n_experts: int, cap: int):
     return pos_in_e, keep, dest
 
 
-def moe_mlp(cfg, p, x: torch.Tensor, *, capacity: int | None = None,
-            mesh=None):
-    """The reference's dispatcher: the dense dispatch.  Its expert-parallel
-    path under a mesh is not ported (``mesh`` raises)."""
+def moe_mlp(cfg, p, x: torch.Tensor, *, capacity: int | None = None):
+    """Dispatcher: the explicit expert-parallel path under a mesh with a
+    "model" axis whose size divides the expert count (the mesh of
+    :func:`~repro_torch.runtime.sharding.use_rules`), the dense dispatch
+    otherwise."""
+    mesh = current_mesh()
     if mesh is not None:
-        raise NotImplementedError(
-            "the expert-parallel MoE (shard_map over a mesh) is not ported "
-            "to repro_torch yet: see ROADMAP.md queue A14b, A14's mesh half")
+        shape = mesh_shape(mesh)
+        if "model" in shape and cfg.n_experts % shape["model"] == 0:
+            return _moe_mlp_shard_map(cfg, p, x, mesh, capacity=capacity)
     return moe_mlp_dense(cfg, p, x, capacity=capacity)
+
+
+def _moe_mlp_shard_map(cfg, p, x: torch.Tensor, mesh, *,
+                       capacity: int | None = None):
+    """Explicit expert parallelism on this rank.  x: (B, S, D), this rank's
+    shard of the batch over the data axes, replicated over "model"; the
+    routed experts' weights ``we_*`` are this model rank's E/n experts (the
+    router and the shared experts whole).  Returns (y (B, S, D), aux)."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    shape = mesh_shape(mesh)
+    dp = tuple(a for a in ("pod", "data") if a in shape)
+    n_mp = shape["model"]
+    T_loc = B * S
+    cap = capacity if capacity is not None else moe_capacity(
+        T_loc, E, k, cfg.capacity_factor)
+    E_loc = E // n_mp
+    for name in ("we_up", "we_gate", "we_down"):
+        if name in p and p[name].shape[0] != E_loc:
+            raise ValueError(
+                f"{name} holds {p[name].shape[0]} experts: a model rank of "
+                f"{n_mp} holds {E_loc} of {E}")
+    j = mesh_coords(mesh)["model"]
+    model = axis_groups(mesh, "model")
+    xf = x.reshape(T_loc, D)
+
+    probs, gates, eidx = route(xf.float() @ p["router"].float(), k)
+    me = probs.mean(dim=0)
+    fe = F.one_hot(eidx[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(fe * me)
+    if dp:
+        aux = pmean(aux, axis_groups(mesh, dp))
+
+    # dispatch: the local tokens at LOCAL positions, then my experts' rows
+    _, keep, dest = assignment_slots(eidx, E, cap)
+    tok = torch.arange(T_loc * k, device=x.device) // k
+    buf = x.new_zeros((E * cap + 1, D))
+    buf[dest] = replicated(xf, model)[tok]
+    my = buf[:-1].reshape(E, cap, D)[j * E_loc:(j + 1) * E_loc]
+
+    h = torch.bmm(my, p["we_up"])
+    g = torch.bmm(my, p["we_gate"]) if "we_gate" in p else None
+    out_flat = torch.bmm(apply_act(h, g, cfg.act), p["we_down"]).reshape(
+        E_loc * cap, D)
+
+    # combine: my experts' contributions to the local tokens, the k added
+    # in order as the dense dispatch adds them, then the sum over "model"
+    e_flat = eidx.reshape(-1)
+    mine = keep & (e_flat >= j * E_loc) & (e_flat < (j + 1) * E_loc)
+    lo = j * E_loc * cap
+    contrib = torch.where(mine[:, None],
+                          out_flat[torch.clamp(dest - lo, 0, E_loc * cap - 1)],
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+    g_flat = replicated(gates, model).reshape(-1)
+    contrib = (contrib * g_flat[:, None].to(x.dtype)).reshape(T_loc, k, D)
+    y = contrib[:, 0]
+    for i in range(1, k):
+        y = y + contrib[:, i]
+    y = psum(y, model)
+
+    # shared experts: whole on every rank, outside the expert-parallel part
+    if "ws_up" in p:
+        hs = xf @ p["ws_up"]
+        gs = xf @ p["ws_gate"] if "ws_gate" in p else None
+        y = y + apply_act(hs, gs, cfg.act) @ p["ws_down"]
+    return y.reshape(B, S, D), aux
 
 
 def moe_mlp_dense(cfg, p, x: torch.Tensor, *, capacity: int | None = None):

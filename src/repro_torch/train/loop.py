@@ -27,6 +27,17 @@ algorithms (the backward of the embedding's ``index_select`` and of the
 loss's ``gather`` otherwise accumulate with atomics): the caller sets
 ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts and calls
 ``torch.use_deterministic_algorithms(True)``, as ``launch.train_e2e`` does.
+
+Under a mesh (``mesh=``, ``rules=``; one process per card, see
+``launch.mesh``) the trainer is data- and expert-parallel: every rank
+starts from the same seeded full parameters and keeps its block
+(:func:`~repro_torch.runtime.sharding.explicit_spec`: the routed experts'
+E/n rows over "model", everything else whole), takes its rows of each
+global batch (row-major over the batch axes, ``("pod", "data")``), and
+averages the summed gradients over the data axes with
+``hierarchical_pmean`` before the update; the global norm counts each
+whole tensor once and sums the experts' squares over "model".  Each rank
+checkpoints its own block through its own communicator rank.
 """
 
 from __future__ import annotations
@@ -46,10 +57,14 @@ from ..core.comm import Communicator
 from ..core.resilience import FailureDetector
 from ..models import init_params, make_loss_fn, param_specs
 from ..models.config import ModelConfig
+from ..runtime.collectives import axis_groups, hierarchical_pmean
 from ..runtime.compress import compress_with_feedback, init_error_feedback
 from ..runtime.fault import HeartbeatMonitor, StragglerDetector
+from ..runtime.sharding import (NamedSharding, batch_axes, explicit_spec,
+                                mesh_shape, train_rules, use_rules)
 from .offload_opt import OutOfCoreAdamW
-from .optimizer import _f32, AdamWConfig, adamw_update, init_opt_state
+from .optimizer import (_f32, AdamWConfig, adamw_update, global_norm,
+                        init_opt_state)
 
 __all__ = ["TrainConfig", "Trainer"]
 
@@ -74,7 +89,8 @@ class TrainConfig:
 class Trainer:
     def __init__(self, model_cfg: ModelConfig, opt_cfg: AdamWConfig,
                  tcfg: TrainConfig, *, comm: Communicator | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None,
+                 rules=None):
         self.device = resolve_device(device)
         exact_float32()
         self.model_cfg = model_cfg
@@ -83,6 +99,13 @@ class Trainer:
         self.comm = comm or Communicator(1)
         self.loss_fn = make_loss_fn(model_cfg)
         self.specs = param_specs(model_cfg)
+        self.mesh = mesh
+        self.rules = rules
+        # the tensors sharded over the mesh and the groups the global norm
+        # sums their squares over: none without a mesh
+        self.sharded, self.norm_groups = [], ()
+        if mesh is not None:
+            self._set_mesh()
         self.metrics_log: list[dict[str, float]] = []
         self.hb = HeartbeatMonitor(self.comm.size)
         # probe-driven liveness: under the mp, spmd and tcp transports the
@@ -99,11 +122,80 @@ class Trainer:
         # step of the manifest run() restored from (None = fresh start)
         self.restored_step: int | None = None
 
+    # -- the mesh -----------------------------------------------------------
+    def _set_mesh(self):
+        """Each tensor's block (recording every mapping left unapplied in
+        ``sharding_report()``), the batch axes and the groups the global
+        norm sums the sharded tensors' squares over."""
+        mesh = self.mesh
+        if self.rules is None:
+            self.rules = train_rules("pod" in mesh_shape(mesh))
+        data_axes = batch_axes(mesh, self.rules)
+        if set(data_axes) - {"pod", "data"}:
+            raise NotImplementedError(
+                f"the batch shards over {data_axes}: this trainer averages "
+                "gradients over ('pod', 'data') only (ROADMAP A14c)")
+        self.shardings = {
+            k: NamedSharding(mesh, explicit_spec(s.axes, s.shape, self.rules,
+                                                 mesh, context=k))
+            for k, s in self.specs.items()}
+        self.sharded = sorted(k for k, sh in self.shardings.items()
+                              if any(sh.spec))
+        axes = sorted({a for k in self.sharded
+                       for part in self.shardings[k].spec if part
+                       for a in ((part,) if isinstance(part, str) else part)})
+        self.norm_groups = axis_groups(mesh, axes)
+        if self.sharded and self.tcfg.compression:
+            raise NotImplementedError(
+                "int8 compression takes one scale per whole tensor; "
+                f"{self.sharded[0]} is sharded over the mesh (ROADMAP A14c)")
+
+    def local_batch(self, batch: dict[str, np.ndarray]) -> dict:
+        """This rank's rows of a global batch (leading microbatch axis, then
+        the batch axis): the whole batch without a mesh."""
+        if self.mesh is None:
+            return batch
+        out = {}
+        for k, v in batch.items():
+            axes = (None, "batch") + (None,) * (v.ndim - 2)
+            spec = explicit_spec(axes, v.shape, self.rules, self.mesh,
+                                 context=f"batch/{k}")
+            out[k] = NamedSharding(self.mesh, spec).local_slice(v)
+        return out
+
+    def _data_mean(self, grads: dict) -> dict:
+        """The gradients' mean over the data axes: one float32 buffer in
+        sorted key order, padded to a multiple of the "data" axis' size,
+        through ``hierarchical_pmean`` (inner "data", outer "pod")."""
+        keys = sorted(grads)
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        n_in = mesh_shape(self.mesh)["data"]
+        pad = -flat.numel() % n_in
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        outer = "pod" if "pod" in mesh_shape(self.mesh) else None
+        flat = hierarchical_pmean(flat, "data", outer, self.mesh)
+        out, at = {}, 0
+        for k in keys:
+            n = grads[k].numel()
+            out[k] = flat[at:at + n].view(grads[k].shape)
+            at += n
+        return out
+
     # -- the step -----------------------------------------------------------
     def loss_and_grads(self, params, batch):
         """Mean loss and gradients over the batch's leading microbatch
         axis (tensors on the trainer's device): summed in float32 from zero, then divided by
-        ``tcfg.microbatches`` (a true division, as the reference's)."""
+        ``tcfg.microbatches`` (a true division, as the reference's).  Under
+        a mesh, ``batch`` is this rank's rows, the loss the global one and
+        the gradients their mean over the data axes."""
+        if self.mesh is not None:
+            with use_rules(self.rules, self.mesh):
+                loss, grads = self._loss_and_grads(params, batch)
+            return loss, self._data_mean(grads)
+        return self._loss_and_grads(params, batch)
+
+    def _loss_and_grads(self, params, batch):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         l_sum = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -167,12 +259,17 @@ class Trainer:
         numpy batches with a leading microbatch axis.  ``on_step(step,
         record)`` follows each step; ``on_save(step, tree)`` precedes each
         checkpoint save with the tree about to be saved.  Returns (params,
-        opt_state); opt_state is None in offload mode."""
+        opt_state); opt_state is None in offload mode.  Under a mesh,
+        ``params`` is the full tree and ``data_iter`` the global batches:
+        the rank keeps its blocks and rows, and returns its blocks."""
         tcfg = self.tcfg
         dev = self.device
         if params is None:
             params = init_params(self.specs, tcfg.seed, device=dev)
         params = {k: v.to(dev) for k, v in params.items()}
+        if self.mesh is not None:  # this rank's block of the full tree
+            params = {k: self.shardings[k].local_slice(v).clone()
+                      for k, v in params.items()}
         if tcfg.mode == "fused":
             opt_state = init_opt_state(params)
         else:
@@ -200,14 +297,16 @@ class Trainer:
                                                         start_step + stop_after)
         for step in range(start_step, end):
             batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                     for k, v in next(data_iter).items()}
+                     for k, v in self.local_batch(next(data_iter)).items()}
             t0 = time.monotonic()
             loss, grads = self.loss_and_grads(params, batch)
             if tcfg.mode == "fused":
                 if tcfg.compression:
                     grads, ef = compress_with_feedback(grads, ef)
+                gnorm = global_norm(grads, sharded=self.sharded,
+                                    groups=self.norm_groups)
                 params, opt_state, stats = adamw_update(
-                    params, grads, opt_state, self.opt_cfg)
+                    params, grads, opt_state, self.opt_cfg, gnorm=gnorm)
             else:
                 new_p = self.offload_opt.update(
                     {k: g.to(torch.bfloat16) for k, g in grads.items()})

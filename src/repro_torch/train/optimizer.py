@@ -19,10 +19,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.distributed
 
 from ..convert import resolve_device
 
@@ -55,14 +56,25 @@ def cosine_schedule(cfg: AdamWConfig, step,
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor], *,
+                sharded: Sequence[str] = (), groups=()) -> torch.Tensor:
     """The float32 norm over every tensor, the squares summed in sorted key
     order: the order of the reference's jitted step, which flattens the
     dict by key.  Insertion order would make the sum depend on how the
     dict was built (a restored tree's order is not a fresh one's), and so
-    would the clipped update."""
-    return torch.sqrt(sum(tree[k].float().square().sum()
-                          for k in sorted(tree)))
+    would the clipped update.
+
+    Under a mesh, ``tree`` holds this rank's blocks: the squares of the
+    ``sharded`` tensors are summed over the ranks of ``groups`` (one
+    all-reduce), each whole tensor counted once, and the sum keeps the
+    sorted order (at one rank the same bits as without a mesh)."""
+    sq = {k: tree[k].float().square().sum() for k in tree}
+    if sharded:
+        parts = torch.stack([sq[k] for k in sharded])
+        for g in groups:
+            torch.distributed.all_reduce(parts, group=g)
+        sq.update(zip(sharded, parts.unbind(0)))
+    return torch.sqrt(sum(sq[k] for k in sorted(tree)))
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor]) -> dict:
@@ -89,14 +101,15 @@ def _f32(value, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: AdamWConfig):
+def adamw_update(params, grads, state, cfg: AdamWConfig, *, gnorm=None):
     """One AdamW step on flat dicts.  Returns (params', state', stats); the
-    inputs are not modified."""
+    inputs are not modified.  ``gnorm``: the gradients' global norm, when
+    the caller computes it (under a mesh); by default ``global_norm``."""
     dev = state["step"].device
     t = int(state["step"])
     step = state["step"] + 1
     lr = _f32(cosine_schedule(cfg, t, device="cpu"), dev)
-    gn = global_norm(grads)
+    gn = global_norm(grads) if gnorm is None else gnorm
     scale = (torch.clamp(_f32(cfg.clip_norm, dev)
                          / torch.clamp(gn, min=1e-12), max=1.0)
              if cfg.clip_norm else 1.0)

@@ -23,11 +23,16 @@ mods = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
-# the multi-origin layer is walked too: the sanitizer, spmd and tcp
+# the multi-origin layer is walked too: the sanitizer, spmd and tcp; and
+# the mesh: its factory, the sharding rules and the collectives
 for m in ("repro_torch.analysis.sanitizer", "repro_torch.core.transport.spmd",
           "repro_torch.core.transport.tcp", "repro_torch.launch.train",
-          "repro_torch.launch.spmd_train_resume"):
+          "repro_torch.launch.spmd_train_resume", "repro_torch.launch.mesh",
+          "repro_torch.runtime.sharding", "repro_torch.runtime.collectives"):
     assert m in mods, m
+# importing the mesh's modules starts no process group
+import torch.distributed as dist
+assert not dist.is_initialized()
 leaked = sorted(m for m in sys.modules
                 if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked

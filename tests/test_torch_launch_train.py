@@ -8,9 +8,10 @@ the JAX package's does), so the SPMD ranks' float32 losses equal the
 single-controller run's, bit for bit.  ``launch/spmd_train_resume.py``
 (a rank SIGKILLed and respawned, then a whole-job restart) exits 0.  The
 ``TrainConfig.probe_interval_s`` knob reaches the Trainer's failure
-detector, and ``--mesh`` raises naming the ROADMAP item.
+detector, and ``--mesh`` trains at one rank as the single controller does.
 """
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -76,10 +77,35 @@ def test_spmd_train_resume_exits_zero():
     assert "spmd_train_resume: PASS" in text
 
 
-def test_mesh_raises_naming_the_item():
-    r = _run("repro_torch.launch.train", *ARGS, "--mesh")
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "A14" in r.stderr
+def test_mesh_raises_naming_the_item(single):
+    """Named for the refusal ``--mesh`` replaced: one process started as
+    ``torch.distributed.run`` starts it (a 1x1 mesh through
+    ``REPRO_MESH_OVERRIDE``) trains, losses equal to the single-controller
+    run's; rank 0 prints the sharding report (empty at one rank: no
+    mapping has an axis of size > 1).  Four ranks:
+    tests/test_torch_mesh_train.py."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), REPRO_MESH_OVERRIDE="1x1")
+    for k in ("REPRO_TRANSPORT", "REPRO_RANK", "REPRO_NRANKS"):
+        env.pop(k, None)
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                        *ARGS, "--mesh"], env=env, capture_output=True,
+                       text=True, timeout=300)
+    text = _ok(r)
+    assert "mesh {'data': 1, 'model': 1} (gloo), rules train; " \
+        "sharding_report (mappings left replicated): {}" in text
+    m = re.search(r"rank 0/1 done: 3 step\(s\) from step 0, loss "
+                  r"(\S+) -> (\S+) \(cpu, transport=ranklocal\)", text)
+    assert m, text
+    assert (float(m.group(1)), float(m.group(2))) == single["inproc"]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def test_trainer_probe_interval_reaches_detector():
@@ -103,3 +129,23 @@ def test_trainer_probe_interval_reaches_detector():
             "probe_interval": 0.3, "device": "cpu"}
     tr, _ = _build_trainer(opts, Communicator(1))
     assert tr.detector.interval == 0.3 and tr.device.type == "cpu"
+
+
+def test_layers_cuts_the_depth_and_keeps_the_widths():
+    """``--layers N`` (``opts["layers"]``) cuts the config to N layers at
+    its widths, as chip_smoke.py's phase 9m (b) trains internlm2-1.8b;
+    without it the config is whole."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import Communicator
+    from repro_torch.launch.train import _build_trainer
+
+    opts = {"arch": "internlm2-1.8b", "smoke": True, "layers": 1,
+            "steps": 1, "batch": 2, "seq": 16, "microbatches": 1,
+            "lr": 3e-4, "ckpt_dir": None, "ckpt_every": 0, "mode": "fused",
+            "compression": False, "probe_interval": 1.0, "device": "cpu"}
+    whole = get_config("internlm2-1.8b", smoke=True)
+    assert whole.n_layers > 1
+    tr, _ = _build_trainer(opts, Communicator(1))
+    assert tr.model_cfg == dataclasses.replace(whole, n_layers=1)
+    tr, _ = _build_trainer(dict(opts, layers=None), Communicator(1))
+    assert tr.model_cfg == whole

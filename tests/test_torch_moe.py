@@ -157,7 +157,49 @@ def test_moe_combine_is_deterministic():
 
 
 def test_moe_mesh_is_not_ported():
+    """Named for the refusal the expert-parallel path replaced: under a
+    mesh (read from ``use_rules``, as the reference's dispatcher reads it;
+    ``moe_mlp`` takes no ``mesh=``) with a "model" axis dividing the
+    experts, ``moe_mlp`` takes the expert-parallel path, which at one rank
+    equals the dense dispatch bit for bit, values and gradients; without a
+    dividing "model" axis it stays dense.  Four ranks:
+    tests/test_torch_moe_ep.py."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import train_rules, use_rules
     _, cfg, p = layer("llama4-maverick-400b-a17b")
-    with pytest.raises(NotImplementedError, match="queue A14"):
-        moe.moe_mlp(cfg, _t(p), torch.zeros(1, 2, cfg.d_model),
-                    mesh=object())
+    x = torch.randn(2, 5, cfg.d_model,
+                    generator=torch.Generator().manual_seed(3))
+    with pytest.raises(TypeError):
+        moe.moe_mlp(cfg, _t(p), x, mesh=object())
+
+    def run():
+        leaves = {k: v.requires_grad_(True) for k, v in _t(p).items()}
+        xx = x.clone().requires_grad_(True)
+        y, aux = moe.moe_mlp(cfg, leaves, xx, capacity=16)
+        grads = torch.autograd.grad((y * x).sum() + aux,
+                                    [xx, *leaves.values()])
+        return y, aux, grads
+
+    dense = run()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    calls = []
+    ep = moe._moe_mlp_shard_map
+    moe._moe_mlp_shard_map = lambda *a, **kw: calls.append(1) or ep(*a, **kw)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        with use_rules(train_rules(), mesh):
+            sharded = run()
+        other = make_mesh((1,), ("data",), device="cpu")
+        with use_rules(train_rules(), other):
+            run()
+    finally:
+        moe._moe_mlp_shard_map = ep
+        dist.destroy_process_group()
+    assert calls == [1]
+    assert torch.equal(dense[0], sharded[0])
+    assert torch.equal(dense[1], sharded[1])
+    for a, b in zip(dense[2], sharded[2]):
+        assert torch.equal(a, b)

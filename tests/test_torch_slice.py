@@ -81,16 +81,18 @@ def test_main_path_matches_reference(tmp_path, chip_smoke):
 def test_mp_phase_at_smoke_widths(tmp_path, chip_smoke):
     """Phase 7's routine at the small size on the CPU: the main path into
     a worker-owned window flushes what phase 2 flushes, one control message
-    per sync; the shard groups, the DHT and MapReduce give byte-identical
-    files under inproc and mp (checked inside, exact)."""
+    per sync; the shard groups (of whisper-base's masters, as on the card),
+    the DHT and MapReduce give byte-identical files under inproc and mp
+    (checked inside, exact)."""
     cfg = chip_smoke.smoke_config(1, **SMALL)
+    shards_cfg = get_config(chip_smoke.SHARDS_ARCH, smoke=True)
     (tmp_path / "p2").mkdir()
     quiet = dict(log=lambda *_: None)
     phase2 = chip_smoke.run_main_path(cfg, device="cpu",
                                       directory=tmp_path / "p2", **quiet)
     out = chip_smoke.mp_phase(
         cfg, torch.device("cpu"), phase2, tmp_path / "mp",
-        dht=dict(chip_smoke.MP_DHT, lv_entries=128),
+        shards_cfg=shards_cfg, dht=dict(chip_smoke.MP_DHT, lv_entries=128),
         mr=dict(chip_smoke.MP_MR, tasks=6, words=300), **quiet)
     a = out["7a"]["syncs"]
     assert [s["flushed_bytes"] for s in a] \
@@ -99,8 +101,8 @@ def test_mp_phase_at_smoke_widths(tmp_path, chip_smoke):
         == [[(0, "wsync")], [(0, "wsync")], [(0, "sync")]]
     assert a[0]["spans_logical_bytes"] == a[0]["flushed_bytes"]
     groups = chip_smoke.shard_groups(
-        {k: s.shape for k, s in param_specs(cfg).items()})
-    assert sorted(sum(groups, [])) == sorted(param_specs(cfg))
+        {k: s.shape for k, s in param_specs(shards_cfg).items()})
+    assert sorted(sum(groups, [])) == sorted(param_specs(shards_cfg))
     b = out["7b"]
     assert b["files_identical"] == [f"shards.bin.{r}" for r in range(4)]
     assert [r["rank"] for r in b["mp"]["ranks"]] == [1, 2, 3]
@@ -213,8 +215,9 @@ def test_replicated_shards_match_reference(tmp_path, chip_smoke, transport):
 def test_replicated_phase_at_smoke_widths(tmp_path, chip_smoke):
     """Phase 8's routine at the small size on the CPU: 8a under inproc and
     mp with byte-identical files, 8b's DHT through a SIGKILL, 8c's restore
-    with the saving rank dead (all checked inside, exact)."""
-    cfg = chip_smoke.smoke_config(1, **SMALL)
+    with the saving rank dead (all checked inside, exact), over
+    whisper-base's masters as on the card."""
+    cfg = get_config(chip_smoke.SHARDS_ARCH, smoke=True)
     shards7b = {kind: {"ranks": [{"sync_ms": 1.0}] * 3}
                 for kind in ("inproc", "mp")}
     out = chip_smoke.replicated_phase(
@@ -273,6 +276,21 @@ def test_smoke_config_counts(chip_smoke):
     specs = param_specs(cfg)
     assert len(specs) == 12
     assert sum(int(np.prod(s.shape)) for s in specs.values()) == 504_899_584
+
+
+def test_shards_config_counts(chip_smoke):
+    """Phases 7b-8c's tree: whisper-base at its published size, 97,166,336
+    parameters in 25 tensors, in three groups of about equal bytes (8c
+    saves the second)."""
+    cfg = chip_smoke.shards_config()
+    assert cfg == get_config("whisper-base")
+    shapes = {k: s.shape for k, s in param_specs(cfg).items()}
+    assert len(shapes) == 25
+    assert sum(int(np.prod(s)) for s in shapes.values()) == 97_166_336
+    groups = chip_smoke.shard_groups(shapes)
+    assert [len(g) for g in groups] == [2, 18, 5]
+    assert [chip_smoke.shard_layout(g, shapes)["bytes"] for g in groups] \
+        == [131_387_392, 125_898_752, 131_387_392]
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:

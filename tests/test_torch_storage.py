@@ -69,3 +69,28 @@ def test_first_touch_fills_slots_in_order(tmp_path):
     assert b._slot_of[0:2].tolist() == [4, 5]
     assert b._used == 6
     b.close(unlink=True)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_cold_reads_match_reference(tmp_path, seed):
+    """Reads of a cold window (a restore's) fault the missing blocks in by
+    runs, one ``pread`` a run: the bytes, slots, reference bits, fault
+    count and resident count equal the reference's page-by-page faults,
+    through partly resident, unaligned and ragged-end ranges."""
+    rng = np.random.default_rng(seed)
+    size = 40 * PAGE - 123
+    data = rng.integers(0, 256, size, dtype=np.uint8)
+    ranges = [(int(rng.integers(0, size - 1)), 0) for _ in range(8)]
+    ranges = [(off, int(rng.integers(1, min(size - off, 9 * PAGE) + 1)))
+              for off, _ in ranges] + [(size - 5000, 5000), (0, size)]
+    states = []
+    for mod, name in ((jstorage, "ref.bin"), (tstorage, "port.bin")):
+        path = tmp_path / name
+        data.tofile(path)
+        b = mod.CachedBacking(str(path), size)
+        reads = [b.read(off, n).tobytes() for off, n in ranges]
+        states.append((reads, b._slot_of.tolist(), b._block_of.tolist(),
+                       b._refbit.tolist(), b.faults, b._used))
+        b.close()
+    assert states[1] == states[0]
+    assert states[1][0][-1] == data.tobytes()
