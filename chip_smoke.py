@@ -279,6 +279,15 @@ into ``build/repro_torch``), and then:
   the same newest checkpoint partition, bit for bit; no kernel may launch
   in a rank.  The phase's host memory is reckoned before it runs and held
   under 48 GB, and measured on the launcher and every rank process.
+* phase 11 holds the port's dry-run (``repro_torch.launch.dryrun``) to
+  the card's own counts, on the host from meta tensors, with no work on
+  the card: phases 3-5's bf16 prefills traced on a 1x1 mesh over a
+  one-rank fake process group must launch each kernel as often as one of
+  the phase's serving prefills did on the card (B3 24; B4 64; B5 18 and
+  B3 8) and hold the bytes its engine held there (cast parameters, cache,
+  token ids), exactly; the predicted peak is printed beside the phase's
+  measured one, and for phase 6's training step beside its run A's, with
+  the step's FLOP over its median time.  The phase must take at most 15 s.
 
 Diagnostics go to earlier lines of standard output: the card's name and
 power limit (``nvidia-smi``), build times, per-sync times, the serving
@@ -289,7 +298,8 @@ and rebuild seconds, DHT rates and checkpoint times, phases 6b's and 6c's
 step times, step profiles, saves and restore, phase 9's serving times,
 readings and peak device bytes, phase 9m's two prefill profiles, losses,
 peak device bytes and process walls, phase 10's step times per rank, respawn
-and restore seconds and peak host and device bytes, the phase walls and
+and restore seconds and peak host and device bytes, phase 11's predicted
+launches, argument and peak bytes beside the card's, the phase walls and
 the command's wall, and one JSON line
 ``{"kernels": [...]}`` with each of the seven
 kernels of the main paths: time, launches, bound, plain-version and
@@ -997,8 +1007,10 @@ def measure_attention(dev, shape=ATTN_MAIN, window=None,
     is SDPA with the same mask but without a window: the same function
     wherever the window does not bind (S <= window).  Where SDPA refuses
     the shape, ``library_ms`` is None and ``library_refused`` says why;
-    nothing stands in for it."""
+    nothing stands in for it.  The FLOP and bytes are the kernel module's
+    ``work`` (the dry-run's counts read it too)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention_tc import work
     B, H, K, S, d = shape
     T = S if T is None else T
     dv = d if dv is None else dv
@@ -1007,10 +1019,8 @@ def measure_attention(dev, shape=ATTN_MAIN, window=None,
     check(not causal or S == T, f"causal attention with S {S} != T {T}")
     gen = torch.Generator(device=dev).manual_seed(3)
     q, k, v = attention_inputs(B, H, K, S, T, d, dtype, gen, dev, dv=dv)
-    pairs = S * (S + 1) // 2 if causal else S * T
-    flops = 2 * B * H * (d + dv) * pairs
-    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
-                                 + B * H * S * dv)
+    flops, nbytes = work(B, H, K, S, T, d, dv, causal=causal, window=window,
+                         t_actual=T, itemsize=q.element_size())
     t_ops = flops / (BF16_FLOPS if dtype == torch.bfloat16
                      else F32_MMA_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1179,23 +1189,21 @@ def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
     products).  The kernel's scratch, read from the caching allocator (the
     peak of one call beyond what was allocated before it and the outputs
     it returns, in the allocator's rounded blocks), is reported beside the
-    bound, which counts only the function's inputs and outputs."""
+    bound, which counts only the function's inputs and outputs (the
+    kernel module's ``work``, which the dry-run's counts read too)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan_tc import work
     from repro_torch.models.ssm import ssd_chunked
     B, H, S, P, N = SSD_MAIN
     kernel = ops.kernel_module("ssd_scan", dtype)
     chunk = kernel.CHUNK
     gen = torch.Generator(device=dev).manual_seed(5)
     x, dt, A, bm, c = ssd_main_inputs(dtype, gen, dev)
-    # the least work: the chunked form at the kernel's chunk, scores only
-    # for i >= j (l(l+1)/2 of a chunk of l), C.h and the state update
-    pairs = sum(min(chunk, S - s0) * (min(chunk, S - s0) + 1) // 2
-                for s0 in range(0, S, chunk))
-    flops = 2 * B * H * (pairs * (N + P) + 2 * S * N * P)
-    # each input read once (Bm and C: one group, B*S*N values each), y and
-    # the final state written once
-    nbytes = (x.element_size() * (B * S * H * P + 2 * B * S * N)
-              + 4 * (B * H * S + H) + 4 * (B * H * S * P + B * H * N * P))
+    # the least work: the chunked form at the kernel's chunk; each input
+    # read once (Bm and C: one group, B*S*N values each), y and the final
+    # state written once
+    flops, nbytes = work(B, H, S, P, N, itemsize=x.element_size(),
+                         bc_heads=1, chunk=chunk)
     rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_MMA_FLOPS
     t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     model = (x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2),
@@ -1328,14 +1336,16 @@ def measure_rg_lru(dev) -> dict:
     recurrence at the main path's shape (float32, as the model hands it
     over), and its bound.  No PyTorch call computes the recurrence; beside
     it, ``torch.add(a, gx)`` moves the same bytes (``same_bytes_ms``: what
-    PyTorch's elementwise kernel reaches for that traffic)."""
+    PyTorch's elementwise kernel reaches for that traffic).  The FLOP and
+    bytes are the kernel module's ``work``."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rg_lru_pipe import work
     B, S, W = RG_MAIN
     gen = torch.Generator(device=dev).manual_seed(7)
     a, gx = rg_lru_main_inputs(gen, dev)
     y = torch.empty_like(a)
-    flops = 2 * B * S * W  # a product and a sum per element
-    nbytes = 4 * 3 * B * S * W  # a and gx read, y written, float32
+    # a product and a sum per element; a and gx read, y written, float32
+    flops, nbytes = work(B, S, W, itemsize=a.element_size())
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
     # 20 launches a mean: at 0.1 ms a launch, the host's latency to the
     # first one would weigh in a mean of 5
@@ -1629,6 +1639,7 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
     by :func:`attention_key`) and the times."""
     from repro_torch.core import Communicator
     from repro_torch.models import init_cache_specs
+    from repro_torch.perf import storage_bytes
     from repro_torch.serve import Engine, SessionStore
 
     dev = torch.device(device)
@@ -1652,6 +1663,13 @@ def run_serving(cfg, params: dict, tokens: np.ndarray, *, device,
     by_shape, store = ShapeLaunches(kernels), None
     try:
         eng = engine()
+        # what a prefill holds on the device before it runs (phase 11's
+        # dry-run predicts it): the cast parameters, the cache and the
+        # engine's token ids (a frontend's embeddings are not counted)
+        out["held_bytes"] = {
+            "params": storage_bytes(eng.params.values()),
+            "cache": storage_bytes(eng.cache.values()),
+            "inputs": storage_bytes([eng._tokens(inputs["inputs"])])}
         run1, out["generate_ms"] = _timed_ms(
             lambda: eng.generate(inputs, steps), dev)
         launches_run1 = {mod: mod.launches for mod in kernels}
@@ -3443,6 +3461,89 @@ def spmd_phase(dev, *, directory: Path = SPMD_DIR, seq: int | None = None,
 
 # -- measurements ----------------------------------------------------------------
 
+# -- phase 11: the dry-run against the card -----------------------------------
+
+# the serving phases whose bf16 prefill phase 11 traces, and their configs
+DRYRUN_SERVING = {"3": "internlm2-1.8b", "4": "mamba2-2.7b",
+                  "5": "recurrentgemma-2b"}
+DRYRUN_WALL_LIMIT = 15.0  # s, the whole phase on the host
+
+
+def dryrun_phase(serving: dict, train: dict, log=print) -> dict:
+    """Phase 11: the port's dry-run (``repro_torch.launch.dryrun``) held to
+    what the card counted, from meta tensors on the host (no work on the
+    card).  Phases 3-5's bf16 prefills (full depth, SERVE's batch, prompt
+    and cache) are traced on a 1x1 mesh over a one-rank fake group
+    (``serving``: each phase's ``run_serving`` record): each kernel's
+    predicted launches must equal one serving prefill's on the card (the
+    phase's count over its two prefills, which ``run_serving`` held equal),
+    and the argument bytes the bytes the engine held there (``held_bytes``:
+    cast parameters, cache, token ids), exactly; the predicted peak
+    (arguments + temporaries) is printed beside the phase's measured
+    ``peak_device_bytes``.  Phase 6's training step (``train``: its record;
+    no mesh, the whole step traced) gives the predicted peak beside
+    ``peak_device_bytes_run_a`` and the step's FLOP over its median time,
+    printed, not held.  The phase must end within DRYRUN_WALL_LIMIT."""
+    from repro_torch.configs import SHAPES, Shape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import serve_rules
+    t0 = time.perf_counter()
+    out = {}
+    shape = Shape("serve", "prefill", SERVE["prompt"], SERVE["batch"])
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        for phase, arch in DRYRUN_SERVING.items():
+            rec, cfg = serving[phase], get_config(arch)
+            rep = dryrun.trace_program(
+                cfg, shape, mesh=mesh,
+                rules=serve_rules(kv_shard=dryrun.KV_SHARD[arch]),
+                cache_len=SERVE["max_len"], enc_len=0)
+            card = {name: n // 2 for name, n in rec["launches"].items()}
+            predicted = {name: k["launches"]
+                         for name, k in rep.kernels.items()}
+            held = sum(rec["held_bytes"].values())
+            mem = rep.memory
+            out[phase] = {
+                "arch": arch, "launches": predicted, "card_launches": card,
+                "argument_bytes": mem["argument_bytes"], "held_bytes": held,
+                "peak_bytes": mem["argument_bytes"] + mem["temp_bytes"],
+                "card_peak_bytes": rec["peak_device_bytes"],
+                "flops": rep.flops, "traffic_bytes": rep.bytes}
+            check(predicted == card,
+                  f"phase 11: {arch}'s traced prefill launches {predicted}, "
+                  f"the card's prefill {card}")
+            check(mem["argument_bytes"] == held,
+                  f"phase 11: {arch}'s traced prefill holds "
+                  f"{mem['argument_bytes']} B of arguments, the card's "
+                  f"engine held {held} ({rec['held_bytes']})")
+    spec = TRAIN_PHASES["6"]
+    rep = dryrun.trace_program(
+        train_config("6"),
+        Shape("train", "train", SHAPES[TRAIN["shape"]].seq,
+              TRAIN["batch"] * spec["microbatches"]),
+        microbatches=spec["microbatches"], scaled=False)
+    out["6"] = {
+        "arch": spec["arch"], "n_layers": spec["n_layers"],
+        "flops": rep.flops, "flop_terms": rep.terms,
+        "traffic_bytes": rep.bytes,
+        "peak_bytes": rep.memory["argument_bytes"]
+        + rep.memory["temp_bytes"],
+        "card_peak_bytes": train["peak_device_bytes_run_a"],
+        "step_ms_median": train["step_ms_median"],
+        "achieved_tflops": rep.flops / (train["step_ms_median"] / 1e3) / 1e12,
+        "kernel_launches": {k: v["launches"] for k, v in rep.kernels.items()}}
+    check(not rep.kernels, f"phase 11: a kernel counted in phase 6's step: "
+          f"{rep.kernels}")
+    out["wall_s"] = time.perf_counter() - t0
+    check(out["wall_s"] <= DRYRUN_WALL_LIMIT,
+          f"phase 11 took {out['wall_s']:.1f} s, more than "
+          f"{DRYRUN_WALL_LIMIT}")
+    log(f"phase 11: the traced prefills of phases 3-5 launch what the card "
+        f"launched and hold what it held, exactly; {out['wall_s']:.1f} s")
+    return out
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
     """Mean milliseconds of ``fn`` on the card's clock (CUDA events), after
     one warm-up call."""
@@ -3885,6 +3986,12 @@ def main() -> int:
           + json.dumps(spmd))
     marks.append(time.perf_counter())
 
+    # phase 11: the dry-run against the card, on the host from meta tensors
+    dry = dryrun_phase({"3": serve, "4": ssm, "5": rg}, train)
+    print(f"dryrun 11, the traced programs beside the card's counts "
+          f"({card}): " + json.dumps(dry))
+    marks.append(time.perf_counter())
+
     # B3-B5 run in the serving phases' prefills (and float32 gates)
     for row in kernels[2:]:
         name, path = row["name"], ("float32_launches" if row["name"].endswith(
@@ -3905,7 +4012,8 @@ def main() -> int:
     walls = {name: b - a for name, a, b in zip(
         ("phases 1, 1b, 1c, 1d", "phase 2", "phase 3", "phase 4", "phase 5",
          *(f"phase {ph}" for ph in TRAIN_PHASES), "phase 7", "phase 8",
-         "phase 9", "phase 9m", "phase 10"), marks, marks[1:])}
+         "phase 9", "phase 9m", "phase 10", "phase 11"), marks,
+        marks[1:])}
     # 9m's (a) ran inside phase 9's 9c
     walls["phase 9"] -= mesh_a["wall_s"]
     walls["phase 9m"] += mesh_a["wall_s"]

@@ -19,11 +19,14 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from ..perf.op_analysis import record_launch
 from . import _build
 
-__all__ = ["D_MAX", "flash_attention_tc_cuda", "launches", "out_like"]
+__all__ = ["D_MAX", "attended_pairs", "count_launch",
+           "flash_attention_tc_cuda", "launches", "out_like", "work"]
 
 #: kernel launches made by :func:`flash_attention_tc_cuda` (a run that must
 #: show it went through the kernel sets this to 0 before and reads it after)
@@ -39,6 +42,43 @@ _SIGNATURES = {
 }
 
 _GRID_YZ = 65535  # largest grid y and z: heads and batch
+
+
+def attended_pairs(S: int, T: int, *, causal: bool, window: int | None,
+                   t_actual: int) -> int:
+    """(query, key) pairs the mask keeps, queries and keys both from
+    position 0: keys below ``t_actual``, at or before the query if
+    ``causal``, fewer than ``window`` positions behind it if given."""
+    i = np.arange(S, dtype=np.int64)
+    lo = np.zeros(S, np.int64) if window is None else \
+        np.maximum(0, i - window + 1)
+    hi = np.minimum(i, t_actual - 1) if causal else \
+        np.full(S, t_actual - 1, np.int64)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def work(B: int, H: int, K: int, S: int, T: int, d: int, dv: int, *,
+         causal: bool, window: int | None, t_actual: int,
+         itemsize: int) -> tuple[int, int]:
+    """(FLOP, bytes) of one launch, the least work of the function: both
+    products over the attended pairs only, 2·B·H·(d + dv) a pair, and q, k,
+    v read and the output written once (``itemsize`` bytes an element).
+    The bounds of ``chip_smoke.py`` and the dry-run's counts both read
+    this; the float32 kernel does the same work."""
+    pairs = attended_pairs(S, T, causal=causal, window=window,
+                           t_actual=t_actual)
+    return (2 * B * H * (d + dv) * pairs,
+            itemsize * (B * H * S * d + B * K * T * (d + dv) + B * H * S * dv))
+
+
+def count_launch(name: str, q, k, v, *, causal: bool, window: int | None,
+                 t_actual: int) -> None:
+    """A launch on meta tensors: counted (:func:`work`), nothing run."""
+    B, H, S, d = q.shape
+    K, T, dv = k.shape[1], k.shape[2], v.shape[3]
+    record_launch(name, *work(B, H, K, S, T, d, dv, causal=causal,
+                              window=window, t_actual=t_actual,
+                              itemsize=q.element_size()))
 
 
 def out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
@@ -66,7 +106,7 @@ def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
     global launches
     B, H, S, d = q.shape
     K, T, dv = k.shape[1], k.shape[2], v.shape[3]
-    if not (q.is_cuda and q.device == k.device == v.device):
+    if not ((q.is_cuda or q.is_meta) and q.device == k.device == v.device):
         raise ValueError("flash_attention_tc_cuda takes q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
     if not q.dtype == k.dtype == v.dtype == torch.bfloat16:
@@ -83,6 +123,10 @@ def flash_attention_tc_cuda(q: torch.Tensor, k: torch.Tensor,
     if out.stride(-1) != 1:
         raise ValueError("the output's head dimension must be contiguous")
     if out.numel() == 0:
+        return out
+    if q.is_meta:  # the dry-run: the same checks and buffers, no launch
+        count_launch("flash_attention_tc", q, k, v, causal=causal,
+                     window=window, t_actual=t_actual)
         return out
     lib = _build.library("flash_attention_tc", _SIGNATURES)
     with torch.cuda.device(q.device):

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention_tc import out_like
+from .flash_attention_tc import count_launch, out_like
 
 __all__ = ["D_MAX", "flash_attention_tc32_cuda", "launches"]
 
@@ -55,7 +55,7 @@ def flash_attention_tc32_cuda(q: torch.Tensor, k: torch.Tensor,
     global launches
     B, H, S, d = q.shape
     K, T, dv = k.shape[1], k.shape[2], v.shape[3]
-    if not (q.is_cuda and q.device == k.device == v.device):
+    if not ((q.is_cuda or q.is_meta) and q.device == k.device == v.device):
         raise ValueError("flash_attention_tc32_cuda takes q, k, v on one "
                          f"CUDA device, got {q.device}, {k.device}, "
                          f"{v.device}")
@@ -73,6 +73,10 @@ def flash_attention_tc32_cuda(q: torch.Tensor, k: torch.Tensor,
     if out.stride(-1) != 1:
         raise ValueError("the output's head dimension must be contiguous")
     if out.numel() == 0:
+        return out
+    if q.is_meta:  # the dry-run: the same checks and buffers, no launch
+        count_launch("flash_attention_tc32", q, k, v, causal=causal,
+                     window=window, t_actual=t_actual)
         return out
     lib = _build.library("flash_attention_tc32", _SIGNATURES)
     with torch.cuda.device(q.device):

@@ -5,6 +5,13 @@ selective sync, for attention, for the SSD scan and for the RG-LRU
 recurrence.  A CUDA tensor goes to the CUDA kernel, and a failing build
 or launch raises; a CPU tensor goes to the kernel's plain PyTorch version
 (:mod:`repro_torch.kernels.ref`).  Nothing else chooses between the two.
+Attention, the SSD scan and the RG-LRU recurrence also take ``meta``
+tensors, the dry-run's (:mod:`repro_torch.launch.dryrun`): they go to the
+CUDA kernel's wrapper as CUDA tensors would, which makes the same checks
+and allocates the same outputs and scratch, then counts the launch, with
+its ``work``, for the active :class:`~repro_torch.perf.OpCounter` and runs
+nothing.  The diff kernels run in window syncs, which no dry-run contains,
+and take no meta tensors.  Any other device raises.
 Attention, the SSD scan and the RG-LRU recurrence find their CUDA kernel
 by dtype (:func:`cuda_kernel`).  Attention and the scan have two each,
 both on the tensor cores: bfloat16 inputs go to ``*_tc``, float32 inputs
@@ -171,7 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.device == k.device == v.device:
         raise ValueError(f"q, k, v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel for device {q.device}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -179,7 +186,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 1 <= t_actual <= T:
         raise ValueError(f"t_actual must be in [1, {T}], got {t_actual}")
     scale = d ** -0.5 if scale is None else scale
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         return cuda_kernel("flash_attention", q.dtype)(
             q, k, v, causal=causal, window=window, scale=scale,
             t_actual=t_actual)
@@ -211,9 +218,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("x, dt, A, Bm, C on different devices: "
                          f"{x.device}, {dt.device}, {A.device}, {Bm.device}, "
                          f"{C.device}")
-    if x.device.type not in ("cuda", "cpu"):
+    if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel for device {x.device}")
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         y, h = cuda_kernel("ssd_scan", x.dtype)(x, dt.float(), A.float(), Bm,
                                                  C)
         return (y, h) if return_state else y
@@ -232,8 +239,8 @@ def rg_lru_scan(a: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
     if a.device != gx.device:
         raise ValueError(f"a and gx on different devices: {a.device}, "
                          f"{gx.device}")
-    if a.device.type not in ("cuda", "cpu"):
+    if a.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no kernel for device {a.device}")
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:
         return cuda_kernel("rg_lru", a.dtype)(a, gx)
     return ref.rg_lru_ref(a, gx)

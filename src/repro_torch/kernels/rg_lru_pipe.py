@@ -20,9 +20,10 @@ import ctypes
 
 import torch
 
+from ..perf.op_analysis import record_launch
 from . import _build
 
-__all__ = ["launch_checked", "launches", "rg_lru_pipe_cuda"]
+__all__ = ["launch_checked", "launches", "rg_lru_pipe_cuda", "work"]
 
 #: kernel launches made by :func:`rg_lru_pipe_cuda` (a run that must show it
 #: went through the kernel sets this to 0 before and reads it after)
@@ -34,6 +35,14 @@ _SIGNATURE = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 10
               + [ctypes.c_void_p], ctypes.c_int)
 
 _GRID_Y = 65535  # largest grid y: batch
+
+
+def work(B: int, S: int, W: int, *, itemsize: int) -> tuple[int, int]:
+    """(FLOP, bytes) of one launch: a product and a sum an element, a and
+    gx (``itemsize`` bytes an element) read and y (float32) written once.
+    The bounds of ``chip_smoke.py`` and the dry-run's counts both read
+    this."""
+    return 2 * B * S * W, B * S * W * (2 * itemsize + 4)
 
 
 def launch_checked(name: str, a: torch.Tensor,
@@ -49,13 +58,16 @@ def launch_checked(name: str, a: torch.Tensor,
     if a.stride(-1) != 1 or gx.stride(-1) != 1:
         raise ValueError("the kernel needs the last dimension of a and gx "
                          "contiguous")
-    if not (a.is_cuda and a.device == gx.device):
+    if not ((a.is_cuda or a.is_meta) and a.device == gx.device):
         raise ValueError(f"{name}_cuda takes a and gx on one CUDA device, got "
                          f"{a.device}, {gx.device}")
     if B > _GRID_Y:
         raise ValueError(f"batch {B} exceeds one CUDA grid")
     y = torch.empty((B, S, W), dtype=torch.float32, device=a.device)
     if y.numel() == 0:
+        return y
+    if a.is_meta:  # the dry-run: the same checks and buffers, no launch
+        record_launch(name, *work(B, S, W, itemsize=a.element_size()))
         return y
     entry = f"{name}_launch"
     lib = _build.library(name, {entry: _SIGNATURE})
@@ -78,6 +90,6 @@ def rg_lru_pipe_cuda(a: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
     Launches on the current stream and does not synchronise."""
     global launches
     y = launch_checked("rg_lru_pipe", a, gx)
-    if y.numel():
+    if y.numel() and y.is_cuda:
         launches += 1
     return y

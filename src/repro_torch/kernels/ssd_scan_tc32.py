@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from . import _build
+from .ssd_scan_tc import count_launch
 
 __all__ = ["CHUNK", "N_MAX", "P_MAX", "launches", "ssd_scan_tc32_cuda"]
 
@@ -56,8 +57,8 @@ def ssd_scan_tc32_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     global launches
     B, H, S, P = x.shape
     N = Bm.shape[-1]
-    if not (x.is_cuda and x.device == dt.device == A.device == Bm.device
-            == C.device):
+    if not ((x.is_cuda or x.is_meta) and x.device == dt.device == A.device
+            == Bm.device == C.device):
         raise ValueError("ssd_scan_tc32_cuda takes its tensors on one CUDA "
                          f"device, got {x.device}, {dt.device}, {A.device}, "
                          f"{Bm.device}, {C.device}")
@@ -85,6 +86,9 @@ def ssd_scan_tc32_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     hin = torch.empty((B, H, nc, N_MAX * P_MAX), dtype=torch.float32,
                       device=x.device)
     decay = torch.empty((B, H, nc), dtype=torch.float32, device=x.device)
+    if x.is_meta:  # the dry-run: the same checks and buffers, no launch
+        count_launch("ssd_scan_tc32", x, Bm)
+        return y, h
     A = A.contiguous()
     lib = _build.library("ssd_scan_tc32", _SIGNATURES)
     with torch.cuda.device(x.device):

@@ -10,7 +10,10 @@ Multi-pod  : (2, 16, 16) ("pod", "data", "model"); the "pod" axis is an
 outer data-parallel dimension (the gradient mean crosses it once a step).
 
 A mesh on ``cuda`` needs the NCCL backend and one on the CPU gloo: nothing
-falls back from the card, and a ``cuda`` mesh with no GPU raises.
+falls back from the card, and a ``cuda`` mesh with no GPU raises.  The
+dry-run (``launch.dryrun``) stands one process for rank 0 of a whole mesh
+of cards: a ``cpu`` mesh also takes a ``fake`` process group, whose
+collectives send nothing.
 """
 
 from __future__ import annotations
@@ -18,30 +21,37 @@ from __future__ import annotations
 import math
 import os
 
-__all__ = ["make_production_mesh", "make_mesh"]
+__all__ = ["make_production_mesh", "make_mesh", "production_mesh_shape"]
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+# the dry-run's stand-in for a mesh of cards, on a cpu mesh only
+_DRY_RUN = ("cpu", "fake")
 
 
-def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+def production_mesh_shape(multi_pod: bool = False
+                          ) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axes) of the production mesh, or of ``REPRO_MESH_OVERRIDE``
+    where it has the right rank."""
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     # test hook: REPRO_MESH_OVERRIDE="4x2" (single pod) / "2x2x2" (multi-pod)
     # runs the same code path on the few processes of a test or one card
     ov = os.environ.get("REPRO_MESH_OVERRIDE")
     if ov:
         dims = tuple(int(d) for d in ov.split("x"))
-        if multi_pod and len(dims) == 3:
-            return make_mesh(dims, ("pod", "data", "model"), device=device)
-        if not multi_pod and len(dims) == 2:
-            return make_mesh(dims, ("data", "model"), device=device)
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
+        if len(dims) == len(axes):
+            return dims, axes
+    return ((2, 16, 16) if multi_pod else (16, 16)), axes
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    return make_mesh(*production_mesh_shape(multi_pod), device=device)
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
               device="cuda"):
     """A mesh of ``shape`` named ``axes`` over the default process group
-    (which the caller initialises: NCCL for ``cuda``, gloo for ``cpu``)."""
+    (which the caller initialises: NCCL for ``cuda``, gloo for ``cpu``, or
+    the dry-run's ``fake`` group for ``cpu``)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -65,7 +75,7 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
             f"processes, the process group has {world} (REPRO_MESH_OVERRIDE "
             "sets the shape)")
     backend = dist.get_backend()
-    if backend != _BACKEND[dev.type]:
+    if backend != _BACKEND[dev.type] and (dev.type, backend) != _DRY_RUN:
         raise ValueError(
             f"a {dev.type} mesh runs over {_BACKEND[dev.type]}, the process "
             f"group's backend is {backend}")

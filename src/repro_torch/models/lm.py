@@ -77,6 +77,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..perf.op_analysis import loop_mark
 from ..runtime.collectives import axis_groups, psum
 from ..runtime.sharding import (batch_axes, current_mesh, current_rules,
                                 mesh_shape, use_rules)
@@ -523,10 +524,12 @@ def _layers(cfg, params, cache):
         gp = {k: t.unbind(0) for k, t in sub(params, f"g{gi}").items()}
         gc = {k: t.unbind(0) for k, t in sub(cache, f"g{gi}").items()}
         for layer in range(reps):
+            loop_mark(f"g{gi}", layer, reps)  # for a cost counter, if any
             for pj, kind in enumerate(pattern):
                 yield (kind,
                        {k: t[layer] for k, t in sub(gp, f"p{pj}").items()},
                        {k: t[layer] for k, t in sub(gc, f"p{pj}").items()})
+        loop_mark(f"g{gi}", reps, reps)
 
 
 # ---------------------------------------------------------------------------
@@ -569,9 +572,11 @@ def _encode(cfg, params, frames, *, train: bool = False):
     else:
         gp = {k: t.unbind(0) for k, t in sub(params, "enc/g0/p0").items()}
         for layer in range(cfg.enc_layers):
+            loop_mark("enc/g0", layer, cfg.enc_layers)
             p = {k: t[layer] for k, t in gp.items()}
             x = _mlp_res(cfg, p, _attn_block(cfg, p, x, positions,
                                              causal=False)[0])
+        loop_mark("enc/g0", cfg.enc_layers, cfg.enc_layers)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -649,7 +654,10 @@ def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
     """The reference's scan over the stacked layers of ``group`` (``g{gi}``,
     or the encoder's ``enc/g0``), as a loop; each layer is one remat unit.
     Returns (x, aux)."""
-    gp = sub(params, group)
+    # each stacked tensor unbound once: its gradient is one stack of the
+    # layers' gradients, where indexing would add a zero-padded copy of the
+    # whole stack per layer (a cost quadratic in the depth)
+    gp = {k: t.unbind(0) for k, t in sub(params, group).items()}
     # a remat unit recomputes in the backward, on the autograd engine's
     # thread on the card: it runs under the caller's rules and mesh
     rules, mesh = current_rules(), current_mesh()
@@ -663,7 +671,9 @@ def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
 
     body = _remat(cfg, body)
     for layer in range(reps):
+        loop_mark(group, layer, reps, x)  # for a cost counter, if one runs
         x, aux = body(x, aux, {k: t[layer] for k, t in gp.items()}, enc_out)
+    loop_mark(group, reps, reps, x)
     return x, aux
 
 

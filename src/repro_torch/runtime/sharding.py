@@ -44,6 +44,7 @@ __all__ = [
     "use_rules", "current_rules", "current_mesh", "shard", "logical_to_spec",
     "explicit_spec", "train_rules", "serve_rules", "sharding_report",
     "named_sharding", "mesh_shape", "mesh_coords", "batch_axes",
+    "fresh_report",
 ]
 
 # The logical axis vocabulary used across the model zoo.
@@ -137,6 +138,21 @@ def _record_fallback(context: str, msg: str) -> None:
     _REPORT.setdefault(context, [])
     if msg not in _REPORT[context]:
         _REPORT[context].append(msg)
+
+
+@contextlib.contextmanager
+def fresh_report():
+    """Record into an empty report inside (yielded: what this block
+    recorded, each message once), then add it to the process's."""
+    global _REPORT
+    outer, _REPORT = _REPORT, {}
+    try:
+        yield _REPORT
+    finally:
+        inner, _REPORT = _REPORT, outer
+        for context, msgs in inner.items():
+            for msg in msgs:
+                _record_fallback(context, msg)
 
 
 @contextlib.contextmanager

@@ -210,6 +210,15 @@ class Trainer:
         n = _f32(self.tcfg.microbatches, self.device)
         return l_sum / n, {k: v / n for k, v in g_sum.items()}
 
+    def update(self, params, opt_state, grads):
+        """The fused mode's device update: the global norm (summed over the
+        mesh for the sharded tensors) and AdamW.  Returns (params,
+        opt_state, stats)."""
+        gnorm = global_norm(grads, sharded=self.sharded,
+                            groups=self.norm_groups)
+        return adamw_update(params, grads, opt_state, self.opt_cfg,
+                            gnorm=gnorm)
+
     # -- checkpoint plumbing ------------------------------------------------
     def _ckpt_specs(self, params) -> dict[str, tuple[tuple[int, ...], Any]]:
         out = {k: (tuple(v.shape), v.dtype) for k, v in params.items()}
@@ -303,10 +312,8 @@ class Trainer:
             if tcfg.mode == "fused":
                 if tcfg.compression:
                     grads, ef = compress_with_feedback(grads, ef)
-                gnorm = global_norm(grads, sharded=self.sharded,
-                                    groups=self.norm_groups)
-                params, opt_state, stats = adamw_update(
-                    params, grads, opt_state, self.opt_cfg, gnorm=gnorm)
+                params, opt_state, stats = self.update(params, opt_state,
+                                                       grads)
             else:
                 new_p = self.offload_opt.update(
                     {k: g.to(torch.bfloat16) for k, g in grads.items()})
