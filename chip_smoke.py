@@ -255,13 +255,16 @@ into ``build/repro_torch``), and then:
   profiles are printed.  (b), after phase 9's timings: ``launch/train.py
   --mesh --arch internlm2-1.8b --layers 2 --mode fused --device cuda``,
   3 steps of one of phase 6's microbatches (2 x 4096 tokens), under
-  ``torch.distributed.run`` with one process (NCCL, the 1x1 mesh: the
-  gradients' data mean over one float32 buffer of the 2-layer model's
-  full-width tensors, the global norm, the rank's rows of the batch), and
-  the same command without ``--mesh``, the two at once and no time read
-  while they run: both must end with 0, their
-  losses must be equal bit for bit, and both print their peak device
-  bytes.  The phase launches no kernel of its own; its prefills run B3 as
+  ``torch.distributed.run`` with one process (NCCL, the 1x1 mesh through
+  the trainer's tensor parallelism and FSDP at one rank: each layer's
+  blocks gathered in its remat unit, the model-axis regions of attention
+  and the MLP, the vocab-parallel embedding, the per-tensor gradient
+  means, the global norm over each block's axes, the rank's rows of the
+  batch), and the same command without ``--mesh``, the two at once and no
+  time read while they run: both must end with 0, their losses must be
+  equal bit for bit, the mesh run's ``rank 0 state_bytes`` (parameters,
+  moments, batch) must equal the dry-run's held bytes for the same config,
+  shape and 1x1 mesh, exactly, and both print their peak device bytes.  The phase launches no kernel of its own; its prefills run B3 as
   9c's do.
 * phase 10 trains with every rank an origin: ``SpmdLauncher`` spawns two
   ranks, each running ``repro_torch.launch.spmd_train_resume``'s drill
@@ -2090,11 +2093,16 @@ def new_config_phase(sub: str, dev, *, directory: Path = WORKDIR,
 # are the dense ones, so the logits must be equal bit for bit.  (b) trains
 # the arch below at its full widths, depth cut as phase 6 cuts it, through
 # launch/train.py --mesh under torchrun with one process, beside the same
-# run without --mesh, on one of phase 6's microbatches a step: the losses
-# must be equal bit for bit (both under deterministic algorithms).  The
-# card's machine has one card and NCCL takes one rank a device, so more
-# ranks are held on the CPU (tests/test_torch_mesh_train.py, four gloo
-# processes)
+# run without --mesh, on one of phase 6's microbatches a step: the mesh run
+# goes through the trainer's tensor parallelism and FSDP at one rank (each
+# layer's blocks gathered, the model-axis regions, the embedding and the
+# cross-entropy over the vocabulary's one block, the per-tensor gradient
+# means), and the losses must be equal bit for bit (both under
+# deterministic algorithms); the bytes its rank 0 held (parameters,
+# moments, batch) must equal the dry-run's explicit_state_bytes_per_device
+# for the same config, shape and 1x1 mesh.  The card's machine has one
+# card and NCCL takes one rank a device, so more ranks are held on the CPU
+# (tests/test_torch_mesh_train.py, four gloo processes)
 MESH_PHASE = dict(override="1x1", arch="internlm2-1.8b",
                   n_layers=SMOKE_LAYERS, batch=TRAIN["batch"], seq=4096,
                   steps=3, timeout_s=120)
@@ -2218,10 +2226,12 @@ def mesh_training(dev, *, smoke: bool = False) -> dict:
     launcher's batch, as the CPU test runs it), in fused mode, under
     ``torch.distributed.run`` with one process (NCCL on the card; the 1x1
     mesh of REPRO_MESH_OVERRIDE), and the same run without ``--mesh``, the
-    two at once.  Both must end with 0 within MESH_PHASE's timeout, and
-    their losses must be finite and equal bit for bit.  Returns the
-    losses, the size of the mesh run's sharding report, each run's peak
-    device bytes (on the card) and its wall."""
+    two at once.  Both must end with 0 within MESH_PHASE's timeout, their
+    losses must be finite and equal bit for bit, and the mesh run's ``rank
+    0 state_bytes`` must equal the dry-run's held bytes for the same
+    config, shape and 1x1 mesh (:func:`mesh_dryrun_bytes`).  Returns the
+    losses, both byte counts, the size of the mesh run's sharding report,
+    each run's peak device bytes (on the card) and its wall."""
     t0 = time.perf_counter()
     dev = torch.device(dev)
     args = ["--arch", MESH_PHASE["arch"], "--mode", "fused", "--device",
@@ -2273,7 +2283,12 @@ def mesh_training(dev, *, smoke: bool = False) -> dict:
     report = [line for line in texts["mesh"].splitlines()
               if "sharding_report" in line]
     check(len(report) == 1, "the mesh run printed no sharding report")
+    held = int(_launcher_line(texts["mesh"], "state_bytes"))
+    dry = mesh_dryrun_bytes(smoke)
+    check(held == dry, f"phase 9m (b): rank 0 held {held} B of parameters, "
+          f"moments and batch, the dry-run's 1x1 cell {dry} B")
     out = {"losses": losses["mesh"], "losses_equal": True,
+           "state_bytes": held, "dryrun_state_bytes": dry,
            "process_s": process_s,
            "report_tensors": len(json.loads(
                report[0].split("left replicated): ", 1)[1]))}
@@ -2283,6 +2298,27 @@ def mesh_training(dev, *, smoke: bool = False) -> dict:
             for name, text in texts.items()}
     out["wall_s"] = time.perf_counter() - t0
     return out
+
+
+def mesh_dryrun_bytes(smoke: bool) -> int:
+    """The dry-run's ``explicit_state_bytes_per_device`` of phase 9m (b)'s
+    mesh run: MESH_PHASE's config (its smoke config, with ``smoke``) and
+    train shape, one microbatch, fused AdamW, ``train_rules()`` on the 1x1
+    mesh of a one-rank fake group (destroyed after)."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.sharding import train_rules
+    cfg = get_config(MESH_PHASE["arch"], smoke=smoke)
+    if smoke:  # the launcher's defaults
+        shape = Shape("9m", "train", 64, 4)
+    else:
+        cfg = dataclasses.replace(cfg, n_layers=MESH_PHASE["n_layers"])
+        shape = Shape("9m", "train", MESH_PHASE["seq"], MESH_PHASE["batch"])
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        return dryrun.held_state_bytes(cfg, shape, mesh=mesh,
+                                       rules=train_rules(), microbatches=1)
 
 
 # -- phase 6: training with window checkpoints --------------------------------

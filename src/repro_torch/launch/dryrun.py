@@ -14,8 +14,9 @@ make (``kernels.ops``).  No GPU is needed, as the reference needs no TPU.
 
 The program of a cell:
   * train: per microbatch the loss and gradients as
-    ``Trainer.loss_and_grads`` computes them (under a mesh, then the
-    gradients' data-parallel mean), then the trainer's fused update
+    ``Trainer.loss_and_grads`` computes them (under a mesh on its blocks:
+    FSDP gathers, tensor parallelism, each gradient's mean over the batch
+    axes), then the trainer's fused update
     (``Trainer.update``: global norm and AdamW); for the offload archs the
     step returns the bf16 gradients that the out-of-core optimizer takes,
     as the reference's does.  The step counter the update reads on the
@@ -35,14 +36,15 @@ The record keeps the reference's keys.  ``state_bytes_per_device`` is the
 reference's analytic number (``logical_to_spec`` with the rules as
 written, then ``NamedSharding.shard_shape``);
 ``explicit_state_bytes_per_device`` the bytes of the blocks the port's
-program holds today (``explicit_spec``: the batch and the routed experts
-sharded, the rest replicated and listed in ``sharding_report``: ROADMAP
-A14c).  ``trace_s`` stands where the reference has ``lower_s`` and
+program holds (``explicit_spec``).  On a train cell those are the
+reference's blocks of every parameter, moment and batch (the trainer's
+tensor parallelism and FSDP, ``TRAIN_NO_TP`` cells under ``tp=False``),
+so the two are equal.  A serve cell holds the batch and the routed
+experts sharded and the rest replicated, each such mapping listed in
+``sharding_report`` (tensor parallelism in serving is ROADMAP A14d).
+``trace_s`` stands where the reference has ``lower_s`` and
 ``compile_s``; ``cost_analysis`` and ``hlo_bytes`` have no counterpart
-(there is no compiler and no HLO).  A train cell whose batch covers the
-"model" axis (``TRAIN_NO_TP``) is refused by the port's trainer: it is
-written with ``status: "refused"``, the trainer's message and the analytic
-bytes, and is not counted as a failure.
+(there is no compiler and no HLO).
 
 Usage (``REPRO_DRYRUN_DEVICES`` sets the fake world's size,
 ``REPRO_MESH_OVERRIDE`` the mesh's shape; nothing sets ``XLA_FLAGS``):
@@ -72,7 +74,9 @@ from ..configs import (ARCHS, OFFLOAD_ARCHS, SHAPES, Shape, batch_specs,
 from ..models import (cast_params, init_cache_specs, make_decode_fn,
                       make_prefill_fn, param_specs)
 from ..models.config import ModelConfig
-from ..perf import CostReport, OpCounter, extrapolate
+from torch.utils._pytree import tree_leaves
+
+from ..perf import CostReport, OpCounter, extrapolate, storage_bytes
 from ..runtime.sharding import (NamedSharding, ShardingRules, explicit_spec,
                                 fresh_report, logical_to_spec, mesh_shape,
                                 serve_rules, train_rules, use_rules)
@@ -81,7 +85,8 @@ from .mesh import make_production_mesh, production_mesh_shape
 
 __all__ = ["KV_SHARD", "TRAIN_MICROBATCHES", "TRAIN_NO_TP", "Cell",
            "SkipCell", "build_cell", "depth_loops", "at_depth", "fake_world",
-           "main", "run_cell", "trace_program", "world_size"]
+           "held_state_bytes", "main", "run_cell", "trace_program",
+           "world_size"]
 
 # per-arch gradient-accumulation microbatches for train_4k (the reference's)
 TRAIN_MICROBATCHES = {
@@ -98,7 +103,7 @@ TRAIN_MICROBATCHES = {
 }
 
 # small-activation archs the reference trains with pure FSDP (no TP): the
-# batch over ("data", "model"), which the port's trainer refuses (A14c)
+# batch over ("data", "model") on one pod, FSDP over every axis
 TRAIN_NO_TP = ("internlm2-1.8b", "whisper-base")
 
 # decode KV-cache layout per arch: "heads" shards kv heads over model,
@@ -217,6 +222,9 @@ def _train_program(cfg, shape: Shape, mesh, rules, *, microbatches: int,
         batch = {k: _alloc(_block((None,) + s.axes, (m, rows) + s.shape[1:],
                                   rules, mesh, f"batch/{k}"), s.dtype, device)
                  for k, s in batch_specs(cfg, shape).items()}
+        if mesh is not None:  # the residual stream's "seq", as the trainer
+            _block((None, "batch", "seq"), (m, rows, shape.seq), rules, mesh,
+                   "activations")
         opt = None
         if not offload:
             opt = init_opt_state(params)
@@ -271,6 +279,15 @@ def _serve_program(shape: Shape, mesh, rules, *, cache_len: int,
     return build
 
 
+def held_state_bytes(cfg, shape: Shape, **program) -> int:
+    """The bytes of the arguments the cell's program holds on a device --
+    what ``run_cell`` records as ``explicit_state_bytes_per_device`` --
+    without tracing its step (``program`` as :func:`trace_program` takes
+    it)."""
+    build, micro = _make_program(cfg, shape, **program)
+    return storage_bytes(tree_leaves(build(cfg, micro)[0]))
+
+
 def _count(build: Callable, cfg, m) -> CostReport:
     args, step = build(cfg, m)
     counter = OpCounter()
@@ -310,8 +327,7 @@ def trace_program(cfg: ModelConfig, shape: Shape, *, scaled: bool = True,
     asks for real tensors).  ``scaled``: two and three repeats of each
     layer loop and one and two microbatches, extrapolated (the memory peak
     by segments over the layers; over the microbatches it is two's);
-    otherwise the whole program, traced.  Raises the
-    trainer's ``NotImplementedError`` where it refuses the mesh."""
+    otherwise the whole program, traced."""
     build, micro = _make_program(cfg, shape, **program)
     if not scaled:
         return _count(build, cfg, micro)
@@ -358,8 +374,8 @@ def _analytic_state_bytes(entries, rules, mesh) -> int:
 @dataclasses.dataclass
 class Cell:
     """One (arch x shape x mesh) cell: its config, shape, mesh and rules,
-    the reference's meta fields and analytic state bytes, the program's
-    knobs, and the trainer's refusal (None where it takes the cell)."""
+    the reference's meta fields and analytic state bytes, and the
+    program's knobs."""
 
     cfg: ModelConfig
     shape: Shape
@@ -368,11 +384,15 @@ class Cell:
     meta: dict
     state_bytes: int
     program: dict
-    refused: str | None = None
 
     def trace(self, scaled: bool = True) -> CostReport:
         return trace_program(self.cfg, self.shape, mesh=self.mesh,
                              rules=self.rules, scaled=scaled, **self.program)
+
+    def held_bytes(self) -> int:
+        """:func:`held_state_bytes` of the cell's program."""
+        return held_state_bytes(self.cfg, self.shape, mesh=self.mesh,
+                                rules=self.rules, **self.program)
 
 
 def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
@@ -413,15 +433,9 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
             for k, s in param_specs(cfg).items():
                 entries += [(s.axes, s.shape, "float32", f"param/{k}")] * 2
             entries.append(((), (), "int32", "opt/step"))
-        cell = Cell(cfg, shape, mesh, rules, meta,
+        return Cell(cfg, shape, mesh, rules, meta,
                     _analytic_state_bytes(entries, rules, mesh),
                     dict(microbatches=mb, offload=offload, opt_cfg=opt_cfg))
-        try:  # the port's trainer takes the mesh, or refuses it
-            Trainer(cfg, opt_cfg, TrainConfig(microbatches=mb), device="meta",
-                    mesh=mesh, rules=rules)
-        except NotImplementedError as err:
-            cell.refused = str(err)
-        return cell
 
     # inference: the reference serves bf16 weights; the offload archs with
     # fully-sharded weights (the data axis), gathered per layer
@@ -481,14 +495,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
                           "mesh": mesh_name, "status": "skip",
                           "reason": str(e)})
         n_devices = math.prod(mesh_shape(cell.mesh).values())
-        if cell.refused is not None:
-            if verbose:
-                print(f"[refused] {cell_id} ({mesh_name}): {cell.refused}",
-                      flush=True)
-            return write({**cell.meta, "mesh": mesh_name,
-                          "status": "refused", "reason": cell.refused,
-                          "n_devices": n_devices,
-                          "state_bytes_per_device": cell.state_bytes})
         rep = cell.trace(scaled=scaled)
     # the blocks the port's program holds: its arguments
     explicit = rep.memory["argument_bytes"]

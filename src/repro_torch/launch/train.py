@@ -36,10 +36,14 @@ environment/flags, and every mode runs the *same* training code:
   process joins the default process group (NCCL on the card, gloo under
   ``--device cpu``), builds the production mesh (``REPRO_MESH_OVERRIDE``
   sets its shape) and ``train_rules(multi_pod)``, and trains inside
-  ``use_rules``: data-parallel over ``("pod", "data")``, the MoE's experts
-  over "model" (``Trainer``'s mesh).  Rank 0 prints ``sharding_report()``,
-  every mapping the rules make that this port leaves replicated.  Each
-  process is also a window rank (``REPRO_RANK``/``REPRO_NRANKS`` follow
+  ``use_rules``: each rank holds the reference's block of every
+  parameter, moment and batch (``Trainer``'s mesh: data and tensor
+  parallelism, the experts, FSDP).  After the run rank 0 prints
+  ``sharding_report()`` (the divisibility fallbacks, the "model" gathers
+  where a block splits what the math needs whole, and the mappings left
+  replicated) and ``rank 0 state_bytes: N``, the bytes of the parameters,
+  moments and batch it held in a step.  Each process is also a window
+  rank (``REPRO_RANK``/``REPRO_NRANKS`` follow
   ``RANK``/``WORLD_SIZE`` unless they are set; the ``ranklocal``
   transport unless ``--transport`` or ``REPRO_TRANSPORT`` names
   another), so each saves its own block into its own checkpoint
@@ -243,14 +247,15 @@ def _run_mesh(args) -> int:
             transport=args.transport or env_transport_kind("ranklocal"))
         tr, ds = _build_trainer(_train_opts(args), comm, mesh=mesh,
                                 rules=rules)
+        with use_rules(rules, mesh):
+            tr.run(make_batch_iter(_Batches(tr, ds)))
+        _report(tr, comm)
         if dist.get_rank() == 0:
             print(f"mesh {mesh_shape(mesh)} "
                   f"({dist.get_backend()}), rules {rules.name}; "
                   "sharding_report (mappings left replicated): "
                   + json.dumps(sharding_report()), flush=True)
-        with use_rules(rules, mesh):
-            tr.run(make_batch_iter(_Batches(tr, ds)))
-        _report(tr, comm)
+            print(f"rank 0 state_bytes: {tr.state_bytes}", flush=True)
         tr.close()
     finally:
         if comm is not None:

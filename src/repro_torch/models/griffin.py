@@ -15,6 +15,11 @@ backward, nor has the TPU kernel).
 
 Block structure (Griffin recurrent block):
     norm -> { y = gelu(x @ wy) ; r = rglru(conv1d(x @ wx)) } -> (y * r) @ wo
+
+In training under the tensor-parallel rules ``wx``/``wy`` and the gates'
+``w_i``/``w_r`` are column-parallel over "model" and ``wo`` row-parallel:
+each rank runs the recurrence on its channels, and its gate columns read
+the whole conv output, gathered over "model".
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..runtime.partition import UNIT, enter, gather, leave, tp_axis
+from ..runtime.sharding import note
 from .layers import causal_conv1d, gelu_tanh
 
 __all__ = ["linear_scan", "rg_lru", "rg_lru_step", "griffin_forward",
@@ -59,12 +66,13 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def rg_lru(p, x, h0=None, *, train=False):
+def rg_lru(p, x, h0=None, *, train=False, gate_x=None):
     """x: (B,S,W) -> (y (B,S,W) f32, h_last (B,W) f32) through the
     ``rg_lru`` kernel, or with ``train`` through :func:`linear_scan`; a
     given ``h0`` is folded into the first step's additive term, as the
-    reference does."""
-    i_t, log_a = _gates(p, x)
+    reference does.  ``gate_x``: the gates' input where it is not ``x``
+    (every channel, for this model rank's channels ``x``)."""
+    i_t, log_a = _gates(p, x if gate_x is None else gate_x)
     a = torch.exp(log_a)
     gate = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     b = gate * i_t * x.float()
@@ -87,12 +95,23 @@ def rg_lru_step(p, x_t, h):
 def griffin_forward(cfg, p, x, *, return_state=False, train=False):
     """Full-sequence recurrent block.  x: (B,S,D) -> (B,S,D); with
     ``return_state`` also ``(h_last (B,W) f32, conv_state)``, the decode
-    carry; ``train`` runs the recurrence through :func:`linear_scan`."""
-    y_branch = gelu_tanh(x @ p["wy"])
-    r = x @ p["wx"]
-    r, new_conv = causal_conv1d(r, p["conv_w"])
-    r_out, h_last = rg_lru(p, r, train=train)
-    out = (y_branch.float() * r_out).to(x.dtype) @ p["wo"]
+    carry; ``train`` runs the recurrence through :func:`linear_scan`.  In
+    training under tensor parallelism (``wx`` holding this model rank's
+    columns) a region over "model" on the rank's channels [c0, c1) of the
+    recurrence; otherwise ``UNIT``'s, every channel."""
+    ax = tp_axis(p["wx"].shape[-1], cfg.lru) if train else UNIT
+    c0, c1 = ax.block(cfg.lru)
+    hin = enter(x, ax)
+    y_branch = gelu_tanh(hin @ p["wy"])
+    r, new_conv = causal_conv1d(hin @ p["wx"],
+                                enter(p["conv_w"], ax)[:, c0:c1])
+    if ax.n > 1:
+        note("rglru/gates", f"the gates' columns on model={ax.n} read every "
+             "channel: the conv output gathered over 'model'")
+    gp = {"w_i": p["w_i"], "w_r": p["w_r"],
+          **{k: enter(p[k], ax)[c0:c1] for k in ("b_i", "b_r", "lam")}}
+    r_out, h_last = rg_lru(gp, r, train=train, gate_x=gather(r, -1, ax))
+    out = leave((y_branch.float() * r_out).to(x.dtype) @ p["wo"], ax)
     if return_state:
         return out, (h_last, new_conv)
     return out

@@ -9,6 +9,10 @@ both operands upcast to float32.  :func:`gelu_tanh` is
 operation in the input's dtype.  :func:`causal_conv1d` serves the SSM and
 RG-LRU families; :func:`sinusoidal_positions` is Whisper's position
 table (both of its stacks), in float32 like the reference's.
+
+Under the training rules with tensor parallelism :func:`mlp` is the
+reference's partition of it: ``wi``/``wg`` column-parallel and ``wo``
+row-parallel over "model" (:mod:`~repro_torch.runtime.partition`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..runtime.partition import UNIT, enter, leave, tp_axis
 
 __all__ = ["rms_norm", "rope", "sinusoidal_positions", "gelu_tanh",
            "apply_act", "mlp", "f32_einsum", "causal_conv1d"]
@@ -96,14 +102,20 @@ def apply_act(h: torch.Tensor, g: torch.Tensor | None,
     raise ValueError(f"unknown activation {act!r}")
 
 
-def mlp(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """(Gated) feed-forward block; params: wi, wo [, wg] [, bi, bo]."""
+def mlp(params, x: torch.Tensor, act: str, *,
+        d_ff: int | None = None) -> torch.Tensor:
+    """(Gated) feed-forward block; params: wi, wo [, wg] [, bi, bo].  When
+    ``wi`` holds this model rank's block of ``d_ff`` columns (training
+    under tensor parallelism), a region: ``wi``/``wg`` column-parallel,
+    ``wo`` row-parallel, the partial products summed over "model"."""
+    ax = UNIT if d_ff is None else tp_axis(params["wi"].shape[-1], d_ff)
+    x = enter(x, ax)
     h = x @ params["wi"]
     if "bi" in params:
         h = h + params["bi"]
     g = (x @ params["wg"]) if "wg" in params else None
     h = apply_act(h, g, act)
-    o = h @ params["wo"]
+    o = leave(h @ params["wo"], ax)
     if "bo" in params:
         o = o + params["bo"]
     return o

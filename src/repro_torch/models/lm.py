@@ -32,6 +32,19 @@ functions, prefill and decode write the cache they are given in place (a
 KV cache is the largest tensor of a serving run; copying it per step would
 double it).
 
+Under the training rules on a mesh (:func:`~repro_torch.runtime.sharding
+.use_rules`) the loss runs on each rank's blocks: every layer's parameters
+are gathered over their FSDP axes inside its remat unit, the top-level
+ones once (:func:`~repro_torch.runtime.partition.gather_block`); with
+tensor parallelism attention runs on this model rank's heads (q/k/v
+column-parallel, ``wo`` row-parallel; a rank whose heads need kv heads it
+does not hold, or whose query columns split a head, gathers the
+projections over "model" and takes what it needs), the embedding looks
+up this rank's vocabulary rows and sums over "model", and the
+cross-entropy is vocab-parallel: its logsumexp from an all-reduced max
+and sum, the target logit from a masked sum.  The values are the
+reference's.
+
 Positions: LLaVA's patches take positions 0 .. img_tokens - 1 and the
 text follows, so its decode positions count the patches; the loss drops
 the patch positions before the head.
@@ -79,8 +92,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..perf.op_analysis import loop_mark
 from ..runtime.collectives import axis_groups, psum
+from ..runtime.partition import (all_reduce_max, block_plans, enter, gather,
+                                 gather_block, leave, tp_axis)
 from ..runtime.sharding import (batch_axes, current_mesh, current_rules,
-                                mesh_shape, use_rules)
+                                is_train_rules, mesh_shape, note, use_rules)
 from .attention import (blockwise_attention, decode_attention,
                         decode_attention_two_tier, prefill_attention)
 from .config import ModelConfig
@@ -391,10 +406,86 @@ def _attn_block(cfg, p, x, positions, *, causal=True, window=None,
     if cfg.attn_kind == "mla":
         o, cache = mla_attention(cfg, p, h, positions, train=train)
         return x + o, cache
-    q, k, v = _qkv(cfg, p, h, positions)
-    B, S = x.shape[:2]
+    o, kv = _heads(cfg, p, h, h, positions,
+                   tp_axis(p["wq"].shape[-1], cfg.n_heads * cfg.hd),
+                   causal=causal, window=window, train=train,
+                   rope_on=_use_rope(cfg))
+    return x + o, kv
+
+
+def _proj(x, p, name, bias, full: int, ax):
+    """``x @ p[name]`` (+ ``p[bias]``) inside a region over ``ax``: (this
+    rank's block of the ``full`` columns, True), or for a weight held
+    whole under tensor parallelism (every column, False)."""
+    w = p[name]
+    b = p[bias] if bias else None
+    if ax.split(w.shape[-1], full):
+        y = x @ w
+        return (y if b is None else y + b), True
+    y = x @ enter(w, ax)
+    return (y if b is None else y + enter(b, ax)), False
+
+
+def _heads(cfg, p, h, src, positions, ax, *, prefix="", causal, window,
+           train, rope_on):
+    """Attention of a whole sequence on this model rank's query heads (on
+    :data:`~repro_torch.runtime.partition.UNIT`, every head: the plain
+    computation): queries from ``h``, keys and values from ``src`` (``h``
+    itself for self-attention), q/k/v column-parallel and ``wo``
+    row-parallel, the result summed over "model".  Where this rank's kv
+    columns split a kv
+    head, or hold kv heads its queries do not use, k and v are gathered
+    over "model" and the heads its queries use taken; where its query
+    columns split a head, q is gathered too and every head computed, and
+    ``wo``'s rows take their columns of the result.  Returns (out, (k,
+    v))."""
+    B, S, _ = h.shape
+    T = src.shape[1]
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    bias = cfg.qkv_bias and not prefix
+    hq = enter(h, ax)
+    hk = hq if src is h else enter(src, ax)
+    q, _ = _proj(hq, p, prefix + "wq", bias and "bq", H * hd, ax)
+    k, k_split = _proj(hk, p, prefix + "wk", bias and "bk", K * hd, ax)
+    v, v_split = _proj(hk, p, prefix + "wv", bias and "bv", K * hd, ax)
+    ctx = f"attention/{prefix or 'self'}"
+    if H % ax.n:  # this rank's query columns split a head
+        note(ctx, f"{H} query heads on model={ax.n}: q, k and v gathered "
+             "over 'model', every head computed on each rank")
+        q = gather(q, -1, ax)
+        a, b = 0, H
+    else:
+        a, b = ax.block(H)
+    if k_split and K % ax.n == 0 and H % ax.n == 0:
+        k = k.reshape(B, T, K // ax.n, hd)
+        v = v.reshape(B, T, K // ax.n, hd)
+    else:
+        if k_split or v_split:
+            note(ctx, f"{K} kv heads on model={ax.n}: k and v gathered over "
+                 "'model', each rank takes the kv heads of its queries")
+        k = (gather(k, -1, ax) if k_split else k).reshape(B, T, K, hd)
+        v = (gather(v, -1, ax) if v_split else v).reshape(B, T, K, hd)
+        G = H // K
+        lo, hi = a // G, (b - 1) // G + 1
+        per = (b - a) // (hi - lo)
+        if all((i - a) // per == i // G - lo for i in range(a, b)) \
+                and per * (hi - lo) == b - a:
+            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
+        else:
+            idx = torch.tensor([i // G for i in range(a, b)],
+                               device=k.device)
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+    q = q.reshape(B, S, b - a, hd)
+    if rope_on:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     o = _attend(q, k, v, causal=causal, window=window, train=train)
-    return x + o.reshape(B, S, -1) @ p["wo"], (k, v)
+    o = o.reshape(B, S, (b - a) * hd)
+    wo = p[prefix + "wo"]
+    if o.shape[-1] != wo.shape[0]:  # every head here: wo's rows' columns
+        lo_c, hi_c = ax.block(H * hd)
+        o = o[..., lo_c:hi_c]
+    return leave(o @ wo, ax), (k, v)
 
 
 def _xattn_cross(cfg, p, x, *, enc_out=None, cached_kv=None, train=False):
@@ -404,24 +495,23 @@ def _xattn_cross(cfg, p, x, *, enc_out=None, cached_kv=None, train=False):
     (``cached_kv``: one decode step over every cached slot, plain).
     Returns (x, (k, v))."""
     B, S, _ = x.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, hd = cfg.n_heads, cfg.hd
     h = rms_norm(x, p["normx"], cfg.norm_eps)
+    if cached_kv is None:
+        o, kv = _heads(cfg, p, h, enc_out, None,
+                       tp_axis(p["x_wq"].shape[-1], H * hd), prefix="x_",
+                       causal=False, window=None, train=train, rope_on=False)
+        return x + o, kv
     q = (h @ p["x_wq"]).reshape(B, S, H, hd)
-    if cached_kv is not None:
-        k, v = cached_kv
-        o = decode_attention(q, k, v, k.shape[1])
-    else:
-        T = enc_out.shape[1]
-        k = (enc_out @ p["x_wk"]).reshape(B, T, K, hd)
-        v = (enc_out @ p["x_wv"]).reshape(B, T, K, hd)
-        o = _attend(q, k, v, causal=False, train=train)
+    k, v = cached_kv
+    o = decode_attention(q, k, v, k.shape[1])
     return x + o.reshape(B, S, -1) @ p["x_wo"], (k, v)
 
 
 def _mlp_res(cfg, p, x):
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     pp = {k[4:]: v for k, v in p.items() if k.startswith("mlp_")}
-    return x + mlp(pp, h, cfg.act)
+    return x + mlp(pp, h, cfg.act, d_ff=cfg.d_ff)
 
 
 def _ffn_res(cfg, kind, p, x):
@@ -537,19 +627,36 @@ def _layers(cfg, params, cache):
 # ---------------------------------------------------------------------------
 
 def _embed(cfg, params, tokens):
-    # index_select: its backward is deterministic on the card under
-    # torch.use_deterministic_algorithms (indexing's need not be)
-    x = params["embed/tok"].index_select(0, tokens.reshape(-1)).reshape(
-        *tokens.shape, -1).to(getattr(torch, cfg.dtype))
+    """Token embeddings in the compute dtype.  Where ``embed/tok`` holds
+    this model rank's rows of the vocabulary (training under tensor
+    parallelism), each rank looks up the ids it holds, zeros the rest, and
+    the lookups are summed over "model"."""
+    emb, ids = params["embed/tok"], tokens.reshape(-1)
+    ax = tp_axis(emb.shape[0], cfg.vocab)
+    if ax.n > 1:
+        lo, hi = ax.block(cfg.vocab)
+        ok = (ids >= lo) & (ids < hi)
+        # index_select: its backward is deterministic on the card
+        x = emb.index_select(0, torch.where(ok, ids - lo, 0))
+        x = leave(torch.where(ok[:, None], x, torch.zeros(
+            (), dtype=x.dtype, device=x.device)), ax)
+    else:
+        # index_select: its backward is deterministic on the card under
+        # torch.use_deterministic_algorithms (indexing's need not be)
+        x = emb.index_select(0, ids)
+    x = x.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
 def _logits(cfg, params, x):
+    """Logits of the final-normed ``x``: over this model rank's block of
+    the vocabulary where the head holds one (``x`` enters a region)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = (params["embed/tok"].T if cfg.tie_embeddings
             else params["lm_head"])
+    x = enter(x, tp_axis(head.shape[-1], cfg.vocab))
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
@@ -557,18 +664,40 @@ def _logits(cfg, params, x):
     return logits
 
 
-def _encode(cfg, params, frames, *, train: bool = False):
+def _ce_terms(cfg, logits, tgt):
+    """(logsumexp over the vocabulary in float32, the target's logit) of
+    every position.  Vocab-parallel where ``logits`` are this model rank's
+    block of more than one (the max and the sum of exponentials
+    all-reduced, the target's logit a masked sum over "model")."""
+    ax = tp_axis(logits.shape[-1], cfg.vocab)
+    if ax.n == 1:
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        return lse, torch.gather(logits, -1, tgt[..., None])[..., 0]
+    lo, hi = ax.block(cfg.vocab)
+    lf = logits.float()
+    m = all_reduce_max(lf.amax(dim=-1), ax)
+    lse = torch.log(leave(torch.exp(lf - m[..., None]).sum(dim=-1), ax)) + m
+    ok = (tgt >= lo) & (tgt < hi)
+    tl = torch.gather(logits, -1, torch.where(ok, tgt - lo, 0)[..., None])
+    tl = torch.where(ok, tl[..., 0], torch.zeros((), dtype=tl.dtype,
+                                                 device=tl.device))
+    return lse, leave(tl, ax)
+
+
+def _encode(cfg, params, frames, *, train: bool = False, plans=None):
     """Whisper's encoder over the stubbed frame embeddings (B, S_enc, D):
     sinusoidal positions, ``enc_layers`` blocks of full self-attention
     and MLP, then ``enc_norm``.  ``train``: the differentiable path, each
-    layer a remat unit; otherwise the attention kernel."""
+    layer a remat unit (``plans``: the blocks' gathers, under a mesh);
+    otherwise the attention kernel."""
     x = frames.to(getattr(torch, cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
     if train:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, _ = _scan_group_train(cfg, params, "enc/g0", cfg.enc_layers,
-                                 ("enc_attn",), x, positions, aux)
+                                 ("enc_attn",), x, positions, aux,
+                                 plans=plans)
     else:
         gp = {k: t.unbind(0) for k, t in sub(params, "enc/g0/p0").items()}
         for layer in range(cfg.enc_layers):
@@ -580,7 +709,8 @@ def _encode(cfg, params, frames, *, train: bool = False):
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
-def _prepare_inputs(cfg, params, batch, *, train: bool = False):
+def _prepare_inputs(cfg, params, batch, *, train: bool = False,
+                    plans=None):
     """The decoder's input sequence: (x, positions, enc_out, img).  A VLM
     puts the projected patches (``batch["patches"]``, (B, img, D)) before
     the text and returns their count ``img`` (0 otherwise); an
@@ -594,7 +724,8 @@ def _prepare_inputs(cfg, params, batch, *, train: bool = False):
         img = patches.shape[1]
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.is_encdec:
-        enc_out = _encode(cfg, params, batch["frames"], train=train)
+        enc_out = _encode(cfg, params, batch["frames"], train=train,
+                          plans=plans)
         x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
     return x, positions, enc_out, img
 
@@ -650,10 +781,12 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
-                      enc_out=None):
+                      enc_out=None, plans=None):
     """The reference's scan over the stacked layers of ``group`` (``g{gi}``,
-    or the encoder's ``enc/g0``), as a loop; each layer is one remat unit.
-    Returns (x, aux)."""
+    or the encoder's ``enc/g0``), as a loop; each layer is one remat unit,
+    which first gathers its parameters' blocks by ``plans`` (name ->
+    :func:`~repro_torch.runtime.partition.gather_plan`; under a mesh), so
+    the backward gathers them again.  Returns (x, aux)."""
     # each stacked tensor unbound once: its gradient is one stack of the
     # layers' gradients, where indexing would add a zero-padded copy of the
     # whole stack per layer (a cost quadratic in the depth)
@@ -661,9 +794,13 @@ def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
     # a remat unit recomputes in the backward, on the autograd engine's
     # thread on the card: it runs under the caller's rules and mesh
     rules, mesh = current_rules(), current_mesh()
+    plans = sub(plans, group) if plans else None
 
     def body(x, aux, layer_params, enc_out):
         with use_rules(rules, mesh):
+            if plans:
+                layer_params = {k: gather_block(t, plans[k], mesh, offset=1)
+                                for k, t in layer_params.items()}
             for pj, kind in enumerate(pattern):
                 x, aux = _block_train(cfg, kind, sub(layer_params, f"p{pj}"),
                                       x, positions, aux, enc_out)
@@ -691,7 +828,9 @@ def make_loss_fn(cfg: ModelConfig):
     ``ntok``.
 
     Under a mesh (:func:`~repro_torch.runtime.sharding.use_rules`) the
-    batch is this rank's shard over the batch axes, and the cross-entropy
+    parameters are this rank's blocks (gathered before use, see the module
+    docstring), the batch is its shard over the batch axes, and the
+    cross-entropy
     is the reference's global one, ``sum ce / sum ntok`` over every shard
     (a mean of the shards' means differs whenever they mask different
     numbers of targets); ``aux`` is the expert-parallel MoE's, a mean over
@@ -700,21 +839,34 @@ def make_loss_fn(cfg: ModelConfig):
     so the trainer's mean over the data axes is the global gradient.
     """
     _check_ported(cfg)
+    specs = param_specs(cfg)
+    last: list = [None, None, None]  # (rules, mesh, plans) of the last call
+
+    def plans_for(rules, mesh):
+        if last[0] is not rules or last[1] is not mesh:
+            last[:] = [rules, mesh, block_plans(specs, rules, mesh)]
+        return last[2]
 
     def loss_fn(params, batch):
         params = cast_params(cfg, params)
+        rules, mesh = current_rules(), current_mesh()
+        plans = None
+        if mesh is not None and is_train_rules(rules):
+            plans = plans_for(rules, mesh)
+            params = {k: v if specs[k].axes[:1] == ("layers",) else
+                      gather_block(v, plans[k], mesh)
+                      for k, v in params.items()}
         x, positions, enc_out, img = _prepare_inputs(cfg, params, batch,
-                                                     train=True)
+                                                     train=True, plans=plans)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, (reps, pattern) in enumerate(cfg.groups()):
             x, aux = _scan_group_train(cfg, params, f"g{gi}", reps, pattern,
-                                       x, positions, aux, enc_out)
+                                       x, positions, aux, enc_out, plans)
         logits = _logits(cfg, params, x[:, img:])
         targets = batch["targets"]
         mask = (targets >= 0).float()
         tgt = torch.clamp(targets, min=0).long()
-        lse = torch.logsumexp(logits.float(), dim=-1)
-        tl = torch.gather(logits, -1, tgt[..., None])[..., 0]
+        lse, tl = _ce_terms(cfg, logits, tgt)
         ce = (lse - tl.float()) * mask
         ce_sum, ntok = ce.sum(), mask.sum()
         mesh = current_mesh()

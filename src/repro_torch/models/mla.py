@@ -12,6 +12,12 @@ plus the shared rope key.  The reference's ``mxu_einsum`` becomes
 :func:`~.layers.f32_einsum` (float32 operands and result, as the reference
 runs off the TPU).  Decode writes the cache it is given in place.
 
+Under the training rules with tensor parallelism, :func:`mla_attention`
+splits ``wq_b``, ``wkv_b`` and ``wo`` by whole heads over "model" (the
+down-projections, norms and the shared rope key stay whole); where a
+rank's columns split a head, the up-projections are gathered over "model"
+and every head computed, ``wo``'s rows taking their columns.
+
 Params:
     wq_a (D, q_lora)        q_norm (q_lora,)        wq_b (q_lora, H*(dn+dr))
     wkv_a (D, kv_lora+dr)   kv_norm (kv_lora,)      wkv_b (kv_lora, H*(dn+dv))
@@ -22,6 +28,8 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.partition import enter, gather, leave, tp_axis
+from ..runtime.sharding import note
 from .attention import blockwise_attention, prefill_attention
 from .layers import f32_einsum, rms_norm, rope
 
@@ -42,42 +50,72 @@ def _scale(cfg) -> float:
     return (cfg.nope_head_dim + cfg.rope_head_dim) ** -0.5
 
 
-def mla_project_qkv(cfg, p, x, positions):
-    """Returns q (B,S,H,dn+dr), latent c_kv (B,S,r), k_rope (B,S,dr)."""
+def _latent(cfg, p, x, positions):
+    """The query's normed down-projection cq (B,S,q_lora), the latent
+    c_kv (B,S,r) and the shared rope key k_rope (B,S,dr)."""
     cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    qn, qr = _split_q(cfg, cq @ p["wq_b"])
-    qr = rope(qr, positions, cfg.rope_theta)
-    q_full = torch.cat([qn, qr], dim=-1)
     ckv_full = x @ p["wkv_a"]  # (B,S,r+dr)
     r = cfg.kv_lora_rank
     c_kv = rms_norm(ckv_full[..., :r], p["kv_norm"], cfg.norm_eps)
     k_r = rope(ckv_full[..., r:][..., None, :], positions,
                cfg.rope_theta)[..., 0, :]  # (B,S,dr): one shared head
-    return q_full, c_kv, k_r
+    return cq, c_kv, k_r
 
 
-def _up_project_kv(cfg, p, c_kv):
-    """latent (B,T,r) -> k_nope (B,T,H,dn), v (B,T,H,dv)."""
-    B, T, _ = c_kv.shape
-    kv = (c_kv @ p["wkv_b"]).reshape(B, T, cfg.n_heads,
-                                     cfg.nope_head_dim + cfg.v_head_dim)
-    return kv[..., :cfg.nope_head_dim], kv[..., cfg.nope_head_dim:]
+def mla_project_qkv(cfg, p, x, positions):
+    """Returns q (B,S,H,dn+dr), latent c_kv (B,S,r), k_rope (B,S,dr)."""
+    cq, c_kv, k_r = _latent(cfg, p, x, positions)
+    qn, qr = _split_q(cfg, cq @ p["wq_b"])
+    qr = rope(qr, positions, cfg.rope_theta)
+    return torch.cat([qn, qr], dim=-1), c_kv, k_r
 
 
 def mla_attention(cfg, p, x, positions, *, train: bool = False):
     """Causal attention of a whole sequence from position 0.  Returns
     (out (B,S,D), (c_kv, k_rope)) for the cache write.  ``train``: the
-    differentiable :func:`blockwise_attention`; otherwise the kernel."""
-    q, c_kv, k_r = mla_project_qkv(cfg, p, x, positions)
-    kn, v = _up_project_kv(cfg, p, c_kv)
-    B, T = kn.shape[:2]
+    differentiable :func:`blockwise_attention`; otherwise the kernel.
+
+    A region over this model rank's heads where ``wq_b`` holds its block
+    (training under tensor parallelism; on ``UNIT`` otherwise, every
+    head): the latent, the query's down-projection and the rope key
+    computed whole, ``wq_b``/``wkv_b`` column-parallel and ``wo``
+    row-parallel."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                     cfg.v_head_dim)
+    ax = tp_axis(p["wq_b"].shape[-1], H * (dn + dr))
+    cq, c_kv, k_r = _latent(cfg, p, x, positions)
+    q = enter(cq, ax) @ p["wq_b"]
+    w = p["wkv_b"]
+    kv_split = ax.split(w.shape[-1], H * (dn + dv))
+    kv = enter(c_kv, ax) @ (w if kv_split else enter(w, ax))
+    if H % ax.n:  # this rank's columns split a head: every head here
+        note("attention/mla", f"{H} heads on model={ax.n}: the "
+             "up-projections gathered over 'model', every head computed on "
+             "each rank")
+        q = gather(q, -1, ax)
+        kv = gather(kv, -1, ax) if kv_split else kv
+        a, b = 0, H
+    else:
+        a, b = ax.block(H)
+        if not kv_split:
+            kv = kv[..., a * (dn + dv):b * (dn + dv)]
+    Hl = b - a
+    q = q.reshape(B, S, Hl, dn + dr)
+    q = torch.cat([q[..., :dn], rope(q[..., dn:], positions,
+                                     cfg.rope_theta)], dim=-1)
+    kv = kv.reshape(B, S, Hl, dn + dv)
+    kn, v = kv[..., :dn], kv[..., dn:]
     k_full = torch.cat(
-        [kn, k_r[:, :, None, :].expand(B, T, cfg.n_heads, cfg.rope_head_dim)],
-        dim=-1)
+        [kn, enter(k_r, ax)[:, :, None, :].expand(B, S, Hl, dr)], dim=-1)
     attend = blockwise_attention if train else prefill_attention
     out = attend(q, k_full, v, causal=True, scale=_scale(cfg))
-    out = out.reshape(B, -1, cfg.n_heads * cfg.v_head_dim)
-    return out @ p["wo"], (c_kv, k_r)
+    out = out.reshape(B, S, Hl * dv)
+    wo = p["wo"]
+    if out.shape[-1] != wo.shape[0]:  # every head here: wo's columns
+        lo, hi = ax.block(H * dv)
+        out = out[..., lo:hi]
+    return leave(out @ wo, ax), (c_kv, k_r)
 
 
 def _absorbed(cfg, p, qn):

@@ -28,6 +28,13 @@ shard's.  Its gradients come from :mod:`~repro_torch.runtime.collectives`'
 autograd reductions: the tokens and gates that enter the experts sum their
 partial cotangents over "model", and nothing else does, so the router's
 share through the load-balance loss is counted once.
+
+In training under the tensor-parallel rules the shared experts ``ws_*``
+are column- and row-parallel over "model" (:func:`~.layers.mlp`), and the
+router arrives whole (the trainer gathers its block before the layer).
+The dense dispatch under a mesh whose batch is sharded (``tp=False``:
+the experts whole on every rank) takes the load-balance loss's means over
+the whole batch, as the reference's partitioned program computes them.
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from ..runtime.collectives import axis_groups, pmean, psum, replicated
-from ..runtime.sharding import current_mesh, mesh_coords, mesh_shape
-from .layers import apply_act
+from ..runtime.sharding import (batch_axes, current_mesh, current_rules,
+                                mesh_coords, mesh_shape)
+from .layers import apply_act, mlp
 
 __all__ = ["moe_capacity", "route", "top_k_gates", "assignment_slots",
            "moe_mlp", "moe_mlp_dense"]
@@ -86,15 +94,28 @@ def assignment_slots(eidx: torch.Tensor, n_experts: int, cap: int):
 
 def moe_mlp(cfg, p, x: torch.Tensor, *, capacity: int | None = None):
     """Dispatcher: the explicit expert-parallel path under a mesh with a
-    "model" axis whose size divides the expert count (the mesh of
+    "model" axis whose size divides the expert count, where the rules map
+    "experts" to it (the mesh and rules of
     :func:`~repro_torch.runtime.sharding.use_rules`), the dense dispatch
     otherwise."""
-    mesh = current_mesh()
+    mesh, rules = current_mesh(), current_rules()
     if mesh is not None:
         shape = mesh_shape(mesh)
-        if "model" in shape and cfg.n_experts % shape["model"] == 0:
+        experts = rules.mesh_axes("experts") if rules is not None \
+            else "model"
+        if "model" in shape and experts in ("model", ("model",)) \
+                and cfg.n_experts % shape["model"] == 0:
             return _moe_mlp_shard_map(cfg, p, x, mesh, capacity=capacity)
     return moe_mlp_dense(cfg, p, x, capacity=capacity)
+
+
+def _shared_experts(cfg, p, xf):
+    """The shared experts' MLP over every token (column- and row-parallel
+    where ``ws_*`` hold this model rank's block)."""
+    ws = {"wi": p["ws_up"], "wo": p["ws_down"]}
+    if "ws_gate" in p:
+        ws["wg"] = p["ws_gate"]
+    return mlp(ws, xf, cfg.act, d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
 
 
 def _moe_mlp_shard_map(cfg, p, x: torch.Tensor, mesh, *,
@@ -102,7 +123,8 @@ def _moe_mlp_shard_map(cfg, p, x: torch.Tensor, mesh, *,
     """Explicit expert parallelism on this rank.  x: (B, S, D), this rank's
     shard of the batch over the data axes, replicated over "model"; the
     routed experts' weights ``we_*`` are this model rank's E/n experts (the
-    router and the shared experts whole).  Returns (y (B, S, D), aux)."""
+    router whole; the shared experts whole, or in training under tensor
+    parallelism this rank's block).  Returns (y (B, S, D), aux)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     shape = mesh_shape(mesh)
@@ -155,11 +177,9 @@ def _moe_mlp_shard_map(cfg, p, x: torch.Tensor, mesh, *,
         y = y + contrib[:, i]
     y = psum(y, model)
 
-    # shared experts: whole on every rank, outside the expert-parallel part
+    # shared experts: outside the expert-parallel part
     if "ws_up" in p:
-        hs = xf @ p["ws_up"]
-        gs = xf @ p["ws_gate"] if "ws_gate" in p else None
-        y = y + apply_act(hs, gs, cfg.act) @ p["ws_down"]
+        y = y + _shared_experts(cfg, p, xf)
     return y.reshape(B, S, D), aux
 
 
@@ -178,9 +198,16 @@ def moe_mlp_dense(cfg, p, x: torch.Tensor, *, capacity: int | None = None):
 
     probs, gates, eidx = route(xf.float() @ p["router"].float(), k)
 
-    # load-balance aux loss (Switch): E * sum_e f_e * P_e
+    # load-balance aux loss (Switch): E * sum_e f_e * P_e, its means over
+    # the whole batch where a mesh shards it
     me = probs.mean(dim=0)
     fe = F.one_hot(eidx[:, 0], E).float().mean(dim=0)
+    mesh = current_mesh()
+    if mesh is not None and current_rules() is not None:
+        axes = [a for a in batch_axes(mesh) if mesh_shape(mesh)[a] > 1]
+        if axes:
+            me = pmean(me, axis_groups(mesh, axes))
+            fe = pmean(fe, axis_groups(mesh, axes))
     aux = E * torch.sum(fe * me)
 
     # dispatch: scatter tokens into (E, cap, D)
@@ -209,7 +236,5 @@ def moe_mlp_dense(cfg, p, x: torch.Tensor, *, capacity: int | None = None):
 
     # shared experts (dense MLP over all tokens)
     if "ws_up" in p:
-        hs = xf @ p["ws_up"]
-        gs = xf @ p["ws_gate"] if "ws_gate" in p else None
-        y = y + apply_act(hs, gs, cfg.act) @ p["ws_down"]
+        y = y + _shared_experts(cfg, p, xf)
     return y.reshape(B, S, D), aux

@@ -48,7 +48,8 @@ def _fan_in(spec: ParamSpec) -> int:
 
 def init_params(specs: Mapping[str, ParamSpec], seed: int, *,
                 device: str | torch.device = "cuda",
-                dtype_override: Any | None = None) -> dict[str, torch.Tensor]:
+                dtype_override: Any | None = None,
+                block=None) -> dict[str, torch.Tensor]:
     """Deterministic per-name initialization of a spec dict, on ``device``.
 
     The reference's init kinds and scales: zeros, ones, normal × 0.02
@@ -57,6 +58,9 @@ def init_params(specs: Mapping[str, ParamSpec], seed: int, *,
     from ``seed`` and the name's sorted index (the reference folds the
     index into its key).  The numbers differ from ``jax.random``'s, so
     parity tests feed both packages the same numpy parameters.
+    ``block(name, tensor)``, when given, takes each tensor as it is made
+    and its result is kept (a mesh rank's block of it), so no more than one
+    whole tensor exists at a time.
     """
     from ..convert import resolve_device  # convert imports nothing of models
     dev = resolve_device(device)
@@ -64,11 +68,14 @@ def init_params(specs: Mapping[str, ParamSpec], seed: int, *,
     for i, name in enumerate(sorted(specs)):
         spec = specs[name]
         dt = getattr(torch, str(dtype_override or spec.dtype))
+        keep = block or (lambda _, t: t)
         if spec.init == "zeros":
-            out[name] = torch.zeros(spec.shape, dtype=dt, device=dev)
+            out[name] = keep(name, torch.zeros(spec.shape, dtype=dt,
+                                               device=dev))
             continue
         if spec.init == "ones":
-            out[name] = torch.ones(spec.shape, dtype=dt, device=dev)
+            out[name] = keep(name, torch.ones(spec.shape, dtype=dt,
+                                              device=dev))
             continue
         std = {"embed": 0.02, "small": 1e-4}.get(spec.init)
         if std is None:  # fan_in
@@ -79,7 +86,8 @@ def init_params(specs: Mapping[str, ParamSpec], seed: int, *,
                         dtype=torch.float32)
         # scaled in place: no second float32 tensor of the full size (an
         # expert stack of llama4-maverick is 21.5 GB in float32)
-        out[name] = w.mul_(std).to(dt)
+        out[name] = keep(name, w.mul_(std).to(dt))
+        del w
     return out
 
 

@@ -17,6 +17,12 @@ compare the kernel with.
 Block structure (Mamba-2):
     in_proj -> [z | xBC | dt]; causal depthwise conv on xBC; SSD(x, dt, A, B, C)
     -> gated RMSNorm(y * silu(z)) -> out_proj; +D*x skip per head.
+
+In training under the tensor-parallel rules the fused ``in_proj``'s
+columns are split over "model" as one block of z | xBC | dt, which
+straddles the parts: its output is gathered over "model", and each rank
+runs its own heads of x, z and dt (B and C whole), the gated norm's sum of
+squares all-reduced, and ``out_proj`` row-parallel over its heads' rows.
 """
 
 from __future__ import annotations
@@ -25,6 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..runtime.partition import (UNIT, enter, gather, leave, psum_region,
+                                 tp_axis)
+from ..runtime.sharding import note
 from .layers import causal_conv1d, f32_einsum, rms_norm
 
 __all__ = ["ssd_chunked", "ssd_step", "mamba2_forward", "mamba2_decode_step"]
@@ -146,19 +155,53 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
     decode carry.  The scan is the ``ssd_scan`` kernel, which reads x, Bm
     and C as views of the conv output (no copies) and writes y in the
     (B,S,H,P) layout; with ``train`` it is :func:`ssd_chunked` at
-    ``cfg.ssm_chunk``, which autograd differentiates."""
+    ``cfg.ssm_chunk``, which autograd differentiates.
+
+    In training under tensor parallelism (``out_proj`` holding this model
+    rank's rows) the block is a region over "model" on the rank's heads
+    [a, b): ``in_proj``'s block of columns is multiplied and gathered (or,
+    held whole, multiplied whole); the rank's heads of x, z and dt, and B
+    and C whole, go through the conv and the scan; the gated norm's
+    variance sums the ranks' squares; ``out_proj``'s rows take their
+    channels.  Where the heads do not divide over "model" every head is
+    computed here and ``out_proj``'s rows take their columns.  Otherwise
+    the region is ``UNIT``'s: every head, the plain computation."""
     B, S, D = x.shape
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
-    zxbcdt = x @ p["in_proj"]
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_groups
+    d_in = cfg.d_inner
+    ax = tp_axis(p["out_proj"].shape[0], d_in) if train else UNIT
+    hin = enter(x, ax)
+    w = p["in_proj"]
+    if ax.split(w.shape[-1], 2 * d_in + 2 * G * N + H):
+        if ax.n > 1:
+            note("ssm/in_proj", f"in_proj's z | xBC | dt block on model="
+                 f"{ax.n} straddles its parts: its output gathered over "
+                 "'model'")
+        zxbcdt = gather(hin @ w, -1, ax)
+    else:
+        zxbcdt = hin @ enter(w, ax)
     z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
-    xBC, new_conv = causal_conv1d(xBC, p["conv_w"])
+    if H % ax.n:
+        note("ssm/heads", f"{H} heads on model={ax.n}: every head computed "
+             "on each rank")
+        a, b = 0, H
+    else:
+        a, b = ax.block(H)
+    c0, c1 = a * P, b * P
+    conv_w = enter(p["conv_w"], ax)
+    if b - a < H:  # this rank's channels of x, then B and C
+        xBC = torch.cat([xBC[..., c0:c1], xBC[..., d_in:]], dim=-1)
+        conv_w = torch.cat([conv_w[:, c0:c1], conv_w[:, d_in:]], dim=-1)
+    xBC, new_conv = causal_conv1d(xBC, conv_w)
     xBC = F.silu(xBC)
-    xs, Bm, C = _split_xbc(cfg, xBC)
-    xs = xs.reshape(B, S, H, P)
-    Bm = _broadcast_groups(cfg, Bm)
-    C = _broadcast_groups(cfg, C)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    A = -torch.exp(p["A_log"].float())
+    nl = c1 - c0
+    xs = xBC[..., :nl].reshape(B, S, b - a, P)
+    Bm = _broadcast_groups(cfg, xBC[..., nl:nl + G * N])[:, :, a:b]
+    C = _broadcast_groups(cfg, xBC[..., nl + G * N:])[:, :, a:b]
+    dt = F.softplus(dt[..., a:b].float()
+                    + enter(p["dt_bias"], ax)[a:b].float())
+    A = -torch.exp(enter(p["A_log"], ax)[a:b].float())
     if train:
         y, h_last = ssd_chunked(xs, dt, A, Bm, C, chunk=cfg.ssm_chunk)
     else:
@@ -166,10 +209,22 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
                                  Bm.transpose(1, 2), C.transpose(1, 2),
                                  return_state=True)
         y = y.transpose(1, 2)                               # (B,S,H,P)
-    y = y + xs.float() * p["D"].float()[None, None, :, None]
-    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)  # gated norm
-    out = y @ p["out_proj"]
+    y = y + xs.float() * enter(p["D"], ax)[a:b].float()[None, None, :, None]
+    y = y.reshape(B, S, nl).to(x.dtype)
+    y = y * F.silu(z[..., c0:c1])
+    scale = enter(p["norm"], ax)[c0:c1]
+    if b - a == H:  # every channel here: the gated norm as it is
+        y = rms_norm(y, scale, cfg.norm_eps)
+    else:  # the variance over all d_inner channels, summed over "model"
+        yf = y.float()
+        var = psum_region(yf.square().sum(dim=-1, keepdim=True), ax) / d_in
+        y = (yf * torch.rsqrt(var + cfg.norm_eps)
+             * (1.0 + scale.float())).to(y.dtype)
+    wo = p["out_proj"]
+    if nl != wo.shape[0]:
+        lo, hi = ax.block(d_in)
+        y = y[..., lo - c0:hi - c0]
+    out = leave(y @ wo, ax)
     if return_state:
         return out, (h_last, new_conv)
     return out

@@ -21,9 +21,10 @@ bits.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
+import torch.distributed
 
 from ..core.codec import (CODEC_NAMES, CODEC_RAW, CODEC_RLE, CODEC_SHUF_RLE,
                           CODEC_ZRLE, CodecPolicy, decode_bytes, decode_ops,
@@ -38,12 +39,19 @@ __all__ = ["quantize_int8", "dequantize_int8", "init_error_feedback",
            "encode_spans", "decode_spans", "encode_ops", "decode_ops"]
 
 
-def quantize_int8(x: torch.Tensor, axis: int | None = None):
+def quantize_int8(x: torch.Tensor, axis: int | None = None, *,
+                  groups: Sequence = ()):
     """Symmetric per-tensor (or per-axis) int8 quantization; returns (q,
-    scale) with a float32 scale."""
+    scale) with a float32 scale.  ``groups``: where ``x`` is a rank's
+    block of a tensor, the process groups of the mesh axes the block spans
+    -- the scale is the whole tensor's (the maximum all-reduced over
+    them)."""
     xf = x.float()
     amax = (xf.abs().amax() if axis is None
             else xf.abs().amax(dim=axis, keepdim=True))
+    for g in groups:
+        torch.distributed.all_reduce(amax, op=torch.distributed.ReduceOp.MAX,
+                                     group=g)
     scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -60,12 +68,15 @@ def init_error_feedback(params: Mapping[str, torch.Tensor]
 
 
 def compress_with_feedback(grads: Mapping[str, torch.Tensor],
-                           ef: Mapping[str, torch.Tensor]):
-    """g_hat = Q(g + e);  e' = g + e - g_hat.  Returns (g_hat, e')."""
+                           ef: Mapping[str, torch.Tensor], *,
+                           spans: Mapping[str, Sequence] | None = None):
+    """g_hat = Q(g + e);  e' = g + e - g_hat.  Returns (g_hat, e').  Under a
+    mesh ``spans`` maps each sharded tensor to the groups its block spans,
+    and its scale is the whole tensor's (:func:`quantize_int8`)."""
     new_g, new_e = {}, {}
     for k, g in grads.items():
         corrected = g.float() + ef[k]
-        q, s = quantize_int8(corrected)
+        q, s = quantize_int8(corrected, groups=(spans or {}).get(k, ()))
         g_hat = dequantize_int8(q, s)
         new_g[k] = g_hat.to(g.dtype)
         new_e[k] = corrected - g_hat

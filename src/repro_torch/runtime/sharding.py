@@ -16,19 +16,23 @@ mesh axis, from the port's ``DeviceMesh`` or from any object with a
 
 The partitioning is explicit: XLA partitions the reference's program by
 itself, while here each rank holds its own block of every tensor and runs
-the model code it already has on it, with ``torch.distributed``
-collectives where the reference's ``shard_map`` has them.
+the model code on it, with ``torch.distributed`` collectives where GSPMD
+inserts them (:mod:`~repro_torch.runtime.partition`).
 :class:`NamedSharding` gives a rank its block (``local_slice``) and the
-block's shape (``shard_shape``).  This slice applies two mappings: "batch"
-(data parallelism) and "experts" on the routed experts' weights (the
-expert-parallel MoE).  :func:`explicit_spec` keeps those and leaves every
-other mapping to an axis of size > 1 replicated -- the values do not
-change -- recording each such tensor in :func:`sharding_report`, in the
-style of the divisibility fallback (tensor parallelism and FSDP: ROADMAP
-A14c).  :func:`shard` keeps the reference's contract (a no-op without a
-mesh, a rank check, the fallback record) and returns the local tensor
-unchanged: the reference's ``shard`` calls are GSPMD layout hints, with no
-counterpart when each rank already holds its block.
+block's shape (``shard_shape``).  Under the training rules
+:func:`explicit_spec` is :func:`logical_to_spec`: the trainer holds the
+reference's block of every parameter, optimizer moment and batch (data
+and tensor parallelism, FSDP, the experts).  It records one kind of
+mapping in :func:`sharding_report`: an activation "seq" mapping, whose
+activations the trainer holds replicated -- the values do not change
+(sequence parallelism: ROADMAP A14d).  Under other rules (serving) it
+applies "batch" and the routed experts' "experts" only, and leaves every
+other mapping to an axis of size > 1 replicated, recorded in the style of
+the divisibility fallback (A14d).  :func:`shard` keeps the reference's
+contract (a no-op without a mesh, a rank check, the fallback record) and
+returns the local tensor unchanged: the reference's ``shard`` calls are
+GSPMD layout hints, with no counterpart when each rank already holds its
+block.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ __all__ = [
     "use_rules", "current_rules", "current_mesh", "shard", "logical_to_spec",
     "explicit_spec", "train_rules", "serve_rules", "sharding_report",
     "named_sharding", "mesh_shape", "mesh_coords", "batch_axes",
-    "fresh_report",
+    "fresh_report", "is_train_rules", "note", "spec_axes",
 ]
 
 # The logical axis vocabulary used across the model zoo.
@@ -140,6 +144,13 @@ def _record_fallback(context: str, msg: str) -> None:
         _REPORT[context].append(msg)
 
 
+def note(context: str, msg: str) -> None:
+    """Record ``msg`` under ``context`` in :func:`sharding_report`, once:
+    where the explicit partitioning gathers over a mesh axis what the
+    reference's layout keeps sharded."""
+    _record_fallback(context, msg)
+
+
 @contextlib.contextmanager
 def fresh_report():
     """Record into an empty report inside (yielded: what this block
@@ -216,8 +227,18 @@ def logical_to_spec(axes: Sequence[str | None],
     return P(*out)
 
 
+def is_train_rules(rules: ShardingRules | None) -> bool:
+    """Whether ``rules`` are a :func:`train_rules` table (by its name)."""
+    return rules is not None and rules.name.split("/")[0] == "train"
+
+
+def spec_axes(spec: PartitionSpec) -> tuple[str, ...]:
+    """The mesh axes a spec shards over, in its order."""
+    return tuple(a for part in spec for a in _as_tuple(part))
+
+
 def _applied(axes: Sequence[str | None], i: int) -> bool:
-    """Whether this slice applies the mapping of ``axes[i]``: "batch", and
+    """Whether serving applies the mapping of ``axes[i]``: "batch", and
     "experts" where it leads a tensor (the routed experts' weights, under a
     stacked "layers" axis or not)."""
     if axes[i] == "batch":
@@ -229,13 +250,28 @@ def _applied(axes: Sequence[str | None], i: int) -> bool:
 def explicit_spec(axes: Sequence[str | None], shape: Sequence[int],
                   rules: ShardingRules | None = None, mesh=None,
                   context: str = "") -> PartitionSpec:
-    """The spec each rank's block follows: :func:`logical_to_spec`'s, with
-    only the mappings this slice applies ("batch"; "experts" on the routed
-    experts' weights).  Every other mapping to mesh axes of size > 1 is left
-    replicated and recorded in :func:`sharding_report` under ``context``."""
+    """The spec each rank's block follows.  Under the training rules,
+    :func:`logical_to_spec`'s, every mapping applied; a "seq" mapping to
+    axes of size > 1 is recorded (the trainer holds those activations
+    replicated: ROADMAP A14d).  Under other rules only "batch" and the
+    routed experts' "experts"; every other mapping to mesh axes of size > 1
+    is left replicated and recorded in :func:`sharding_report` under
+    ``context``."""
     rules = rules if rules is not None else current_rules()
     mesh = mesh if mesh is not None else current_mesh()
     spec = logical_to_spec(axes, shape, rules, mesh, context)
+    if mesh is None:
+        return spec
+    if is_train_rules(rules):
+        for i, part in enumerate(spec):
+            if axes[i] == "seq" and part is not None \
+                    and _axis_size(mesh, part) > 1:
+                _record_fallback(
+                    context or rules.name,
+                    f"axis 'seq' dim {shape[i]} -> {_as_tuple(part)}="
+                    f"{_axis_size(mesh, part)} not applied to activations "
+                    "(sequence parallelism is ROADMAP A14d); replicated")
+        return spec
     out = []
     for i, part in enumerate(spec):
         if part is None or _applied(axes, i):
@@ -245,7 +281,7 @@ def explicit_spec(axes: Sequence[str | None], shape: Sequence[int],
         if size > 1:
             why = ("the expert-parallel MoE reads the whole router"
                    if axes[i] == "experts" else
-                   "tensor parallelism and FSDP are ROADMAP A14c")
+                   "tensor parallelism in serving is ROADMAP A14d")
             _record_fallback(
                 context or rules.name,
                 f"axis {axes[i]!r} dim {shape[i]} -> {m_t}={size} not "

@@ -28,16 +28,23 @@ loss's ``gather`` otherwise accumulate with atomics): the caller sets
 ``CUBLAS_WORKSPACE_CONFIG`` before CUDA starts and calls
 ``torch.use_deterministic_algorithms(True)``, as ``launch.train_e2e`` does.
 
-Under a mesh (``mesh=``, ``rules=``; one process per card, see
-``launch.mesh``) the trainer is data- and expert-parallel: every rank
-starts from the same seeded full parameters and keeps its block
-(:func:`~repro_torch.runtime.sharding.explicit_spec`: the routed experts'
-E/n rows over "model", everything else whole), takes its rows of each
-global batch (row-major over the batch axes, ``("pod", "data")``), and
-averages the summed gradients over the data axes with
-``hierarchical_pmean`` before the update; the global norm counts each
-whole tensor once and sums the experts' squares over "model".  Each rank
-checkpoints its own block through its own communicator rank.
+Under a mesh (``mesh=``, ``rules=``, a :func:`~repro_torch.runtime.
+sharding.train_rules` table; one process per card, see ``launch.mesh``)
+each rank holds the reference's block of every parameter, of both AdamW
+moments and of the batch (:func:`~repro_torch.runtime.sharding.
+explicit_spec`: data parallelism over the batch axes, tensor parallelism
+and the experts over "model", FSDP over the data axes, or over every axis
+under ``tp=False``).  It makes its block one tensor at a time from the
+seeded initialisation, takes its rows of each global batch (row-major
+over the batch axes), and computes the step on its blocks
+(:mod:`~repro_torch.runtime.partition`).  Each gradient is then averaged
+per tensor: an FSDP block's gather already reduce-scattered it as a mean
+over its gathered axes, and the mean over the batch axes left ("pod")
+follows; a tensor held whole over the batch axes goes through
+``hierarchical_pmean``.  The global norm sums each tensor's squares over
+exactly the axes its block spans, and int8 compression takes each whole
+tensor's scale (an all-reduce max over the same axes).  Each rank
+checkpoints its own blocks through its own communicator rank.
 """
 
 from __future__ import annotations
@@ -57,11 +64,14 @@ from ..core.comm import Communicator
 from ..core.resilience import FailureDetector
 from ..models import init_params, make_loss_fn, param_specs
 from ..models.config import ModelConfig
+from ..perf.op_analysis import storage_bytes
 from ..runtime.collectives import axis_groups, hierarchical_pmean
 from ..runtime.compress import compress_with_feedback, init_error_feedback
 from ..runtime.fault import HeartbeatMonitor, StragglerDetector
+from ..runtime.partition import gather_plan, reduction_axes
 from ..runtime.sharding import (NamedSharding, batch_axes, explicit_spec,
-                                mesh_shape, train_rules, use_rules)
+                                is_train_rules, mesh_shape, spec_axes,
+                                train_rules, use_rules)
 from .offload_opt import OutOfCoreAdamW
 from .optimizer import (_f32, AdamWConfig, adamw_update, global_norm,
                         init_opt_state)
@@ -101,11 +111,15 @@ class Trainer:
         self.specs = param_specs(model_cfg)
         self.mesh = mesh
         self.rules = rules
-        # the tensors sharded over the mesh and the groups the global norm
-        # sums their squares over: none without a mesh
-        self.sharded, self.norm_groups = [], ()
+        # name -> the process groups of the mesh axes its block spans (the
+        # global norm and the int8 scale reduce over them): none without a
+        # mesh
+        self.spans: dict[str, list] = {}
         if mesh is not None:
             self._set_mesh()
+        # the bytes of the parameters, moments and batch held in the last
+        # run's first step (None until one runs)
+        self.state_bytes: int | None = None
         self.metrics_log: list[dict[str, float]] = []
         self.hb = HeartbeatMonitor(self.comm.size)
         # probe-driven liveness: under the mp, spmd and tcp transports the
@@ -124,35 +138,29 @@ class Trainer:
 
     # -- the mesh -----------------------------------------------------------
     def _set_mesh(self):
-        """Each tensor's block (recording every mapping left unapplied in
-        ``sharding_report()``), the batch axes and the groups the global
-        norm sums the sharded tensors' squares over."""
+        """Each tensor's block (``explicit_spec``), what the step gathers of
+        it (its plan), and the groups its block spans."""
         mesh = self.mesh
         if self.rules is None:
             self.rules = train_rules("pod" in mesh_shape(mesh))
-        data_axes = batch_axes(mesh, self.rules)
-        if set(data_axes) - {"pod", "data"}:
-            raise NotImplementedError(
-                f"the batch shards over {data_axes}: this trainer averages "
-                "gradients over ('pod', 'data') only (ROADMAP A14c)")
+        if not is_train_rules(self.rules):
+            raise ValueError(f"the trainer runs under train_rules, not "
+                             f"{self.rules.name}")
         self.shardings = {
             k: NamedSharding(mesh, explicit_spec(s.axes, s.shape, self.rules,
                                                  mesh, context=k))
             for k, s in self.specs.items()}
-        self.sharded = sorted(k for k, sh in self.shardings.items()
-                              if any(sh.spec))
-        axes = sorted({a for k in self.sharded
-                       for part in self.shardings[k].spec if part
-                       for a in ((part,) if isinstance(part, str) else part)})
-        self.norm_groups = axis_groups(mesh, axes)
-        if self.sharded and self.tcfg.compression:
-            raise NotImplementedError(
-                "int8 compression takes one scale per whole tensor; "
-                f"{self.sharded[0]} is sharded over the mesh (ROADMAP A14c)")
+        self.plans = {k: gather_plan(s.axes, self.shardings[k].spec)
+                      for k, s in self.specs.items()}
+        self.spans = {k: axis_groups(mesh, spec_axes(sh.spec))
+                      for k, sh in self.shardings.items()
+                      if spec_axes(sh.spec)}
 
     def local_batch(self, batch: dict[str, np.ndarray]) -> dict:
         """This rank's rows of a global batch (leading microbatch axis, then
-        the batch axis): the whole batch without a mesh."""
+        the batch axis): the whole batch without a mesh.  The residual
+        stream's "seq" mapping, where the rules make one, is recorded: its
+        activations are held replicated."""
         if self.mesh is None:
             return batch
         out = {}
@@ -161,25 +169,61 @@ class Trainer:
             spec = explicit_spec(axes, v.shape, self.rules, self.mesh,
                                  context=f"batch/{k}")
             out[k] = NamedSharding(self.mesh, spec).local_slice(v)
+        explicit_spec((None, "batch", "seq"), batch["inputs"].shape,
+                      self.rules, self.mesh, context="activations")
         return out
 
     def _data_mean(self, grads: dict) -> dict:
-        """The gradients' mean over the data axes: one float32 buffer in
-        sorted key order, padded to a multiple of the "data" axis' size,
-        through ``hierarchical_pmean`` (inner "data", outer "pod")."""
+        """The mean over the batch axes of gradients held whole over them:
+        one float32 buffer in sorted key order, padded to a multiple of the
+        "data" axis' size, through ``hierarchical_pmean`` (inner "data",
+        outer the other batch axis, if any)."""
         keys = sorted(grads)
         flat = torch.cat([grads[k].reshape(-1) for k in keys])
         n_in = mesh_shape(self.mesh)["data"]
         pad = -flat.numel() % n_in
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
-        outer = "pod" if "pod" in mesh_shape(self.mesh) else None
-        flat = hierarchical_pmean(flat, "data", outer, self.mesh)
+        outer = [a for a in batch_axes(self.mesh, self.rules) if a != "data"]
+        if len(outer) > 1:
+            raise NotImplementedError(f"batch axes {outer + ['data']}")
+        flat = hierarchical_pmean(flat, "data", outer[0] if outer else None,
+                                  self.mesh)
         out, at = {}, 0
         for k in keys:
             n = grads[k].numel()
             out[k] = flat[at:at + n].view(grads[k].shape)
             at += n
+        return out
+
+    def _reduce_grads(self, grads: dict) -> dict:
+        """Each gradient's mean over the batch axes: a tensor the step does
+        not gather through :meth:`_data_mean`; an FSDP block, whose gather's
+        backward already took the mean over its gathered axes, over the
+        batch axes left (one all-reduce per set of them, the tensors in
+        sorted key order)."""
+        whole, left, out = {}, {}, {}
+        for k in sorted(grads):
+            if not self.plans[k]:
+                whole[k] = grads[k]
+                continue
+            axes = reduction_axes(self.plans[k], self.mesh, self.rules)
+            if axes:
+                left.setdefault(axes, []).append(k)
+            else:
+                out[k] = grads[k]
+        if whole:
+            out.update(self._data_mean(whole))
+        for axes, keys in left.items():
+            flat = torch.cat([grads[k].reshape(-1) for k in keys])
+            n = 1
+            for g in axis_groups(self.mesh, axes):
+                torch.distributed.all_reduce(flat, group=g)
+                n *= torch.distributed.get_world_size(g)
+            flat, at = flat / n, 0
+            for k in keys:
+                out[k] = flat[at:at + grads[k].numel()].view(grads[k].shape)
+                at += grads[k].numel()
         return out
 
     # -- the step -----------------------------------------------------------
@@ -188,11 +232,11 @@ class Trainer:
         axis (tensors on the trainer's device): summed in float32 from zero, then divided by
         ``tcfg.microbatches`` (a true division, as the reference's).  Under
         a mesh, ``batch`` is this rank's rows, the loss the global one and
-        the gradients their mean over the data axes."""
+        the gradients their mean over the batch axes."""
         if self.mesh is not None:
             with use_rules(self.rules, self.mesh):
                 loss, grads = self._loss_and_grads(params, batch)
-            return loss, self._data_mean(grads)
+            return loss, self._reduce_grads(grads)
         return self._loss_and_grads(params, batch)
 
     def _loss_and_grads(self, params, batch):
@@ -211,11 +255,10 @@ class Trainer:
         return l_sum / n, {k: v / n for k, v in g_sum.items()}
 
     def update(self, params, opt_state, grads):
-        """The fused mode's device update: the global norm (summed over the
-        mesh for the sharded tensors) and AdamW.  Returns (params,
-        opt_state, stats)."""
-        gnorm = global_norm(grads, sharded=self.sharded,
-                            groups=self.norm_groups)
+        """The fused mode's device update: the global norm (each sharded
+        tensor's squares summed over the axes its block spans) and AdamW.
+        Returns (params, opt_state, stats)."""
+        gnorm = global_norm(grads, spans=self.spans)
         return adamw_update(params, grads, opt_state, self.opt_cfg,
                             gnorm=gnorm)
 
@@ -269,16 +312,23 @@ class Trainer:
         record)`` follows each step; ``on_save(step, tree)`` precedes each
         checkpoint save with the tree about to be saved.  Returns (params,
         opt_state); opt_state is None in offload mode.  Under a mesh,
-        ``params`` is the full tree and ``data_iter`` the global batches:
-        the rank keeps its blocks and rows, and returns its blocks."""
+        ``params`` is the full tree (on any device) and ``data_iter`` the
+        global batches: the rank keeps its blocks and rows, and returns its
+        blocks; a tensor reaches the device as its block, one at a time."""
         tcfg = self.tcfg
         dev = self.device
+
+        def block(k, v):
+            if self.mesh is None:
+                return v.to(dev)
+            return self.shardings[k].local_slice(v).to(
+                dev, copy=True).contiguous()
+
         if params is None:
-            params = init_params(self.specs, tcfg.seed, device=dev)
-        params = {k: v.to(dev) for k, v in params.items()}
-        if self.mesh is not None:  # this rank's block of the full tree
-            params = {k: self.shardings[k].local_slice(v).clone()
-                      for k, v in params.items()}
+            params = init_params(self.specs, tcfg.seed, device=dev,
+                                 block=block)
+        else:
+            params = {k: block(k, v) for k, v in params.items()}
         if tcfg.mode == "fused":
             opt_state = init_opt_state(params)
         else:
@@ -307,11 +357,18 @@ class Trainer:
         for step in range(start_step, end):
             batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                      for k, v in self.local_batch(next(data_iter)).items()}
+            if self.state_bytes is None:
+                self.state_bytes = storage_bytes(
+                    [*params.values(), *batch.values()]
+                    + ([] if opt_state is None else
+                       [*opt_state["m"].values(), *opt_state["v"].values(),
+                        opt_state["step"]]))
             t0 = time.monotonic()
             loss, grads = self.loss_and_grads(params, batch)
             if tcfg.mode == "fused":
                 if tcfg.compression:
-                    grads, ef = compress_with_feedback(grads, ef)
+                    grads, ef = compress_with_feedback(grads, ef,
+                                                       spans=self.spans)
                 params, opt_state, stats = self.update(params, opt_state,
                                                        grads)
             else:

@@ -57,23 +57,28 @@ def cosine_schedule(cfg: AdamWConfig, step,
 
 
 def global_norm(tree: Mapping[str, torch.Tensor], *,
-                sharded: Sequence[str] = (), groups=()) -> torch.Tensor:
+                spans: Mapping[str, Sequence] | None = None) -> torch.Tensor:
     """The float32 norm over every tensor, the squares summed in sorted key
     order: the order of the reference's jitted step, which flattens the
     dict by key.  Insertion order would make the sum depend on how the
     dict was built (a restored tree's order is not a fresh one's), and so
     would the clipped update.
 
-    Under a mesh, ``tree`` holds this rank's blocks: the squares of the
-    ``sharded`` tensors are summed over the ranks of ``groups`` (one
-    all-reduce), each whole tensor counted once, and the sum keeps the
-    sorted order (at one rank the same bits as without a mesh)."""
+    Under a mesh, ``tree`` holds this rank's blocks, and ``spans`` maps
+    each sharded tensor to the process groups of the mesh axes its block
+    spans: its squares are summed over exactly those ranks (one all-reduce
+    per set of groups, the tensors stacked in sorted key order), each whole
+    tensor counted once, and the sum keeps the sorted order (at one rank
+    the same bits as without a mesh)."""
     sq = {k: tree[k].float().square().sum() for k in tree}
-    if sharded:
-        parts = torch.stack([sq[k] for k in sharded])
+    sets: dict[tuple, tuple[Sequence, list[str]]] = {}
+    for k in sorted(spans or {}):
+        sets.setdefault(tuple(map(id, spans[k])), (spans[k], []))[1].append(k)
+    for groups, keys in sets.values():
+        parts = torch.stack([sq[k] for k in keys])
         for g in groups:
             torch.distributed.all_reduce(parts, group=g)
-        sq.update(zip(sharded, parts.unbind(0)))
+        sq.update(zip(keys, parts.unbind(0)))
     return torch.sqrt(sum(sq[k] for k in sorted(tree)))
 
 

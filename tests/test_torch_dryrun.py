@@ -523,9 +523,9 @@ def test_state_bytes_equal_reference_on_every_cell(pair, background,
     """All 80 (arch x shape x mesh) cells on both meshes of the pair: the
     status or skip reason, the meta fields and ``state_bytes_per_device``
     equal the reference's ``build_cell`` and ``_analytic_state_bytes``,
-    exactly.  The train cells the port's trainer refuses are the
-    single-pod ``TRAIN_NO_TP`` ones."""
-    got, refused = {}, []
+    exactly.  No cell is refused: the ``TRAIN_NO_TP`` cells train under
+    ``tp=False``."""
+    got = {}
     for mp, shape in zip((False, True), pair):
         override(shape)
         with dr.fake_world(math.prod(shape)):
@@ -540,13 +540,31 @@ def test_state_bytes_equal_reference_on_every_cell(pair, background,
                     got[key] = {"status": "ok", **cell.meta,
                                 "n_devices": math.prod(shape),
                                 "state_bytes_per_device": cell.state_bytes}
-                    if cell.refused:
-                        refused.append((a, s, mp))
     ref = background.reference()["state"]
     assert len(got) == 80
     assert got == {k: ref[k] for k in got}
     assert sum(v["status"] == "skip" for v in got.values()) == 16
-    assert refused == [(a, "train_4k", False) for a in sorted(dr.TRAIN_NO_TP)]
+    assert not hasattr(dr.Cell, "refused")
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (2, 16, 16), (2, 4), (2, 2, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_held_bytes_equal_state_bytes_on_every_train_cell(shape, override):
+    """On every train cell of the production and override meshes the
+    bytes the port's program holds on a device (its parameters', moments'
+    and batch's blocks: ``explicit_state_bytes_per_device``) equal the
+    reference's analytic ``state_bytes_per_device``, exactly: the trainer
+    holds the reference's block of every tensor.  Until the trainer's
+    tensor parallelism and FSDP they were 24-496x larger."""
+    override(shape)
+    mp = len(shape) == 3
+    cells = 0
+    with dr.fake_world(math.prod(shape)):
+        for a in sorted(ARCHS):
+            cell = dr.build_cell(a, "train_4k", multi_pod=mp)
+            assert cell.held_bytes() == cell.state_bytes, (a, shape)
+            cells += 1
+    assert cells == len(ARCHS)
 
 
 def _attention_flops(cfg, shape, rows) -> int:
@@ -576,30 +594,52 @@ def test_product_flops_match_reference_on_8x1(cell, background, override):
     assert abs(port / ref - 1) < FLOP_CELLS[cell], (port, ref, port / ref)
 
 
-def test_train_step_with_attention_skips_the_masked_tiles(background):
+def test_train_step_with_attention_skips_the_masked_tiles(background,
+                                                          override):
     """internlm2-1.8b train_4k on the 8x1 mesh: the reference's scan
     differentiates every (q block, kv block) tile, masked or not, and the
     port's ``blockwise_attention`` stops at the causal edge, so the port's
     product FLOPs per device fall short of the reference's.  The port's
-    trainer refuses the cell's mesh (its batch covers "model", ROADMAP
-    A14c), so its side is one card's step at the same 32 rows.  When this
-    file was written: 1.89068e15 against 2.05041e15, 0.9221."""
-    arch, shape_name = ATTENTION_CELL
-    shape = SHAPES[shape_name]
-    rows = Shape(shape.name, "train", shape.seq, shape.batch // 8)
-    port = dr.trace_program(get_config(arch), rows).terms["products"]
+    side is the cell itself (``tp=False``: 32 rows a device, FSDP over the
+    mesh).  When this file was written: 1.89068e15 against 2.05041e15,
+    0.9221."""
+    override((8, 1))
+    with dr.fake_world(8):
+        port = dr.build_cell(*ATTENTION_CELL,
+                             multi_pod=False).trace().terms["products"]
     ref = background.reference()["flops"]["/".join(ATTENTION_CELL)]
     assert 0.85 < port / ref < 0.97, (port, ref, port / ref)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen2-72b"])
+def test_tensor_parallel_flops_fall_by_the_model_axis(arch, override):
+    """train_4k on the 2x4 override mesh against 8x1: a quarter of the
+    rows a device on 8x1 is the whole of a model group's rows on 2x4, and
+    tensor parallelism splits every product of the step over the four
+    model ranks, so the port's product FLOPs a device are within 5% of
+    its own on 8x1.  When this file was written: mamba2-2.7b 2.92972e15
+    against 2.92972e15 (the reference's on 2x4: 2.93127e15); qwen2-72b
+    7.30417e16 against 7.30417e16 (the reference's: 7.51732e16; its
+    attention differentiates every tile).  ``scripts/dryrun_tp_flops.py``
+    prints the reference's."""
+    flops = {}
+    for shape in ((8, 1), (2, 4)):
+        override(shape)
+        with dr.fake_world(8):
+            flops[shape] = dr.build_cell(arch, "train_4k", multi_pod=False
+                                         ).trace().terms["products"]
+    ratio = flops[2, 4] / flops[8, 1]
+    assert abs(ratio - 1) < 0.05, (arch, flops, ratio)
 
 
 @pytest.mark.parametrize("arch,shape,mp", MINI_CELLS,
                          ids=lambda v: str(v))
 def test_reference_mini_cells_through_port_cli(arch, shape, mp, background):
     """The reference's ``test_mini_dryrun_cell`` cells and its skip rule
-    through the port's CLI on 8 fake ranks: status ``ok`` (``refused`` for
-    the single-pod internlm2-1.8b train_4k, with the trainer's message;
-    ``skip`` for qwen2-72b long_500k), FLOPs > 0 and state bytes equal
-    to the reference's."""
+    through the port's CLI on 8 fake ranks: status ``ok`` (``skip`` for
+    qwen2-72b long_500k), FLOPs > 0 and state bytes equal to the
+    reference's; on a train cell the bytes the program holds equal them
+    too, and no mapping is left unapplied."""
     rec = background.record(arch, shape, mp)
     mesh = "2x2x2" if mp else "2x4"
     ref = background.reference()["state"][f"{mesh}/{arch}/{shape}"]
@@ -607,11 +647,13 @@ def test_reference_mini_cells_through_port_cli(arch, shape, mp, background):
         assert rec["status"] == "skip" and rec["reason"] == ref["reason"]
         return
     assert rec["state_bytes_per_device"] == ref["state_bytes_per_device"]
-    if arch in dr.TRAIN_NO_TP and shape == "train_4k" and not mp:
-        assert rec["status"] == "refused"
-        assert "ROADMAP A14c" in rec["reason"]
-        return
     assert rec["status"] == "ok"
+    if shape == "train_4k":
+        assert rec["explicit_state_bytes_per_device"] \
+            == rec["state_bytes_per_device"]
+        assert "not applied" not in json.dumps(
+            {k: v for k, v in rec["sharding_report"].items()
+             if k != "activations"})
     assert rec["flops_per_device"] > 0
     assert rec["explicit_state_bytes_per_device"] > 0
     if mp and shape == "train_4k":

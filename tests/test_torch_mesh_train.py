@@ -1,39 +1,59 @@
-"""``launch/train.py --mesh`` on four CPU processes: data- and
-expert-parallel training held to a single-process reckoning.
+"""``launch/train.py --mesh`` on four CPU processes: data, tensor and
+expert parallelism and FSDP in training, held to a single-process
+reckoning and to the JAX package's step.
 
 Four gloo ranks run ``repro_torch.launch.train.main`` with ``--mesh
 --device cpu`` (``RANK``/``WORLD_SIZE``/``MASTER_*`` set as
 ``torch.distributed.run`` sets them) on a (2, 2) ``("data", "model")`` mesh
 (``REPRO_MESH_OVERRIDE=2x2``) and a (2, 1, 2) ``("pod", "data", "model")``
-one (``--multi-pod``, ``2x1x2``), for the deepseek-v2 (MoE: its experts
-split over "model") and internlm2 smoke configs in float32, the MoE's
-capacity factor raised to E/k so that no assignment drops.  The batch's
-rows mask 0, 1, 5 and 9 leading targets, so the two data shards mask
-different numbers.  Each rank records the loss's ``ce`` metric and its
-parameters after every step (``make_loss_fn`` and ``adamw_update``
-wrapped in the rank).
+one (``--multi-pod``, ``2x1x2``), each mesh's runs (``RUNS``: an arch and
+its rules, ``train_rules`` with tensor parallelism or with ``tp=False``,
+the launcher's ``train_rules`` patched in the rank) in one set of
+processes, at the smoke configs in float32,
+the MoE's capacity factor raised to E/k so that no assignment drops.  On
+2x2 under tensor parallelism: internlm2 (dense GQA), deepseek-v2 (MLA and
+the expert-parallel MoE), mamba2 (the fused ``in_proj`` block straddles
+z | xBC | dt), recurrentgemma (its one kv head splits over "model"; the
+RG-LRU gates read the gathered conv output) and whisper (the encoder and
+cross-attention); ``tp=False`` (the batch over both axes, FSDP over both)
+for internlm2 and whisper; on 2x1x2 internlm2 and deepseek-v2, and
+internlm2 under ``tp=False`` (the batch over "pod" and "data", FSDP over
+all three axes, the activations' "seq" mapping held replicated over
+"model").  Every
+rank holds the reference's block of every parameter, moment and batch.
+The batch's rows mask 0, 1, 5 and 9 leading targets, so the data shards
+mask different numbers.  Each rank records the loss's ``ce`` metric, its
+parameters and gradients after every step (``make_loss_fn``,
+``adamw_update`` and ``Trainer.loss_and_grads`` wrapped in the rank).
 
-* ``ce`` and the parameters (the experts' blocks put together) after each
-  step equal a single-process reckoning of the same objective -- the
-  global CE plus ``MOE_AUX_WEIGHT`` times the mean over the data shards of
-  each shard's aux (what the reference's ``pmean`` computes) -- through
-  the port's dense model code and ``adamw_update``, at 1e-5 relative.
-* The first step's ``ce``, loss, gradients (their mean over the data
-  axes, the experts' blocks put together) and global norm equal the JAX
-  package's ``--mesh`` train step on the same mesh (``Trainer``'s loss,
-  its gradient and the ``global_norm`` its step clips by, under
-  ``use_rules(train_rules, mesh)`` on four forced host devices, in a
-  subprocess run beside the ranks) from the same parameters and batch,
-  at 1e-5 relative: the CE summed over shards that
-  mask different counts, the aux ``pmean`` and the norm with the experts'
-  squares summed over "model" are the reference's.  The parameters after
-  that step are held to the reckoning above, not to the reference: AdamW's
-  first step moves each element by lr * g / (|g| + eps), so the two
-  frameworks' 1e-6 gradient difference on an element with |g| near 1e-7
-  moves it by a few percent of lr.
+* Each step's ``ce``, gradients and parameters (the ranks' blocks put
+  together by their ``logical_to_spec`` specs) equal a single-process
+  reckoning of the same objective from the ranks' parameters before the
+  step -- the global CE plus ``MOE_AUX_WEIGHT`` times the mean over the
+  data shards of each shard's aux (what the reference's ``pmean``
+  computes) -- through the port's dense model code and ``adamw_update``,
+  at 1e-5 relative (``_check_reckoning`` says why each step starts from
+  the ranks' parameters).
+* The first step's ``ce``, loss, gradients (their mean over the batch
+  axes, the blocks put together) and global norm equal the JAX package's
+  ``--mesh`` train step on the same mesh under the same rules
+  (``Trainer``'s loss, its gradient and the ``global_norm`` its step
+  clips by, under ``use_rules`` on four forced host devices, in a
+  subprocess run beside the ranks) from the same parameters and batch, at
+  1e-5 relative.  The parameters after that step are held to the
+  reckoning above, not to the reference: AdamW's first step moves each
+  element by lr * g / (|g| + eps), so the two frameworks' 1e-6 gradient
+  difference on an element with |g| near 1e-7 moves it by a few percent
+  of lr.
+* Each rank's parameters, both moments and its checkpoint window's
+  tensors have exactly its blocks' shapes under ``logical_to_spec``, and
+  its ``rank 0 state_bytes`` line is their bytes and its batch's.
 * A 4-step run with a checkpoint every 2 steps, stopped after 2 (the
   rank's ``Trainer.run`` given ``stop_after=2``, as a kill would stop it)
   and restarted on the same mesh, continues bit for bit.
+* ``--compression`` on 2x2: each tensor's int8 scale is the whole
+  tensor's, and the run equals the single-process reckoning with the same
+  compression.
 * ``chip_smoke.py`` phase 9m's routines on the CPU: at one rank, the
   expert-parallel prefill equals the dense one and ``--mesh`` training
   equals the run without it, bit for bit; and the launcher's refusals.
@@ -43,10 +63,14 @@ import contextlib
 import dataclasses
 import importlib.util
 import io
+import json
+import math
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -56,10 +80,46 @@ from test_torch_collectives import (MESHES, ROOT,  # noqa: F401
                                     finish_reference, one_thread, run_ranks,
                                     start_reference)
 
-ARCHS = ("deepseek-v2-236b", "internlm2-1.8b")
+# mesh -> the (arch, tp) runs its ranks train, in order
+RUNS = {
+    "2x2": (("internlm2-1.8b", True), ("deepseek-v2-236b", True),
+            ("mamba2-2.7b", True), ("recurrentgemma-2b", True),
+            ("whisper-base", True), ("internlm2-1.8b", False),
+            ("whisper-base", False)),
+    "2x1x2": (("internlm2-1.8b", True), ("deepseek-v2-236b", True),
+              ("internlm2-1.8b", False)),
+}
+# the runs held to the JAX package's first step
+REFERENCE_RUNS = {
+    "2x2": (("internlm2-1.8b", True), ("deepseek-v2-236b", True),
+            ("mamba2-2.7b", True), ("recurrentgemma-2b", True),
+            ("internlm2-1.8b", False), ("whisper-base", False)),
+    "2x1x2": RUNS["2x1x2"],
+}
+# the runs stopped after 2 steps and resumed
+RESUMED = {"2x2": (("deepseek-v2-236b", True), ("mamba2-2.7b", True),
+                   ("internlm2-1.8b", False)),
+           "2x1x2": RUNS["2x1x2"]}
+COMPRESSED = ("internlm2-1.8b", True)  # on 2x2
+# (mesh, arch, tp, kind) -> the parameters whose free-running reckoning
+# drifts past TOL from the ranks' (_check_reckoning); PERF.md has the
+# readings
+FREE_DRIFT = {
+    ("2x2", "mamba2-2.7b", True, "whole"): {"g0/p0/dt_bias"},
+    ("2x2", "recurrentgemma-2b", True, "whole"): {
+        "g0/p0/b_r", "g0/p0/norm2", "g0/p1/b_i", "g0/p1/norm1"},
+    ("2x2", "whisper-base", True, "whole"): {"embed/tok", "g0/p0/wq"},
+    ("2x2", "internlm2-1.8b", False, "whole"): {"g0/p0/norm1"},
+    ("2x2", "internlm2-1.8b", True, "compressed"): {
+        "g0/p0/mlp_wg", "g0/p0/mlp_wi", "g0/p0/mlp_wo"},
+}
 STEPS, BATCH, SEQ = 4, 4, 16
 MASKED = (0, 1, 5, 9)  # leading targets masked in each row of the batch
 TOL = 1e-5
+
+
+def _id(run) -> str:
+    return f"{run[0]}-{'tp' if run[1] else 'no_tp'}"
 
 
 def config(name: str, *, smoke: bool = False):
@@ -88,8 +148,9 @@ def masked_lm():
 
 
 def train_worker(arg) -> None:
-    """One rank: every arch's uninterrupted run (records) and its stopped
-    and restarted pair, through ``launch.train.main``."""
+    """One rank: each run of its mesh through ``launch.train.main`` (the
+    uninterrupted run, and for RESUMED ones the stopped and restarted
+    pair), then an offload run and, on 2x2, a compressed one."""
     directory, mesh = arg
     import torch.distributed as dist
 
@@ -127,50 +188,79 @@ def train_worker(arg) -> None:
     run = loop.Trainer.run
 
     def stoppable_run(self, *args, **kw):
-        return run(self, *args, stop_after=stop_after, **kw)
+        params, opt = run(self, *args, stop_after=stop_after, **kw)
+        rec["held"] = {
+            "params": {k: tuple(v.shape) for k, v in params.items()},
+            "moments": None if opt is None else {
+                k: (tuple(opt["m"][k].shape), tuple(opt["v"][k].shape))
+                for k in opt["m"]},
+            "window": None if self.ckpt is None else {
+                k: tuple(v[0]) for k, v in self.ckpt.specs.items()},
+            "state_bytes": self.state_bytes}
+        return params, opt
 
     loop.make_loss_fn, loop.adamw_update = recording_loss_fn, recording_update
     loop.Trainer.run = stoppable_run
     loop.Trainer.loss_and_grads = recording_loss_and_grads
     launch.get_config, launch.SyntheticLM = config, masked_lm()
+    train_rules = launch.train_rules
+    launch.train_rules = lambda multi_pod=False: train_rules(multi_pod,
+                                                             tp=tp)
     out = {}
     common = ["--mesh", "--smoke", "--device", "cpu", "--batch", str(BATCH),
               "--seq", str(SEQ), "--probe-interval", "0.2"]
     if len(MESHES[mesh][1]) == 3:
         common.append("--multi-pod")
-    for arch in ARCHS:
+
+    def main(argv, ckpt):
+        rec.update(loss=[], ce=[], params=[], gnorm=[], grads=[])
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            assert launch.main(argv + ["--ckpt-dir", ckpt]) == 0
+        return {**rec, "stdout": text.getvalue()}
+
+    for arch, tp in RUNS[mesh]:
         argv = common + ["--arch", arch, "--steps", str(STEPS),
                          "--ckpt-every", "2"]
-        for name, ckpt, stop_after in (("whole", "a", None),
-                                       ("stopped", "b", 2),
-                                       ("resumed", "b", None)):
-            rec.update(loss=[], ce=[], params=[], gnorm=[], grads=[])
-            text = io.StringIO()
-            with contextlib.redirect_stdout(text):
-                assert launch.main(
-                    argv + ["--ckpt-dir", f"{directory}/{arch}/{ckpt}"]) == 0
-            out[arch, name] = {**rec, "stdout": text.getvalue()}
-    # offload mode: the out-of-core AdamW walks this rank's own block
-    rec.update(loss=[], ce=[], params=[], gnorm=[], grads=[])
-    stop_after = None
-    with contextlib.redirect_stdout(io.StringIO()):
-        assert launch.main(common + [
-            "--arch", ARCHS[0], "--steps", "2", "--mode", "offload",
-            "--ckpt-dir", f"{directory}/offload"]) == 0
-    out["offload"] = dict(rec)
+        base = f"{directory}/{_id((arch, tp))}"
+        stop_after = None
+        out[arch, tp, "whole"] = main(argv, f"{base}/a")
+        if (arch, tp) in RESUMED[mesh]:
+            for name, stop_after in (("stopped", 2), ("resumed", None)):
+                out[arch, tp, name] = main(argv, f"{base}/b")
+    # offload mode: the out-of-core AdamW walks this rank's own blocks
+    stop_after, tp = None, True
+    out["offload"] = main(common + ["--arch", "deepseek-v2-236b", "--steps",
+                                    "2", "--mode", "offload"],
+                          f"{directory}/offload")
+    if mesh == "2x2":
+        out["compressed"] = main(common + [
+            "--arch", COMPRESSED[0], "--steps", str(STEPS),
+            "--compression"], f"{directory}/compressed")
     torch.save(out, Path(directory) / f"rank{rank}.pt")
     dist.destroy_process_group()
 
 
-@pytest.fixture(scope="module", params=list(MESHES))
-def ranks(request, tmp_path_factory):
-    """The mesh, each rank's records, and the JAX package's first step on
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """``ranks(mesh)``: the mesh's runs, trained once each in this module
+    (:func:`_train_mesh`)."""
+    done: dict = {}
+
+    def get(mesh: str):
+        if mesh not in done:
+            done[mesh] = _train_mesh(mesh, tmp_path_factory)
+        return done[mesh]
+    return get
+
+
+def _train_mesh(mesh: str, tmp_path_factory):
+    """The mesh, each rank's records, and the JAX package's first steps on
     that mesh from the same parameters and batch (run beside the ranks)."""
     from repro_torch.models import init_params, param_specs
-    mesh = request.param
     tmp = tmp_path_factory.mktemp(f"mesh_train_{mesh}")
     inp = {}
-    for arch in ARCHS:
+    for arch in sorted({a for a, _ in REFERENCE_RUNS[mesh]}):
         cfg = config(arch, smoke=True)
         params = init_params(param_specs(cfg), 0, device="cpu")
         inp.update({f"{arch}/params/{k}": v.numpy()
@@ -180,36 +270,60 @@ def ranks(request, tmp_path_factory):
     np.savez(tmp / "inputs.npz", **inp)
     shape, axes = MESHES[mesh]
     reference = start_reference(
-        _REFERENCE_STEP % {"shape": shape, "axes": axes, "archs": ARCHS},
+        _REFERENCE_STEP % {"shape": shape, "axes": axes,
+                           "runs": REFERENCE_RUNS[mesh]},
         str(tmp / "inputs.npz"), str(tmp / "ref.npz"), log=tmp / "ref.log")
     try:
         run_ranks("test_torch_mesh_train", "train_worker", (str(tmp), mesh),
-                  env={"REPRO_MESH_OVERRIDE": mesh}, timeout=240)
+                  env={"REPRO_MESH_OVERRIDE": mesh}, timeout=300)
     finally:
-        finish_reference(reference, tmp / "ref.log", timeout=360)
+        finish_reference(reference, tmp / "ref.log", timeout=400)
     return (mesh, [torch.load(tmp / f"rank{r}.pt", weights_only=False)
                    for r in range(4)], dict(np.load(tmp / "ref.npz")))
 
 
-def _reckoning(arch: str, n_dp: int) -> tuple[list, list]:
-    """``ce`` and the parameters after each step, in one process: each data
-    shard's CE sum and aux through the dense model code, the global CE plus
-    MOE_AUX_WEIGHT times the mean of the shards' aux, and AdamW as the
-    launcher configures it."""
+def _check_reckoning(mesh, results, run, *, kind="whole",
+                     compression=False) -> None:
+    """The ranks' run (``kind``) against a single-process reckoning, two
+    ways.  A step of the reckoning: each data shard's CE sum and aux
+    through the dense model code, the global CE plus MOE_AUX_WEIGHT times
+    the mean of the shards' aux, its gradients, then the update
+    (int8-compressed with error feedback, with ``compression``) by AdamW
+    as the launcher configures it, the moments and the error feedback
+    carried from step to step.
+
+    * Stepwise: each step from the ranks' parameters before it (the blocks
+      put together; the seeded ones at step 0), the update from the ranks'
+      gradients.  ``ce``, every gradient and every parameter after the
+      step at 1e-5 relative.
+    * Free: the reckoning's own trajectory from the seeded parameters over
+      all the steps.  ``ce`` and every parameter after each step at 1e-5
+      relative, but the tensors ``FREE_DRIFT`` names for the run, which
+      the stepwise check still holds.  AdamW's update lr * m / (sqrt(v) +
+      eps) moves an element whose gradient is near eps by a step that a
+      float reordering of its gradient changes in its leading digits, so
+      run free the 1e-7 noise of summing in another order grows past
+      1e-5 on such elements of these tensors (zero-initialised norms,
+      mamba2's ``dt_bias``); PERF.md records the readings."""
     from repro_torch.models import (MOE_AUX_WEIGHT, init_params, make_loss_fn,
                                     param_specs)
+    from repro_torch.runtime.compress import (compress_with_feedback,
+                                              init_error_feedback)
     from repro_torch.train import AdamWConfig, adamw_update, init_opt_state
+    arch, tp = run
     cfg = config(arch, smoke=True)
+    n_dp = _n_dp(mesh, tp)
+    res = [{(*run, "whole"): rec[(*run, kind)]} for rec in results]
     params = init_params(param_specs(cfg), 0, device="cpu")
     opt = AdamWConfig(lr=3e-4, warmup_steps=max(1, STEPS // 10),
                       total_steps=STEPS)
-    state = init_opt_state(params)
+    state, ef = init_opt_state(params), init_error_feedback(params)
+    free = params, state, ef
     loss_fn = make_loss_fn(cfg)
     ds = masked_lm()(cfg, batch=BATCH, seq=SEQ)
     rows = BATCH // n_dp
-    ces, trees = [], []
-    for step in range(STEPS):
-        batch = ds.batch_at(step)
+
+    def reckon(params, batch):
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         ce_sum = ntok = aux = 0
@@ -222,19 +336,50 @@ def _reckoning(arch: str, n_dp: int) -> tuple[list, list]:
             aux = aux + m["aux"] / n_dp
         ce = ce_sum / ntok
         loss = ce + MOE_AUX_WEIGHT * aux if cfg.n_experts else ce
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        params, state, _ = adamw_update(params, dict(zip(leaves, grads)),
-                                        state, opt)
-        ces.append(float(ce.detach()))
-        trees.append(params)
-    return ces, trees
+        return float(ce.detach()), dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+
+    def update(params, grads, state, ef):
+        if compression:
+            grads, ef = compress_with_feedback(grads, ef)
+        params, state, _ = adamw_update(params, grads, state, opt)
+        return params, state, ef
+
+    drift = {}
+    for step in range(STEPS):
+        batch = ds.batch_at(step)
+        ce, want = reckon(params, batch)
+        for rec in res:
+            np.testing.assert_allclose(rec[(*run, "whole")]["ce"][step], ce,
+                                       rtol=TOL)
+        grads = _assembled(mesh, res, run, step, kind="grads")
+        for name, g in want.items():
+            assert _rel(grads[name], g) < TOL, ("grad", name, step,
+                                                _rel(grads[name], g))
+        want, state, ef = update(params, grads, state, ef)
+        params = _assembled(mesh, res, run, step)
+        for name, p in want.items():
+            assert _rel(params[name], p) < TOL, (name, step,
+                                                 _rel(params[name], p))
+        # the free trajectory
+        ce, grads = reckon(free[0], batch)
+        for rec in res:
+            np.testing.assert_allclose(rec[(*run, "whole")]["ce"][step], ce,
+                                       rtol=TOL)
+        free = update(free[0], grads, *free[1:])
+        for name, p in free[0].items():
+            err = _rel(params[name], p)
+            if err >= TOL:
+                drift[name] = max(err, drift.get(name, 0.0))
+    assert set(drift) <= FREE_DRIFT.get((mesh, *run, kind), set()), drift
 
 
-# the JAX package's --mesh train step on the same mesh, from the port's
-# initial parameters and first batch (npz keys "<arch>/params/<name>" and
-# "<arch>/batch/<name>"): the first step's ce (the loss's metric), loss,
-# gradients (one microbatch: the step's own) and their global norm (what
-# its fused step clips by), traced under the rules as the step is
+# the JAX package's --mesh train step on the same mesh under the same
+# rules, from the port's initial parameters and first batch (npz keys
+# "<arch>/params/<name>" and "<arch>/batch/<name>"): the first step's ce
+# (the loss's metric), loss, gradients (one microbatch: the step's own) and
+# their global norm (what its fused step clips by), traced under the rules
+# as the step is
 _REFERENCE_STEP = r"""
 import dataclasses, sys
 import jax, jax.numpy as jnp, numpy as np
@@ -244,14 +389,14 @@ from repro.runtime.sharding import train_rules, use_rules
 from repro.train.loop import TrainConfig, Trainer
 from repro.train.optimizer import AdamWConfig, global_norm
 
-shape, axes, archs = %(shape)r, %(axes)r, %(archs)r
+shape, axes, runs = %(shape)r, %(axes)r, %(runs)r
 inp = dict(np.load(sys.argv[1]))
 # Auto axes: jax 0.9's make_mesh makes Explicit ones, which the
 # reference's shard() (with_sharding_constraint) refuses
 mesh = jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes))
-rules = train_rules(len(axes) == 3)
 out = {}
-for arch in archs:
+for arch, tp in runs:
+    rules = train_rules(len(axes) == 3, tp=tp)
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
                               param_dtype="float32")
     if cfg.n_experts:
@@ -272,79 +417,143 @@ for arch in archs:
     with use_rules(rules, mesh):
         loss, metrics, grads, gnorm = jax.jit(step)(
             params, {k: v[0] for k, v in batch.items()})
-    out[f"{arch}/ce"] = np.asarray(metrics["ce"])
-    out[f"{arch}/loss"] = np.asarray(loss)
-    out[f"{arch}/gnorm"] = np.asarray(gnorm)
-    out.update({f"{arch}/grads/{k}": np.asarray(v) for k, v in grads.items()})
+    key = f"{arch}/{tp}"
+    out[f"{key}/ce"] = np.asarray(metrics["ce"])
+    out[f"{key}/loss"] = np.asarray(loss)
+    out[f"{key}/gnorm"] = np.asarray(gnorm)
+    out.update({f"{key}/grads/{k}": np.asarray(v) for k, v in grads.items()})
 np.savez(sys.argv[2], **out)
 """
 
 
-# rank -> (data index, model index): both test meshes have 2 data shards
-# (over "data", or over "pod") and 2 model ranks, row-major
-LAYOUT = {r: (r // 2, r % 2) for r in range(4)}
+def _coords(mesh: str, rank: int) -> dict[str, int]:
+    """Rank -> its coordinate on each mesh axis (row-major)."""
+    shape, axes = MESHES[mesh]
+    out = {}
+    for a, n in zip(reversed(axes), reversed(shape)):
+        out[a], rank = rank % n, rank // n
+    return out
+
+
+def _specs(mesh: str, arch: str, tp: bool) -> dict:
+    """Each parameter's full shape and its block's ``NamedSharding`` under
+    ``logical_to_spec`` with the run's rules, on a shape-only mesh."""
+    from repro_torch.models import param_specs
+    from repro_torch.runtime.sharding import (NamedSharding, logical_to_spec,
+                                              train_rules)
+    shape, axes = MESHES[mesh]
+    m = SimpleNamespace(shape=dict(zip(axes, shape)))
+    rules = train_rules(len(axes) == 3, tp=tp)
+    return {k: (s.shape, NamedSharding(m, logical_to_spec(
+        s.axes, s.shape, rules, m))) for k, s in
+        param_specs(config(arch, smoke=True)).items()}
+
+
+def _assembled(mesh, results, run, step, kind="params") -> dict:
+    """The ranks' parameters (or gradients, ``kind``) at ``step``, whole:
+    each rank's block put in its place, and every rank's block equal to
+    the whole tensor's at its place (a block held by several ranks is the
+    same on each)."""
+    out = {}
+    for name, (shape, sh) in _specs(mesh, *run).items():
+        whole = torch.full(shape, float("nan"))
+        blocks = [rec[(*run, "whole")][kind][step][name] for rec in results]
+        for r, blk in enumerate(blocks):
+            sh.local_slice(whole, _coords(mesh, r)).copy_(blk)
+        for r, blk in enumerate(blocks):
+            assert torch.equal(sh.local_slice(whole, _coords(mesh, r)),
+                               blk), (name, r)
+        out[name] = whole
+    return out
 
 
 def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / max(1e-12, float(b.abs().max())))
 
 
-def _assembled(results, arch: str, step: int, name: str, shape,
-               kind: str = "params") -> torch.Tensor:
-    """The ranks' parameter (or gradient, ``kind``) ``name`` at ``step``,
-    whole: a tensor kept whole must be the same on every rank; the experts'
-    blocks are put together over "model" (after the stacked layer axis)."""
-    blocks = [results[r][arch, "whole"][kind][step][name]
-              for r, (d, _) in LAYOUT.items() if d == 0]
-    if tuple(blocks[0].shape) == tuple(shape):
-        for rec in results:
-            assert torch.equal(rec[arch, "whole"][kind][step][name],
-                               blocks[0]), (name, step)
-        return blocks[0]
-    return torch.cat(blocks, dim=1)
+def _n_dp(mesh: str, tp: bool) -> int:
+    """The data-parallel size: the batch over ("data",) or ("pod",
+    "data"), or over ("data", "model") on 2x2 without tensor
+    parallelism."""
+    return 4 if mesh == "2x2" and not tp else 2
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_training_matches_single_process_reckoning(ranks, arch):
-    _, results, _ = ranks
-    ces, trees = _reckoning(arch, n_dp=2)
-    for r, rec in enumerate(results):
-        got = rec[arch, "whole"]
-        assert len(got["ce"]) == len(got["params"]) == STEPS
-        np.testing.assert_allclose(got["ce"], ces, rtol=TOL)
-    for step in range(STEPS):
-        for name, want in trees[step].items():
-            got = _assembled(results, arch, step, name, want.shape)
-            assert _rel(got, want) < TOL, (name, step, _rel(got, want))
+CASES = [(mesh, run) for mesh in RUNS for run in RUNS[mesh]]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_training_matches_reference_step(ranks, arch):
-    """The first step against the JAX package's on the same mesh: ``ce``,
-    the loss (the aux term included), the global norm and every gradient
-    after the data mean."""
-    _, results, ref = ranks
+@pytest.mark.parametrize("mesh,run", CASES,
+                         ids=[f"{m}-{_id(r)}" for m, r in CASES])
+def test_mesh_training_matches_single_process_reckoning(ranks, mesh, run):
+    mesh, results, _ = ranks(mesh)
     for rec in results:
-        got = rec[arch, "whole"]
-        np.testing.assert_allclose(got["ce"][0], ref[f"{arch}/ce"], rtol=TOL)
-        np.testing.assert_allclose(got["loss"][0], ref[f"{arch}/loss"],
+        got = rec[(*run, "whole")]
+        assert len(got["ce"]) == len(got["params"]) == STEPS
+    _check_reckoning(mesh, results, run)
+
+
+REF_CASES = [(mesh, run) for mesh in REFERENCE_RUNS
+             for run in REFERENCE_RUNS[mesh]]
+
+
+@pytest.mark.parametrize("mesh,run", REF_CASES,
+                         ids=[f"{m}-{_id(r)}" for m, r in REF_CASES])
+def test_mesh_training_matches_reference_step(ranks, mesh, run):
+    """The first step against the JAX package's on the same mesh under the
+    same rules: ``ce``, the loss (the aux term included), the global norm
+    and every gradient after the mean over the batch axes."""
+    mesh, results, ref = ranks(mesh)
+    key = f"{run[0]}/{run[1]}"
+    for rec in results:
+        got = rec[(*run, "whole")]
+        np.testing.assert_allclose(got["ce"][0], ref[f"{key}/ce"], rtol=TOL)
+        np.testing.assert_allclose(got["loss"][0], ref[f"{key}/loss"],
                                    rtol=TOL)
-        np.testing.assert_allclose(got["gnorm"][0], ref[f"{arch}/gnorm"],
+        np.testing.assert_allclose(got["gnorm"][0], ref[f"{key}/gnorm"],
                                    rtol=TOL)
-    head = f"{arch}/grads/"
+    head = f"{key}/grads/"
     names = {k[len(head):] for k in ref if k.startswith(head)}
-    assert names == set(results[0][arch, "whole"]["grads"][0])
+    got = _assembled(mesh, results, run, 0, kind="grads")
+    assert names == set(got)
     for name in sorted(names):
         want = torch.from_numpy(ref[head + name])
-        got = _assembled(results, arch, 0, name, want.shape, kind="grads")
-        assert _rel(got, want) < TOL, (name, _rel(got, want))
+        assert _rel(got[name], want) < TOL, (name, _rel(got[name], want))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_mesh_training_resumes_bit_for_bit(ranks, arch):
-    _, results, _ = ranks
+@pytest.mark.parametrize("mesh,run", CASES,
+                         ids=[f"{m}-{_id(r)}" for m, r in CASES])
+def test_mesh_ranks_hold_their_blocks(ranks, mesh, run):
+    """Each rank's parameters, both AdamW moments and its checkpoint
+    window's tensors have its blocks' shapes under ``logical_to_spec``
+    (the bytes the reference's layout gives a device), and rank 0's
+    ``state_bytes`` line counts them and its batch rows."""
+    mesh, results, _ = ranks(mesh)
+    specs = _specs(mesh, *run)
+    want = {k: sh.shard_shape(shape) for k, (shape, sh) in specs.items()}
     for rec in results:
-        whole, stopped, resumed = (rec[arch, k] for k in
+        held = rec[(*run, "whole")]["held"]
+        assert held["params"] == want
+        assert held["moments"] == {k: (v, v) for k, v in want.items()}
+        assert {k: held["window"][k] for k in want} == want
+        assert {k: held["window"][f"opt_{m}/{k}"] for k in want
+                for m in "mv"} == {k: v for k, v in want.items()}
+    cfg = config(run[0], smoke=True)
+    rows = BATCH // _n_dp(mesh, run[1])
+    batch = masked_lm()(cfg, batch=BATCH, seq=SEQ).batch_at(0)
+    batch_bytes = sum(v[:, :rows].nbytes for v in batch.values())
+    param_bytes = sum(math.prod(v) * (4 + 4 + 4) for v in want.values())
+    text = results[0][(*run, "whole")]["stdout"]
+    line = re.findall(r"^rank 0 state_bytes: (\d+)$", text, re.M)
+    assert line == [str(param_bytes + batch_bytes + 4)], (line, text[-500:])
+
+
+@pytest.mark.parametrize("mesh,run",
+                         [(m, r) for m in RESUMED for r in RESUMED[m]],
+                         ids=[f"{m}-{_id(r)}" for m in RESUMED
+                              for r in RESUMED[m]])
+def test_mesh_training_resumes_bit_for_bit(ranks, mesh, run):
+    _, results, _ = ranks(mesh)
+    for rec in results:
+        whole, stopped, resumed = (rec[(*run, k)] for k in
                                    ("whole", "stopped", "resumed"))
         assert stopped["loss"] == whole["loss"][:2]
         assert resumed["loss"] == whole["loss"][2:], (resumed["loss"],
@@ -352,30 +561,65 @@ def test_mesh_training_resumes_bit_for_bit(ranks, arch):
         assert "from step 2" in resumed["stdout"]
         for name, t in whole["params"][-1].items():
             assert torch.equal(resumed["params"][-1][name], t), name
+        assert resumed["held"] == whole["held"]
 
 
-def test_mesh_offload_mode_trains_each_block(ranks):
+def test_mesh_compression_matches_reckoning(ranks):
+    """``--compression`` under tensor parallelism and FSDP: each gradient's
+    int8 scale is the whole tensor's (the block's maximum all-reduced over
+    the axes it spans), so the compressed run equals the single-process
+    reckoning with the same compression: ``ce``, the gradients and the
+    parameters at 1e-5."""
+    mesh, results, _ = ranks("2x2")
+    res = [{(*COMPRESSED, "compressed"): rec["compressed"]}
+           for rec in results]
+    _check_reckoning(mesh, res, COMPRESSED, kind="compressed",
+                     compression=True)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_mesh_offload_mode_trains_each_block(ranks, mesh):
     """``--mode offload`` under the mesh: ``OutOfCoreAdamW`` (elementwise,
-    no global norm) updates each rank's own block from the averaged
+    no global norm) updates each rank's own blocks from the averaged
     gradients; every rank reports the same finite global losses."""
-    _, results, _ = ranks
+    _, results, _ = ranks(mesh)
     losses = [rec["offload"]["loss"] for rec in results]
     assert len(losses[0]) == 2 and all(np.isfinite(losses[0]))
     assert all(got == losses[0] for got in losses)
 
 
-def test_mesh_prints_the_sharding_report(ranks):
-    """Rank 0 prints the mesh and every mapping left replicated, naming
-    A14c; the experts' "model" mapping is applied, so not among them."""
-    mesh, results, _ = ranks
-    text = results[0]["deepseek-v2-236b", "whole"]["stdout"]
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_mesh_prints_the_sharding_report(ranks, mesh):
+    """Rank 0 prints the mesh and ``sharding_report()`` after each run: no
+    mapping of the training rules is left unapplied but the activations'
+    "seq" (multi-pod ``tp=False``, naming A14d), and on 2x2 the gathers
+    over "model" where a block splits what the math needs whole are named
+    once each (mamba2's fused projection, recurrentgemma's one kv head and
+    its RG-LRU gates)."""
+    mesh, results, _ = ranks(mesh)
+    runs = RUNS[mesh]
+    text = results[0][(*runs[-1], "whole")]["stdout"]
     line = next(ln for ln in text.splitlines() if "sharding_report" in ln)
-    assert "(gloo), rules train" in line and "A14c" in line
-    assert "'experts' dim 8 -> ('model',)=2 not applied (the expert" in line
-    assert "we_up\": [\"axis 'fsdp'" in line or "'ff'" in line
+    assert "(gloo), rules train" in line and "A14c" not in line
+    report = json.loads(line.split("replicated): ", 1)[1])
+    assert "not applied" not in json.dumps(
+        {k: v for k, v in report.items() if k != "activations"})
+    if mesh == "2x1x2":
+        assert report["activations"] == [
+            "axis 'seq' dim 16 -> ('model',)=2 not applied to activations "
+            "(sequence parallelism is ROADMAP A14d); replicated"]
+    if mesh == "2x2":
+        assert report["ssm/in_proj"] == [
+            "in_proj's z | xBC | dt block on model=2 straddles its parts: "
+            "its output gathered over 'model'"]
+        assert report["attention/self"] == [
+            "1 kv heads on model=2: k and v gathered over 'model', each "
+            "rank takes the kv heads of its queries"]
+        assert list(report["rglru/gates"]) == [
+            "the gates' columns on model=2 read every channel: the conv "
+            "output gathered over 'model'"]
     for rec in results[1:]:
-        assert "sharding_report" not in rec["deepseek-v2-236b",
-                                            "whole"]["stdout"]
+        assert "sharding_report" not in rec[(*runs[-1], "whole")]["stdout"]
 
 
 @pytest.fixture(scope="module")
@@ -403,11 +647,13 @@ def test_mesh_prefill_phase_at_smoke_widths(chip_smoke):
 
 def test_mesh_training_phase_on_cpu(chip_smoke):
     """Phase 9m (b) on the CPU, at the smoke config: ``--mesh`` under
-    torchrun with one process against the run without it, losses
-    bit-equal."""
+    torchrun with one process (the tensor-parallel and FSDP code at one
+    rank) against the run without it, losses bit-equal, and the bytes rank
+    0 held equal to the dry-run's for the same cell."""
     out = chip_smoke.mesh_training("cpu", smoke=True)
     assert out["losses_equal"] and len(out["losses"]) == \
         chip_smoke.MESH_PHASE["steps"]
+    assert out["state_bytes"] == out["dryrun_state_bytes"] > 0
     assert "peak_device_bytes" not in out
 
 

@@ -105,14 +105,71 @@ def test_logical_to_spec_without_rules_or_mesh():
                                      ref.train_rules())) == ("data", "model")
 
 
-def test_explicit_spec_applies_batch_and_the_experts_only():
-    """Under the train rules on a (2, 4) mesh, the routed experts' weights
-    keep "experts" over "model" and the batch keeps the data axes; every
-    other mapping to an axis of size > 1 is left replicated and recorded,
-    naming A14c (the router's "experts" with its own reason)."""
+def _batch_and_activation_specs(cfg):
+    """The batch's logical axes (a leading microbatch axis) and the
+    residual stream's, with shapes."""
+    from repro_torch.configs import SHAPES, batch_specs
+    out = {f"batch/{k}": ((None,) + s.axes, (2,) + s.shape)
+           for k, s in batch_specs(cfg, SHAPES["train_4k"]).items()}
+    out["activations"] = (("batch", "seq", "d_model"),
+                          (256, 4096, cfg.d_model))
+    return out
+
+
+@pytest.mark.parametrize("multi_pod,tp,fsdp",
+                         list(itertools.product((False, True), repeat=3)))
+def test_explicit_spec_equals_logical_to_spec_under_train_rules(
+        multi_pod, tp, fsdp):
+    """Under every ``train_rules(multi_pod, tp=, fsdp=)`` table (and with
+    ``seq_shard``), on each mesh shape, ``explicit_spec`` is
+    ``logical_to_spec`` for every parameter, batch tensor and activation
+    of every arch: the trainer holds the reference's blocks.  What it adds
+    to the report is only the activation "seq" mapping to axes of size >
+    1 (held replicated, naming A14d)."""
+    for shape, seq_shard in itertools.product(MESH_SHAPES, (False, True)):
+        if len(shape) != (3 if multi_pod else 2):
+            continue
+        mesh = _shape_mesh(shape)
+        rules = port.train_rules(multi_pod, tp=tp, fsdp=fsdp,
+                                 seq_shard=seq_shard)
+        seq = rules.mesh_axes("seq")
+        for arch in ARCHS:
+            cfg = get_config(arch)
+            entries = {f"param/{k}": (s.axes, s.shape)
+                       for k, s in param_specs(cfg).items()}
+            entries.update(_batch_and_activation_specs(cfg))
+            for ctx, (axes, shp) in entries.items():
+                port.sharding_report().clear()
+                want = port.logical_to_spec(axes, shp, rules, mesh, ctx)
+                fallbacks = {k: list(v) for k, v in
+                             port.sharding_report().items()}
+                port.sharding_report().clear()
+                got = port.explicit_spec(axes, shp, rules, mesh, ctx)
+                report = dict(port.sharding_report())
+                assert got == want, (arch, ctx, got, want)
+                added = [m for m in report.get(ctx, [])
+                         if m not in fallbacks.get(ctx, [])]
+                if seq is not None and "seq" in axes \
+                        and mesh.shape[seq] > 1:
+                    assert added == [
+                        f"axis 'seq' dim 4096 -> ('model',)="
+                        f"{mesh.shape[seq]} not applied to activations "
+                        "(sequence parallelism is ROADMAP A14d); "
+                        "replicated"], (ctx, added)
+                else:
+                    assert added == [], (arch, ctx, added)
+    port.sharding_report().clear()
+
+
+def test_explicit_spec_under_serve_rules_applies_batch_and_experts_only():
+    """Under the serving rules on a (2, 4) mesh, the routed experts'
+    weights keep "experts" over "model" and the batch keeps the data
+    axes; every other mapping to an axis of size > 1 is left replicated
+    and recorded, naming A14d (the router's "experts" with its own
+    reason)."""
     cfg = get_config("deepseek-v2-236b", smoke=True)
     mesh = _shape_mesh((2, 4))
-    rules = port.train_rules()
+    rules = port.serve_rules()
     port.sharding_report().clear()
     specs = {k: port.explicit_spec(s.axes, s.shape, rules, mesh, context=k)
              for k, s in param_specs(cfg).items()}
@@ -122,12 +179,10 @@ def test_explicit_spec_applies_batch_and_the_experts_only():
         leaf = k.split("/")[-1]
         want = (None, "model") if leaf.startswith("we_") else ()
         assert tuple(spec) == want, (k, spec)
-    assert "g1/p0/we_up" in report  # its "fsdp" mapping, not its experts
-    assert all("experts" not in m for m in report["g1/p0/we_up"])
     for k, msgs in report.items():
         for m in msgs:
             assert m.endswith("; replicated"), m
-            assert ("A14c" in m) != ("router" in m), m
+            assert ("A14d" in m) != ("router" in m), m
     assert any("'experts'" in m for m in report["g1/p0/router"])
     assert tuple(port.explicit_spec((None, "batch", None), (1, 8, 3),
                                     rules, mesh)) == (None, "data")
