@@ -252,8 +252,20 @@ into ``build/repro_torch``), and then:
   destroyed at the end: both MoE layers must take the expert-parallel
   path, and its logits must equal the dense prefill's bit for bit (at
   one rank T_loc = T and the ops are the same); both prefills' device
-  profiles are printed.  (b), after phase 9's timings: ``launch/train.py
-  --mesh --arch internlm2-1.8b --layers 2 --mode fused --device cuda``,
+  profiles are printed.  After phase 9's timings, (a) goes on:
+  internlm2-1.8b at its published widths, 2 layers, through a 2040-token
+  prompt (4 requests) and 12 greedy decode steps that cross a tail merge,
+  plainly and under ``use_rules(serving_rules("internlm2-1.8b"), mesh)``
+  (its cache split along its positions by the rules, at one rank the
+  whole) on a new one-rank group: every call's logits and every token
+  must be equal bit for bit, and the ruled prefill must launch B3 once a
+  layer; then B3 (internlm2-1.8b's and qwen2-72b's (4, 1, 1, 2000, 128)
+  and (4, 4, 1, 2000, 128)), B4 ((4, 5, 2000, 64, 128)) and B5 ((4, 2000,
+  160)) at the shapes one rank of a 16-way model axis gives them in
+  phases 3-5's prefills, each held to its plain version at phase 1's
+  limits and timed beside its bound.  (b), after phase 9's timings:
+  ``launch/train.py --mesh --arch internlm2-1.8b --layers 2 --mode fused
+  --device cuda``,
   3 steps of one of phase 6's microbatches (2 x 4096 tokens), under
   ``torch.distributed.run`` with one process (NCCL, the 1x1 mesh through
   the trainer's tensor parallelism and FSDP at one rank: each layer's
@@ -312,7 +324,9 @@ launches by phase in ``launches_by_phase``, the training phases 6, 6b, 6c
 and 10 at 0, phase 9 at 0 but for B3, whose rows carry phase 9's shapes
 under ``phase9``, a frontend's with its launches in all and filed by the
 shape of each call, and phase 9m's at 0 but for bf16 B3's in the
-expert-parallel prefill; B3 and
+expert-parallel prefill and the serving rules' prefill; the bf16 B3 and
+B4 rows and the B5 row carry phase 9m (a)'s times at a model rank's
+shapes under ``rank_local``; B3 and
 B4 have a bf16 and a float32 tensor-core kernel each; the float32 B3 and B4 rows and the B5 row carry the earlier
 kernel's check and times under ``comparator``, measured in the same run,
 with its launches in phases 3 to 5, counted there and required to be 0;
@@ -325,6 +339,7 @@ available or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -1182,7 +1197,7 @@ def phase1c(dev, log=print) -> dict:
     return {key: v["max_abs"] for key, v in main.items()}
 
 
-def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
+def measure_ssd(dev, dtype=torch.bfloat16, shape=SSD_MAIN) -> dict:
     """Kernel, plain-version and plain chunked-form times of one prefill
     layer's scan at the main path's shape with x, Bm and C in ``dtype``,
     which picks the kernel (``ssd_scan_tc`` or ``ssd_scan_tc32``, chunks
@@ -1197,11 +1212,11 @@ def measure_ssd(dev, dtype=torch.bfloat16) -> dict:
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.ssd_scan_tc import work
     from repro_torch.models.ssm import ssd_chunked
-    B, H, S, P, N = SSD_MAIN
+    B, H, S, P, N = shape
     kernel = ops.kernel_module("ssd_scan", dtype)
     chunk = kernel.CHUNK
     gen = torch.Generator(device=dev).manual_seed(5)
-    x, dt, A, bm, c = ssd_main_inputs(dtype, gen, dev)
+    x, dt, A, bm, c = ssd_main_inputs(dtype, gen, dev, shape)
     # the least work: the chunked form at the kernel's chunk; each input
     # read once (Bm and C: one group, B*S*N values each), y and the final
     # state written once
@@ -1334,7 +1349,7 @@ def phase1d(dev, log=print) -> dict:
     return worst
 
 
-def measure_rg_lru(dev) -> dict:
+def measure_rg_lru(dev, shape=RG_MAIN) -> dict:
     """Kernel, comparator and plain-version times of one prefill layer's
     recurrence at the main path's shape (float32, as the model hands it
     over), and its bound.  No PyTorch call computes the recurrence; beside
@@ -1343,9 +1358,9 @@ def measure_rg_lru(dev) -> dict:
     bytes are the kernel module's ``work``."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.rg_lru_pipe import work
-    B, S, W = RG_MAIN
+    B, S, W = shape
     gen = torch.Generator(device=dev).manual_seed(7)
-    a, gx = rg_lru_main_inputs(gen, dev)
+    a, gx = rg_lru_main_inputs(gen, dev, shape)
     y = torch.empty_like(a)
     # a product and a sum per element; a and gx read, y written, float32
     flops, nbytes = work(B, S, W, itemsize=a.element_size())
@@ -2122,6 +2137,33 @@ def _local_nccl_env() -> dict:
     return {"NCCL_SOCKET_IFNAME": os.environ.get("NCCL_SOCKET_IFNAME", "lo")}
 
 
+@contextlib.contextmanager
+def one_rank_mesh(dev):
+    """The 1x1 production mesh (``REPRO_MESH_OVERRIDE``) over a one-rank
+    process group on a ``HashStore`` (NCCL on the card, gloo on the CPU),
+    destroyed on exit, the environment restored."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_production_mesh
+    saved = {k: os.environ.get(k) for k in ("REPRO_MESH_OVERRIDE",
+                                             "NCCL_SOCKET_IFNAME")}
+    os.environ.update(REPRO_MESH_OVERRIDE=MESH_PHASE["override"],
+                      **_local_nccl_env())
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        yield make_production_mesh(device=dev.type)
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def mesh_prefill(cfg, params: dict, prompt: np.ndarray, dev) -> dict:
     """Phase 9m (a): ``prompt`` through ``cfg``'s prefill (``params`` cast
     as ``Engine`` casts them, a fresh zero cache each time) dense, then
@@ -2131,10 +2173,7 @@ def mesh_prefill(cfg, params: dict, prompt: np.ndarray, dev) -> dict:
     equal the dense ones bit for bit.  Returns both prefills' device
     profiles (on the card) and the wall.  The group is destroyed at the
     end."""
-    import datetime
-
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import cast_params, init_cache_specs, \
         make_prefill_fn
     from repro_torch.models import moe as moe_mod
@@ -2162,55 +2201,219 @@ def mesh_prefill(cfg, params: dict, prompt: np.ndarray, dev) -> dict:
         calls.append(1)
         return ep(*a, **kw)
 
-    saved = {k: os.environ.get(k) for k in ("REPRO_MESH_OVERRIDE",
-                                             "NCCL_SOCKET_IFNAME")}
-    os.environ.update(REPRO_MESH_OVERRIDE=MESH_PHASE["override"],
-                      **_local_nccl_env())
-    dist.init_process_group("nccl" if on_card else "gloo",
-                            store=dist.HashStore(), rank=0, world_size=1,
-                            timeout=datetime.timedelta(seconds=120))
     moe_mod._moe_mlp_shard_map = counted
     out = {}
     try:
-        mesh = make_production_mesh(device=dev.type)
-        out["mesh"] = mesh_shape(mesh)
-        out["backend"] = dist.get_backend()
-        dense = prefill()
-        check(not calls, "the dense prefill took the expert-parallel path")
-        # its main path: the kernels' counts from 0 just before, read after
-        kernels = prefill_kernels(cfg) if on_card else {}
-        for mod in kernels:
-            mod.launches = 0
-        with use_rules(serve_rules(), mesh):
-            sharded = prefill()
-        out["ep_launches"] = {_kernel_name(mod): mod.launches
-                              for mod in kernels}
-        for mod, want in kernels.items():
-            check(mod.launches == want, f"{_kernel_name(mod)} launched "
-                  f"{mod.launches} times in the expert-parallel prefill, "
-                  f"not {want}")
-        check(len(calls) == n_moe,
-              f"the expert-parallel MoE ran {len(calls)} times in a prefill "
-              f"of {n_moe} MoE layers")
-        check(bool(torch.isfinite(dense.float()).all()), "non-finite logits")
-        differ = int((dense != sharded).sum())
-        check(differ == 0, f"{cfg.name}: the expert-parallel prefill's "
-              f"logits differ from the dense one's in {differ} places")
-        out["logits_equal"] = True
-        out["logits_shape"] = list(dense.shape)
-        if on_card:  # where the time goes, the same prefill both ways
-            out["dense_profile"] = device_profile(prefill)
+        with one_rank_mesh(dev) as mesh:
+            out["mesh"] = mesh_shape(mesh)
+            out["backend"] = dist.get_backend()
+            dense = prefill()
+            check(not calls, "the dense prefill took the expert-parallel "
+                  "path")
+            # its main path: the kernels' counts from 0 just before, read
+            # after
+            kernels = prefill_kernels(cfg) if on_card else {}
+            for mod in kernels:
+                mod.launches = 0
             with use_rules(serve_rules(), mesh):
-                out["ep_profile"] = device_profile(prefill)
+                sharded = prefill()
+            out["ep_launches"] = {_kernel_name(mod): mod.launches
+                                  for mod in kernels}
+            for mod, want in kernels.items():
+                check(mod.launches == want, f"{_kernel_name(mod)} launched "
+                      f"{mod.launches} times in the expert-parallel "
+                      f"prefill, not {want}")
+            check(len(calls) == n_moe,
+                  f"the expert-parallel MoE ran {len(calls)} times in a "
+                  f"prefill of {n_moe} MoE layers")
+            check(bool(torch.isfinite(dense.float()).all()),
+                  "non-finite logits")
+            differ = int((dense != sharded).sum())
+            check(differ == 0, f"{cfg.name}: the expert-parallel prefill's "
+                  f"logits differ from the dense one's in {differ} places")
+            out["logits_equal"] = True
+            out["logits_shape"] = list(dense.shape)
+            if on_card:  # where the time goes, the same prefill both ways
+                out["dense_profile"] = device_profile(prefill)
+                with use_rules(serve_rules(), mesh):
+                    out["ep_profile"] = device_profile(prefill)
     finally:
         moe_mod._moe_mlp_shard_map = ep
-        dist.destroy_process_group()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# (a) also serves the arch below at its full widths, depth cut as phase 6
+# cuts it, through prefill and greedy decode steps with the tail merges,
+# plainly and inside use_rules(serving_rules(arch), mesh) on the 1x1 mesh:
+# the serving rules' tensor-parallel regions, cache blocks and vocabulary
+# block at one rank, bit-equal to the plain run.  The prompt stops 8
+# positions short of a multiple of the tail's 128, so that the steps cross
+# a merge.  More ranks are held on the CPU
+# (tests/test_torch_mesh_serve.py, four gloo processes)
+MESH_SERVE = dict(arch="internlm2-1.8b", n_layers=SMOKE_LAYERS, prompt=2040,
+                  steps=12, max_len=SERVE["max_len"])
+
+
+def greedy_serve(cfg, params: dict, batch: dict, cache: dict, *, steps: int,
+                 cache_len: int, enc_len: int = 0, forced=None) -> dict:
+    """``batch``'s prompt through ``make_prefill_fn`` into ``cache`` (in
+    place), then ``steps`` ``make_decode_fn`` steps, each after
+    ``merge_tail``, under the rules and mesh in use: on each call's greedy
+    token, taken from the logits gathered over "model" where a rank holds
+    a vocabulary block (so that every rank takes the same), or on
+    ``forced``'s (B, steps) tokens.  Returns each call's "logits" (as the
+    model returns them: this rank's block), the greedy "tokens" (B, 1)
+    after each call, the tail "merges" crossed, and the "prefill_ms" and
+    mean "step_ms" on the host's clock after a synchronise."""
+    from repro_torch.models import make_decode_fn, make_prefill_fn, merge_tail
+    from repro_torch.runtime.partition import gather, model_axis
+    dev = batch["inputs"].device
+    prefill = make_prefill_fn(cfg, cache_len=cache_len, enc_len=enc_len)
+    decode = make_decode_fn(cfg, cache_len=cache_len, enc_len=enc_len)
+    prompt_len = batch["inputs"].shape[1]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def token(logits):
+        if logits.shape[-1] != cfg.vocab:  # this rank's vocabulary block
+            logits = gather(logits, -1, model_axis())
+        return torch.argmax(logits[:, -1], dim=-1)[:, None]
+
+    sync()
+    t0 = time.perf_counter()
+    logits, _ = prefill(params, batch, cache)
+    sync()
+    out = {"prefill_ms": (time.perf_counter() - t0) * 1e3, "merges": 0,
+           "logits": [logits], "tokens": [token(logits)]}
+    t0 = time.perf_counter()
+    for step in range(steps):
+        pos = prompt_len + step
+        out["merges"] += pos % cfg.decode_tail == 0
+        merge_tail(cache, pos, cache_len=cache_len)
+        tok = out["tokens"][-1] if forced is None else forced[:, step:step + 1]
+        logits, _ = decode(params, cache, tok, pos)
+        out["logits"].append(logits)
+        out["tokens"].append(token(logits))
+    sync()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    return out
+
+
+def mesh_serving(dev, *, smoke: bool = False) -> dict:
+    """Phase 9m (a), the serving rules' decode: MESH_SERVE's arch (its
+    smoke config, with ``smoke``, at a 40-token prompt and 64-position
+    cache) through :func:`greedy_serve`, once plainly and once inside
+    ``use_rules(serving_rules(arch), mesh)`` on the one-rank mesh (its
+    cache split over "model" along its positions by the rules, which at
+    one rank is the whole cache).  Every call's logits and every token
+    must be equal bit for bit; the ruled run must launch the attention
+    kernel once a layer, in its prefill (its main path, counted from 0
+    just before and read just after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import serving_rules
+    from repro_torch.models import cast_params, init_cache_specs
+    from repro_torch.runtime import use_rules
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    spec = MESH_SERVE
+    cfg = get_config(spec["arch"], smoke=smoke)
+    S, max_len = (40, 64) if smoke else (spec["prompt"], spec["max_len"])
+    if not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    params = cast_params(cfg, model_params(cfg, 0, dev))
+    prompt = torch.from_numpy(prompt_tokens(cfg, 0, S)[:, :S]).to(dev)
+    cache_specs = init_cache_specs(cfg, prompt.shape[0], max_len)
+
+    def serve():
+        cache = {k: torch.zeros(v.shape, dtype=getattr(torch, v.dtype),
+                                device=dev) for k, v in cache_specs.items()}
+        run = greedy_serve(cfg, params, {"inputs": prompt}, cache,
+                           steps=spec["steps"], cache_len=max_len)
+        return (torch.cat(run["logits"], 1), torch.cat(run["tokens"], 1),
+                run["merges"])
+
+    kernels = prefill_kernels(cfg) if on_card else {}
+    plain, plain_tokens, merges = serve()
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "prompt": S,
+           "steps": spec["steps"], "tail_merges": merges}
+    check(merges >= 1, f"phase 9m (a): {spec['steps']} steps from {S} "
+          "crossed no tail merge")
+    with one_rank_mesh(dev) as mesh:
+        for mod in kernels:
+            mod.launches = 0
+        with use_rules(serving_rules(spec["arch"], False), mesh):
+            ruled, ruled_tokens, _ = serve()
+        launched = {mod: mod.launches for mod in kernels}
+    out["launches"] = {_kernel_name(mod): n for mod, n in launched.items()}
+    for mod, want in kernels.items():
+        check(launched[mod] == want, f"{_kernel_name(mod)} launched "
+              f"{launched[mod]} times in the ruled run, not {want}")
+    check(bool(torch.isfinite(plain.float()).all()), "non-finite logits")
+    differ = int((plain != ruled).sum())
+    check(differ == 0 and torch.equal(plain_tokens, ruled_tokens),
+          f"{cfg.name} under the serving rules on one rank: logits differ "
+          f"from the plain run's in {differ} places, tokens equal "
+          f"{torch.equal(plain_tokens, ruled_tokens)}")
+    out["logits_equal"] = out["tokens_equal"] = True
+    out["tokens"] = plain_tokens[0].tolist()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# (a) then holds B3, B4 and B5 to their plain versions, at phase 1's
+# limits, at the shapes one rank of a 16-way model axis gives them in
+# phases 3-5's prefills (4 x 2000 tokens): internlm2-1.8b's 16 query heads
+# and qwen2-72b's 64 (both with 8 kv heads, gathered to the query's one)
+# over 16 ranks, mamba2-2.7b's 80 heads, recurrentgemma-2b's 2560 RG-LRU
+# channels; and times them beside their bounds
+RANK_LOCAL = {"attention": {"internlm2-1.8b": (4, 1, 1, 2000, 128),
+                            "qwen2-72b": (4, 4, 1, 2000, 128)},
+              "ssd": (4, 5, 2000, 64, 128), "rg_lru": (4, 2000, 160)}
+
+
+def rank_local_kernels(dev) -> dict:
+    """Phase 9m (a)'s kernel checks at RANK_LOCAL's shapes, bf16 inputs
+    (B5's float32, as the model hands them over): ``{"flash_attention_tc":
+    {arch: ...}, "ssd_scan_tc": ..., "rg_lru_pipe": ...}``, each with its
+    largest absolute difference from the plain version and
+    :func:`measure_attention`'s, :func:`measure_ssd`'s or
+    :func:`measure_rg_lru`'s times and bound."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf16 = torch.bfloat16
+    out = {"flash_attention_tc": {}}
+    for arch, shape in RANK_LOCAL["attention"].items():
+        B, H, K, S, d = shape
+        q, k, v = attention_inputs(B, H, K, S, S, d, bf16, gen, dev,
+                                   qk_std=ATTN_MAIN_QK_STD)
+        err = _attention_err(ops, ref, q, k, v, tol=ATTN_MAIN_TOL[bf16],
+                             causal=True)
+        out["flash_attention_tc"][arch] = {
+            "shape": list(shape), "max_abs_err": err,
+            **measure_attention(dev, shape)}
+    shape = RANK_LOCAL["ssd"]
+    args = ssd_main_inputs(bf16, gen, dev, shape)
+    y, h = ops.ssd_scan(*args, return_state=True)
+    want, want_h = ref.ssd_scan_ref(*args, return_state=True)
+    y_err = max(chunk_errors(y, want))
+    h_err = float((h - want_h).abs().max() / want_h.abs().max())
+    check(y_err < SSD_MAIN_TOL and h_err < SSD_MAIN_TOL,
+          f"ssd_scan at {shape}: y per chunk {y_err}, state {h_err}, limit "
+          f"{SSD_MAIN_TOL}")
+    out["ssd_scan_tc"] = {"shape": list(shape), "y": y_err, "state": h_err,
+                          "max_abs_err": float((y - want).abs().max()),
+                          **measure_ssd(dev, bf16, shape)}
+    shape = RANK_LOCAL["rg_lru"]
+    a, gx = rg_lru_main_inputs(gen, dev, shape)
+    y, want = ops.rg_lru_scan(a, gx), ref.rg_lru_ref(a, gx)
+    check(torch.equal(y, want), f"rg_lru_scan at {shape} != plain version: "
+          f"max abs {float((y - want).abs().max())}")
+    out["rg_lru_pipe"] = {"shape": list(shape), "max_abs_err": 0.0,
+                          **measure_rg_lru(dev, shape)}
     return out
 
 
@@ -4007,8 +4210,15 @@ def main() -> int:
     # parameters; (b), launch/train.py --mesh under torchrun beside the
     # run without it, runs now, after phase 9's timings
     mesh_b = mesh_training(dev)
+    mesh_serve = mesh_serving(dev)
+    local = rank_local_kernels(dev)
     print(f"mesh 9m (a), {PHASE9[MESH_PHASE9]['arch']}'s prefill dense and "
           f"expert-parallel on a 1x1 mesh ({card}): " + json.dumps(mesh_a))
+    print(f"mesh 9m (a), {MESH_SERVE['arch']} at {MESH_SERVE['n_layers']} "
+          f"layers served plainly and under its serving rules on the 1x1 "
+          f"mesh ({card}): " + json.dumps(mesh_serve))
+    print(f"mesh 9m (a), B3, B4 and B5 at a 16-way model rank's shapes "
+          f"({card}): " + json.dumps(local))
     print(f"mesh 9m (b), launch/train.py --mesh beside the run without it, "
           f"{MESH_PHASE['arch']} at {MESH_PHASE['n_layers']} layers "
           f"({card}): " + json.dumps(mesh_b))
@@ -4042,7 +4252,11 @@ def main() -> int:
         row["launches_by_phase"].update(
             {ph: out["kernel_launches"][stem] for ph, out in trained.items()})
         row["launches_by_phase"]["9"] = phase9_launches[stem]
-        row["launches_by_phase"]["9m"] = mesh_a["ep_launches"].get(stem, 0)
+        row["launches_by_phase"]["9m"] = (
+            mesh_a["ep_launches"].get(stem, 0)
+            + mesh_serve["launches"].get(stem, 0))
+        if row["name"] in local:  # a model rank's shapes, timed in 9m (a)
+            row["rank_local"] = local[row["name"]]
         row["launches"] += row["launches_by_phase"]["9m"]
         row["launches_by_phase"]["10"] = spmd["kernel_launches"].get(stem, 0)
     walls = {name: b - a for name, a, b in zip(

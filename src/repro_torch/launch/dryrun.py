@@ -22,9 +22,11 @@ The program of a cell:
     as the reference's does.  The step counter the update reads on the
     host stays on the host (a meta tensor has no value to read).
   * prefill: ``make_prefill_fn`` on the weights cast as ``Engine`` casts
-    them (bf16 matrices), token ids as the engine holds them (int64);
-    the offload archs under the reference's fully-sharded rules.
-  * decode: ``make_decode_fn`` at the cache's last position.
+    them (bf16 matrices), token ids as the engine holds them (int32);
+    the offload archs under the reference's fully-sharded rules
+    (:func:`serving_rules`).
+  * decode: ``make_decode_fn`` at the cache's last position, held on the
+    host as an int32 scalar (the reference's ``pos`` argument).
 
 Layers and microbatches are loops of one program each: every layer loop
 is traced at two and three repeats (fewer where it has fewer), the
@@ -39,9 +41,11 @@ written, then ``NamedSharding.shard_shape``);
 program holds (``explicit_spec``).  On a train cell those are the
 reference's blocks of every parameter, moment and batch (the trainer's
 tensor parallelism and FSDP, ``TRAIN_NO_TP`` cells under ``tp=False``),
-so the two are equal.  A serve cell holds the batch and the routed
-experts sharded and the rest replicated, each such mapping listed in
-``sharding_report`` (tensor parallelism in serving is ROADMAP A14d).
+so the two are equal.  On a serve cell they are the reference's blocks
+of every cast weight, cache entry and token batch under
+:func:`serving_rules` (tensor parallelism over "model", the KV cache
+over its kv heads or its positions as ``KV_SHARD`` says, the
+``/wsharded`` weights over "data"), so the two are equal there too.
 ``trace_s`` stands where the reference has ``lower_s`` and
 ``compile_s``; ``cost_analysis`` and ``hlo_bytes`` have no counterpart
 (there is no compiler and no HLO).
@@ -85,8 +89,8 @@ from .mesh import make_production_mesh, production_mesh_shape
 
 __all__ = ["KV_SHARD", "TRAIN_MICROBATCHES", "TRAIN_NO_TP", "Cell",
            "SkipCell", "build_cell", "depth_loops", "at_depth", "fake_world",
-           "held_state_bytes", "main", "run_cell", "trace_program",
-           "world_size"]
+           "held_state_bytes", "main", "run_cell", "serving_rules",
+           "trace_program", "world_size"]
 
 # per-arch gradient-accumulation microbatches for train_4k (the reference's)
 TRAIN_MICROBATCHES = {
@@ -124,6 +128,21 @@ KV_SHARD = {
 
 class SkipCell(Exception):
     pass
+
+
+def serving_rules(arch: str, multi_pod: bool,
+                  kv_shard: str | None = None) -> ShardingRules:
+    """The reference's rules for an arch's prefill and decode cells:
+    ``serve_rules`` with the arch's ``KV_SHARD`` layout, and for the
+    offload archs "fsdp" over "data" too (their weights fully sharded,
+    gathered a layer at a time: the ``/wsharded`` rules)."""
+    rules = serve_rules(multi_pod, kv_shard=kv_shard or KV_SHARD.get(
+        arch, "seq"))
+    if arch not in OFFLOAD_ARCHS:
+        return rules
+    r = dict(rules.rules)
+    r["fsdp"] = ("data",)
+    return ShardingRules(r, name=rules.name + "/wsharded")
 
 
 @contextlib.contextmanager
@@ -244,7 +263,8 @@ def _train_program(cfg, shape: Shape, mesh, rules, *, microbatches: int,
 def _serve_program(shape: Shape, mesh, rules, *, cache_len: int,
                    enc_len: int, device="meta"):
     """``build(cfg, None)`` for a prefill or decode cell: parameters cast as
-    ``Engine`` casts them, the cache, the engine's int64 token ids."""
+    ``Engine`` casts them, the cache, the engine's int32 token ids (and
+    decode's position)."""
 
     def build(cfg, _):
         specs = param_specs(cfg)
@@ -257,10 +277,10 @@ def _serve_program(shape: Shape, mesh, rules, *, cache_len: int,
                                               enc_len).items()}
         if shape.kind == "prefill":
             batch = {k: _alloc(_block(s.axes, s.shape, rules, mesh,
-                                      f"batch/{k}"),
-                               "int64" if k == "inputs" else s.dtype, device)
+                                      f"batch/{k}"), s.dtype, device)
                      for k, s in batch_specs(cfg, shape).items()}
-            prefill = make_prefill_fn(cfg)
+            prefill = make_prefill_fn(cfg, cache_len=cache_len,
+                                      enc_len=enc_len)
 
             def step():
                 with use_rules(rules, mesh):
@@ -268,13 +288,14 @@ def _serve_program(shape: Shape, mesh, rules, *, cache_len: int,
             return (params, batch, cache), step
         tok = decode_specs(cfg, shape)["tokens"]
         tokens = _alloc(_block(tok.axes, tok.shape, rules, mesh,
-                               "decode/tokens"), "int64", device)
-        decode = make_decode_fn(cfg)
+                               "decode/tokens"), tok.dtype, device)
+        pos = torch.tensor(cache_len - 1, dtype=torch.int32)  # on the host
+        decode = make_decode_fn(cfg, cache_len=cache_len, enc_len=enc_len)
 
         def step():
             with use_rules(rules, mesh):
-                return decode(params, cache, tokens, cache_len - 1)
-        return (params, cache, tokens), step
+                return decode(params, cache, tokens, int(pos))
+        return (params, cache, tokens, pos), step
 
     return build
 
@@ -441,11 +462,8 @@ def build_cell(arch: str, shape_name: str, *, multi_pod: bool,
     # fully-sharded weights (the data axis), gathered per layer
     bf16 = dataclasses.replace(cfg, param_dtype="bfloat16")
     kv = kv_shard or KV_SHARD.get(arch, "seq")
-    rules = serve_rules(multi_pod, kv_shard=kv)
+    rules = serving_rules(arch, multi_pod, kv)
     if offload:
-        r = dict(rules.rules)
-        r["fsdp"] = ("data",)
-        rules = ShardingRules(r, name=rules.name + "/wsharded")
         meta["weights"] = "fully-sharded"
     meta["kv_shard"] = kv
     cache_len, enc_len = cache_len_for(cfg, shape)

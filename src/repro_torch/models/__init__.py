@@ -11,9 +11,11 @@ and the prefill and decode forwards.
 
 from .config import ModelConfig
 from .lm import (MOE_AUX_WEIGHT, cast_params, init_cache_specs,
-                 make_decode_fn, make_loss_fn, make_prefill_fn, param_specs)
+                 make_decode_fn, make_loss_fn, make_prefill_fn, merge_tail,
+                 param_specs)
 from .spec import ParamSpec, add_prefix, init_params, sub
 
 __all__ = ["ModelConfig", "ParamSpec", "param_specs", "init_cache_specs",
            "init_params", "cast_params", "make_loss_fn", "make_prefill_fn",
-           "make_decode_fn", "MOE_AUX_WEIGHT", "sub", "add_prefix"]
+           "make_decode_fn", "merge_tail", "MOE_AUX_WEIGHT", "sub",
+           "add_prefix"]

@@ -11,7 +11,10 @@ through attention, and no kernel has a backward (neither has the TPU
 kernel), so the loss runs :func:`blockwise_attention`, the reference's
 online-softmax scan in plain PyTorch, as the reference's loss runs it in
 XLA.  The decode functions are plain PyTorch, as they are XLA code in the
-reference; :func:`full_attention` is a test oracle only.
+reference; :func:`full_attention` is a test oracle only.  Given the
+``offset`` of a block of a cache split over ranks, they return that
+block's online-softmax partial ``(num, den, m)`` for
+:func:`~repro_torch.runtime.collectives.flash_decode_psum` to combine.
 
 Layout: q (B, S, H, dh); k (B, T, K, dh); v (B, T, K, dhv) with H = K * G
 (GQA); dhv may differ from dh (MLA).
@@ -28,7 +31,7 @@ from ..kernels import ops
 from .layers import f32_einsum
 
 __all__ = ["blockwise_attention", "prefill_attention", "decode_attention",
-           "decode_attention_two_tier", "full_attention"]
+           "decode_attention_two_tier", "full_attention", "softmax_partial"]
 
 _NEG = -1e30
 
@@ -111,31 +114,68 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides and writes its output with q's strides, so no layout copy is
     made on the card.
     """
+    # a gather over "model" along the last dimension hands a view whose
+    # head dimension is strided; the kernel reads it contiguous
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             scale=scale)
     return o.transpose(1, 2)
 
 
+def softmax_partial(parts, spec: str):
+    """The online-softmax partial of ``parts``, each (scores (..., t),
+    values, valid (t,)): ``m`` the largest valid score, ``den`` the sum of
+    ``exp(s - m)`` over the valid ones and ``num`` their sum with the
+    values by the einsum ``spec``, float32 (a part with none valid adds
+    nothing; where none is, ``m`` is -1e30)."""
+    ss = [torch.where(valid, s, _NEG) for s, _, valid in parts]
+    m = torch.stack([s.amax(dim=-1) for s in ss]).amax(dim=0)
+    num = den = 0
+    for s, (_, v, valid) in zip(ss, parts):
+        p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+        num = num + f32_einsum(spec, p.to(v.dtype), v)
+        den = den + p.sum(dim=-1)
+    return num, den, m
+
+
+def _partial(qs, parts):
+    """:func:`softmax_partial` of scaled queries ``qs`` (B, K, G, dh) over
+    ``parts``, (k (B, t, K, dh), v (B, t, K, dhv), valid (t,)) each:
+    ``num`` (B, 1, H, dhv) and ``den``, ``m`` (B, 1, H)."""
+    B, K, G, _ = qs.shape
+    num, den, m = softmax_partial(
+        [(f32_einsum("bkgd,btkd->bkgt", qs, k), v, valid)
+         for k, v, valid in parts], "bkgt,btkd->bkgd")
+    H = K * G
+    return (num.reshape(B, 1, H, -1), den.reshape(B, 1, H),
+            m.reshape(B, 1, H))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: int, *,
-                     window: int | None = None,
-                     scale: float | None = None) -> torch.Tensor:
+                     window: int | None = None, scale: float | None = None,
+                     offset: int | None = None):
     """Single-step attention against a cache.
 
     q: (B, 1, H, dh); caches: (B, T, K, dh); ``length``: number of valid
-    cache positions.  One pass over the cache, f32 softmax.
+    cache positions.  One pass over the cache, f32 softmax.  With
+    ``offset``, the caches are the block of positions ``offset ..
+    offset + T - 1`` of a longer cache, and the block's partial ``(num,
+    den, m)`` is returned (:func:`_partial`).
     """
     B, _, H, dh = q.shape
     _, T, K, dhv = v_cache.shape
     G = H // K
     scale = dh ** -0.5 if scale is None else scale
     qs = q.reshape(B, K, G, dh) * torch.tensor(scale, dtype=q.dtype)
-    s = f32_einsum("bkgd,btkd->bkgt", qs, k_cache)
-    idx = torch.arange(T, device=q.device)
+    idx = torch.arange(offset or 0, (offset or 0) + T, device=q.device)
     valid = idx < length
     if window is not None:
         valid = valid & (idx >= length - window)
+    if offset is not None:
+        return _partial(qs, [(k_cache, v_cache, valid)])
+    s = f32_einsum("bkgd,btkd->bkgt", qs, k_cache)
     s = torch.where(valid, s, _NEG)
     p = torch.softmax(s, dim=-1)
     out = f32_einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype), v_cache)
@@ -161,21 +201,34 @@ def full_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 
 def decode_attention_two_tier(q, k_main, v_main, k_tail, v_tail, pos: int, *,
-                              scale: float | None = None) -> torch.Tensor:
+                              scale: float | None = None,
+                              offset: int | None = None,
+                              with_tail: bool = True):
     """Decode attention over a two-tier cache.
 
     The *main* cache (B, Tm, K, d) holds positions [0, pos - pos % Tt); the
     *tail* (B, Tt, K, d) is a small append buffer written once per step and
     holds the rest, position p at slot p % Tt, up to and including ``pos``.
+    With ``offset``, main is the block of positions ``offset .. offset +
+    Tm - 1`` of a longer one, and the partial ``(num, den, m)`` of that
+    block and of the tail (left out without ``with_tail``: another rank
+    counts it) is returned (:func:`_partial`).
     """
     B, _, H, dh = q.shape
     _, Tm, K, dhv = v_main.shape
-    Tt = v_tail.shape[1]
     G = H // K
     scale = dh ** -0.5 if scale is None else scale
+    qs = q.reshape(B, K, G, dh) * torch.tensor(scale, dtype=q.dtype)
+    Tt = v_tail.shape[1]
     n_tail = pos % Tt
     main_len = pos - n_tail
-    qs = q.reshape(B, K, G, dh) * torch.tensor(scale, dtype=q.dtype)
+    if offset is not None:
+        parts = [(k_main, v_main, torch.arange(
+            offset, offset + Tm, device=q.device) < main_len)]
+        if with_tail:
+            parts.append((k_tail, v_tail, torch.arange(
+                Tt, device=q.device) <= n_tail))
+        return _partial(qs, parts)
     sm = f32_einsum("bkgd,btkd->bkgt", qs, k_main)
     st = f32_einsum("bkgd,btkd->bkgt", qs, k_tail)
     sm = torch.where(torch.arange(Tm, device=q.device) < main_len, sm, _NEG)

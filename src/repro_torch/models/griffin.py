@@ -16,10 +16,11 @@ backward, nor has the TPU kernel).
 Block structure (Griffin recurrent block):
     norm -> { y = gelu(x @ wy) ; r = rglru(conv1d(x @ wx)) } -> (y * r) @ wo
 
-In training under the tensor-parallel rules ``wx``/``wy`` and the gates'
-``w_i``/``w_r`` are column-parallel over "model" and ``wo`` row-parallel:
-each rank runs the recurrence on its channels, and its gate columns read
-the whole conv output, gathered over "model".
+Under the tensor-parallel rules (training and serving) ``wx``/``wy`` and
+the gates' ``w_i``/``w_r`` are column-parallel over "model" and ``wo``
+row-parallel: each rank runs the recurrence (and the decode step) on its
+channels, whose state and conv carry are its blocks of the cache, and its
+gate columns read the whole conv output, gathered over "model".
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..runtime.partition import UNIT, enter, gather, leave, tp_axis
+from ..runtime.partition import enter, gather, leave, tp_axis
 from ..runtime.sharding import note
 from .layers import causal_conv1d, gelu_tanh
 
@@ -83,9 +84,10 @@ def rg_lru(p, x, h0=None, *, train=False, gate_x=None):
     return h, h[:, -1]
 
 
-def rg_lru_step(p, x_t, h):
-    """One step.  x_t: (B,1,W); h: (B,W)."""
-    i_t, log_a = _gates(p, x_t)
+def rg_lru_step(p, x_t, h, *, gate_x=None):
+    """One step.  x_t: (B,1,W); h: (B,W); ``gate_x``: the gates' input
+    where it is not ``x_t``, as :func:`rg_lru`'s."""
+    i_t, log_a = _gates(p, x_t if gate_x is None else gate_x)
     a = torch.exp(log_a[:, 0])
     gate = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     h = a * h.float() + gate * (i_t[:, 0] * x_t[:, 0].float())
@@ -95,11 +97,12 @@ def rg_lru_step(p, x_t, h):
 def griffin_forward(cfg, p, x, *, return_state=False, train=False):
     """Full-sequence recurrent block.  x: (B,S,D) -> (B,S,D); with
     ``return_state`` also ``(h_last (B,W) f32, conv_state)``, the decode
-    carry; ``train`` runs the recurrence through :func:`linear_scan`.  In
-    training under tensor parallelism (``wx`` holding this model rank's
-    columns) a region over "model" on the rank's channels [c0, c1) of the
-    recurrence; otherwise ``UNIT``'s, every channel."""
-    ax = tp_axis(p["wx"].shape[-1], cfg.lru) if train else UNIT
+    carry; ``train`` runs the recurrence through :func:`linear_scan`.
+    Under tensor parallelism (``wx`` holding this model rank's columns) a
+    region over "model" on the rank's channels [c0, c1) of the recurrence,
+    its state and conv carry those channels'; otherwise ``UNIT``'s, every
+    channel."""
+    ax = tp_axis(p["wx"].shape[-1], cfg.lru)
     c0, c1 = ax.block(cfg.lru)
     hin = enter(x, ax)
     y_branch = gelu_tanh(hin @ p["wy"])
@@ -118,10 +121,18 @@ def griffin_forward(cfg, p, x, *, return_state=False, train=False):
 
 
 def griffin_decode_step(cfg, p, x, h, conv_state):
-    """One-token step.  x: (B,1,D); h: (B,W); conv_state: (B,K-1,W)."""
-    y_branch = gelu_tanh(x @ p["wy"])
-    r = x @ p["wx"]
-    r, conv_state = causal_conv1d(r, p["conv_w"], conv_state)
-    r_out, h = rg_lru_step(p, r, h)
-    out = (y_branch.float() * r_out).to(x.dtype) @ p["wo"]
+    """One-token step.  x: (B,1,D); h: (B,W); conv_state: (B,K-1,W): under
+    tensor parallelism this rank's channels [c0, c1) of both, its gates
+    from the token's conv output gathered over "model"."""
+    ax = tp_axis(p["wx"].shape[-1], cfg.lru)
+    c0, c1 = ax.block(cfg.lru)
+    hin = enter(x, ax)
+    y_branch = gelu_tanh(hin @ p["wy"])
+    r = hin @ p["wx"]
+    r, conv_state = causal_conv1d(r, enter(p["conv_w"], ax)[:, c0:c1],
+                                  conv_state)
+    gp = {"w_i": p["w_i"], "w_r": p["w_r"],
+          **{k: enter(p[k], ax)[c0:c1] for k in ("b_i", "b_r", "lam")}}
+    r_out, h = rg_lru_step(gp, r, h, gate_x=gather(r, -1, ax))
+    out = leave((y_branch.float() * r_out).to(x.dtype) @ p["wo"], ax)
     return out, h, conv_state

@@ -10,8 +10,8 @@ operation in the input's dtype.  :func:`causal_conv1d` serves the SSM and
 RG-LRU families; :func:`sinusoidal_positions` is Whisper's position
 table (both of its stacks), in float32 like the reference's.
 
-Under the training rules with tensor parallelism :func:`mlp` is the
-reference's partition of it: ``wi``/``wg`` column-parallel and ``wo``
+Under the tensor-parallel rules (training and serving) :func:`mlp` is
+the reference's partition of it: ``wi``/``wg`` column-parallel and ``wo``
 row-parallel over "model" (:mod:`~repro_torch.runtime.partition`).
 """
 
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from ..runtime.partition import UNIT, enter, leave, tp_axis
 
 __all__ = ["rms_norm", "rope", "sinusoidal_positions", "gelu_tanh",
-           "apply_act", "mlp", "f32_einsum", "causal_conv1d"]
+           "apply_act", "mlp", "f32_einsum", "causal_conv1d", "conv_carry"]
 
 
 def f32_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -105,8 +105,8 @@ def apply_act(h: torch.Tensor, g: torch.Tensor | None,
 def mlp(params, x: torch.Tensor, act: str, *,
         d_ff: int | None = None) -> torch.Tensor:
     """(Gated) feed-forward block; params: wi, wo [, wg] [, bi, bo].  When
-    ``wi`` holds this model rank's block of ``d_ff`` columns (training
-    under tensor parallelism), a region: ``wi``/``wg`` column-parallel,
+    ``wi`` holds this model rank's block of ``d_ff`` columns (under tensor
+    parallelism), a region: ``wi``/``wg`` column-parallel,
     ``wo`` row-parallel, the partial products summed over "model"."""
     ax = UNIT if d_ff is None else tp_axis(params["wi"].shape[-1], d_ff)
     x = enter(x, ax)
@@ -139,6 +139,15 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for j in range(k):
         y = y + xx[:, j:j + x.shape[1], :].float() * w[j].float()
-    new_state = (xx[:, -(k - 1):, :] if k > 1
-                 else x.new_zeros((x.shape[0], 0, x.shape[2])))
-    return y.to(x.dtype), new_state.to(x.dtype)
+    return y.to(x.dtype), _carry(xx, k).to(x.dtype)
+
+
+def _carry(xx: torch.Tensor, k: int) -> torch.Tensor:
+    return (xx[:, -(k - 1):, :] if k > 1
+            else xx.new_zeros((xx.shape[0], 0, xx.shape[2])))
+
+
+def conv_carry(x: torch.Tensor, k: int) -> torch.Tensor:
+    """:func:`causal_conv1d`'s carry of a whole sequence x (B, S, C) for a
+    ``k``-tap conv: its last k - 1 inputs, zeros before the start."""
+    return _carry(F.pad(x, (0, 0, k - 1, 0)), k)

@@ -42,8 +42,15 @@ does not hold, or whose query columns split a head, gathers the
 projections over "model" and takes what it needs), the embedding looks
 up this rank's vocabulary rows and sums over "model", and the
 cross-entropy is vocab-parallel: its logsumexp from an all-reduced max
-and sum, the target logit from a masked sum.  The values are the
-reference's.
+and sum, the target logit from a masked sum.  Under the serving rules
+prefill and decode run the same regions on each rank's blocks (the
+``/wsharded`` rules' FSDP blocks gathered a layer at a time), the cache
+being the rank's block too: its kv heads (``serve_rules(kv_shard=
+"heads")``) or its positions (``"seq"``; the decode attends them with
+every query head and the ranks' partials are combined), the append tail
+replicated, an SSM state the rank's heads, an RG-LRU state and conv carry
+its channels; the logits returned are the rank's block of the
+vocabulary.  The values are the reference's.
 
 Positions: LLaVA's patches take positions 0 .. img_tokens - 1 and the
 text follows, so its decode positions count the patches; the loss drops
@@ -53,8 +60,8 @@ Two-tier KV cache: ``k``/``v`` (main, length ``cache_len``) and
 ``tk``/``tv`` (tail, ``decode_tail`` slots; position p at slot p % Tt);
 an MLA block's is the latent ``ckv``/``kr`` (main) and ``tckv``/``tkr``
 (tail), the same way, and so is an ``xattn`` block's self half.  Decode
-writes the tail; the engine merges a full tail into main before the step
-at a multiple of Tt.  Prefill leaves the
+writes the tail; :func:`merge_tail` (the engine calls it) merges a full
+tail into main before the step at a multiple of Tt.  Prefill leaves the
 state that decoding the prompt one token at a time would leave: the tail
 holds the prompt's last ``(S - 1) % Tt + 1`` positions, so a prompt whose
 length is a multiple of Tt ends with a full tail, which the first step's
@@ -91,9 +98,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..perf.op_analysis import loop_mark
-from ..runtime.collectives import axis_groups, psum
-from ..runtime.partition import (all_reduce_max, block_plans, enter, gather,
-                                 gather_block, leave, tp_axis)
+from ..runtime.collectives import axis_groups, flash_decode_psum, psum
+from ..runtime.partition import (all_reduce_max, block_plans,
+                                 cache_seq_block, enter, gather,
+                                 gather_block, leave, model_axis, tp_axis)
 from ..runtime.sharding import (batch_axes, current_mesh, current_rules,
                                 is_train_rules, mesh_shape, note, use_rules)
 from .attention import (blockwise_attention, decode_attention,
@@ -107,7 +115,8 @@ from .spec import ParamSpec, sub
 from .ssm import mamba2_decode_step, mamba2_forward
 
 __all__ = ["param_specs", "init_cache_specs", "cast_params", "make_loss_fn",
-           "make_prefill_fn", "make_decode_fn", "MOE_AUX_WEIGHT"]
+           "make_prefill_fn", "make_decode_fn", "merge_tail",
+           "TAIL_TO_MAIN", "MOE_AUX_WEIGHT"]
 
 MOE_AUX_WEIGHT = 0.01
 
@@ -372,23 +381,6 @@ def _use_rope(cfg: ModelConfig) -> bool:
     return cfg.family != "audio"
 
 
-def _qkv(cfg, p, h, positions):
-    B, S, _ = h.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = h @ p["wq"]
-    k = h @ p["wk"]
-    v = h @ p["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
-    if _use_rope(cfg):
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-    return q, k, v
-
-
 def _attend(q, k, v, *, causal: bool, window=None, train: bool = False):
     """Attention of a whole sequence from position 0: the differentiable
     online-softmax scan in training, the prefill kernel otherwise."""
@@ -426,6 +418,36 @@ def _proj(x, p, name, bias, full: int, ax):
     return (y if b is None else y + enter(b, ax)), False
 
 
+def _kv_for(t, a: int, b: int, H: int, K: int, klo: int = 0):
+    """The kv heads that query heads [a, b) use, from ``t`` (B, T, Kt, d),
+    which holds kv heads [klo, klo + Kt): a slice where each of them
+    serves as many of the queries (``t`` itself where that is all of
+    them), else one kv head per query."""
+    G = H // K
+    lo, hi = a // G, (b - 1) // G + 1
+    per = (b - a) // (hi - lo)
+    if all((i - a) // per == i // G - lo for i in range(a, b)) \
+            and per * (hi - lo) == b - a:
+        if (lo - klo, hi - klo) == (0, t.shape[2]):
+            return t
+        return t[:, :, lo - klo:hi - klo]
+    idx = torch.tensor([i // G - klo for i in range(a, b)], device=t.device)
+    return t.index_select(2, idx)
+
+
+def _wo(p, o, ax, prefix=""):
+    """The attention output ``o`` (B, S, heads, dv) of this rank's query
+    heads through ``wo``'s rows, summed over "model"; where every head is
+    here (its columns split a head), ``wo``'s rows take their columns."""
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, -1)
+    wo = p[prefix + "wo"]
+    if o.shape[-1] != wo.shape[0]:
+        lo_c, hi_c = ax.block(o.shape[-1])
+        o = o[..., lo_c:hi_c]
+    return leave(o @ wo, ax)
+
+
 def _heads(cfg, p, h, src, positions, ax, *, prefix="", causal, window,
            train, rope_on):
     """Attention of a whole sequence on this model rank's query heads (on
@@ -438,7 +460,9 @@ def _heads(cfg, p, h, src, positions, ax, *, prefix="", causal, window,
     over "model" and the heads its queries use taken; where its query
     columns split a head, q is gathered too and every head computed, and
     ``wo``'s rows take their columns of the result.  Returns (out, (k,
-    v))."""
+    v)): the keys and values for the cache (RoPE applied; outside
+    training), every kv head or, where this rank's kv columns are its
+    block of whole kv heads, that block."""
     B, S, _ = h.shape
     T = src.shape[1]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -459,53 +483,148 @@ def _heads(cfg, p, h, src, positions, ax, *, prefix="", causal, window,
     if k_split and K % ax.n == 0 and H % ax.n == 0:
         k = k.reshape(B, T, K // ax.n, hd)
         v = v.reshape(B, T, K // ax.n, hd)
+        if rope_on:
+            k = rope(k, positions, cfg.rope_theta)
+        kv = k, v
     else:
         if k_split or v_split:
             note(ctx, f"{K} kv heads on model={ax.n}: k and v gathered over "
                  "'model', each rank takes the kv heads of its queries")
-        k = (gather(k, -1, ax) if k_split else k).reshape(B, T, K, hd)
-        v = (gather(v, -1, ax) if v_split else v).reshape(B, T, K, hd)
-        G = H // K
-        lo, hi = a // G, (b - 1) // G + 1
-        per = (b - a) // (hi - lo)
-        if all((i - a) // per == i // G - lo for i in range(a, b)) \
-                and per * (hi - lo) == b - a:
-            k, v = k[:, :, lo:hi], v[:, :, lo:hi]
-        else:
-            idx = torch.tensor([i // G for i in range(a, b)],
-                               device=k.device)
-            k, v = k.index_select(2, idx), v.index_select(2, idx)
+        kc = (gather(k, -1, ax) if k_split else k).reshape(B, T, K, hd)
+        vc = (gather(v, -1, ax) if v_split else v).reshape(B, T, K, hd)
+        k, v = _kv_for(kc, a, b, H, K), _kv_for(vc, a, b, H, K)
+        if rope_on:  # after the selection, in the order training takes
+            # its gradients in; the cache's every kv head apart
+            kr = rope(k, positions, cfg.rope_theta)
+            kc = kr if k is kc else (
+                kc if train else rope(kc, positions, cfg.rope_theta))
+            k = kr
+        kv = kc, vc
     q = q.reshape(B, S, b - a, hd)
     if rope_on:
         q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
     o = _attend(q, k, v, causal=causal, window=window, train=train)
-    o = o.reshape(B, S, (b - a) * hd)
-    wo = p[prefix + "wo"]
-    if o.shape[-1] != wo.shape[0]:  # every head here: wo's rows' columns
-        lo_c, hi_c = ax.block(H * hd)
-        o = o[..., lo_c:hi_c]
-    return leave(o @ wo, ax), (k, v)
+    return _wo(p, o, ax, prefix), kv
 
 
-def _xattn_cross(cfg, p, x, *, enc_out=None, cached_kv=None, train=False):
+def _decode_q(cfg, p, h, ax, prefix=""):
+    """The one token's queries (B, 1, b - a, hd) of this rank's heads [a,
+    b) (every head where its columns split one), no RoPE, and (a, b)."""
+    B = h.shape[0]
+    H, hd = cfg.n_heads, cfg.hd
+    bias = cfg.qkv_bias and not prefix and "bq"
+    q, _ = _proj(enter(h, ax), p, prefix + "wq", bias, H * hd, ax)
+    if H % ax.n:
+        note(f"attention/{prefix or 'self'}", f"{H} query heads on model="
+             f"{ax.n}: q, k and v gathered over 'model', every head "
+             "computed on each rank")
+        q = gather(q, -1, ax)
+        a, b = 0, H
+    else:
+        a, b = ax.block(H)
+    return q.reshape(B, 1, b - a, hd), (a, b)
+
+
+def _decode_kv(cfg, p, h, ax):
+    """The one token's k and v (B, 1, K, hd) over every kv head (gathered
+    over "model" where this rank holds a block of the columns: the tail
+    and a seq-split cache hold every kv head), no RoPE."""
+    B = h.shape[0]
+    K, hd = cfg.n_kv_heads, cfg.hd
+    hk = enter(h, ax)
+    out = []
+    for name in ("k", "v"):
+        t, split = _proj(hk, p, "w" + name, cfg.qkv_bias and "b" + name,
+                         K * hd, ax)
+        out.append((gather(t, -1, ax) if split else t).reshape(B, 1, K, hd))
+    return out
+
+
+def _kv_heads(t, want: int, K: int):
+    """``t`` (B, T, Kt, hd), every kv head or this model rank's block of
+    them, as the ``want`` heads a cache block holds (every one, or the
+    rank's block)."""
+    if t.shape[2] == want:
+        return t
+    ax = model_axis()
+    if want == K:
+        return gather(t, 2, ax)
+    lo, hi = ax.block(K)
+    return t[:, :, lo:hi]
+
+
+def _kv_lo(t, K: int) -> int:
+    """The first kv head a cache block ``t`` (B, T, Kt, hd) holds."""
+    return 0 if t.shape[2] == K else model_axis().block(K)[0]
+
+
+def _seq_layout(t, full: int | None):
+    """(lo, n, split) of a cache block ``t``'s positions (dimension 1):
+    the first global position it holds, the cache's length and whether
+    the positions are split over "model"."""
+    lo, hi = cache_seq_block(t.shape[1], full)
+    n = full if full is not None else t.shape[1]
+    return lo, n, hi - lo < n
+
+
+def _put(block, lo: int, start: int, t, dim: int = 1) -> None:
+    """Write ``t``'s positions ``start ..`` (along ``dim``) into ``block``,
+    a cache's positions ``lo .. lo + block.shape[dim] - 1``: those of them
+    it holds."""
+    a = max(start, lo)
+    b = min(start + t.shape[dim], lo + block.shape[dim])
+    if a < b:
+        block.narrow(dim, a - lo, b - a).copy_(t.narrow(dim, a - start,
+                                                        b - a))
+
+
+def _combined(q, H: int, ab, ax, partial):
+    """Decode attention over a cache split over "model" along its
+    positions: every query head (``q``, this rank's heads ``ab``, gathered
+    over "model" where that is a block of them), each rank's online-softmax
+    partial over its positions (``partial(q)``), combined by
+    ``flash_decode_psum``; returns this rank's heads of the result."""
+    a, b = ab
+    if b - a < H:
+        q = gather(q, 2, ax)
+    num, den, m = partial(q)
+    return flash_decode_psum(num, den, m, "model").to(q.dtype)[:, :, a:b]
+
+
+def _ring_len(cfg, cache_len: int | None) -> int | None:
+    """A ``local_attn`` ring's slots for a cache of ``cache_len``."""
+    if cache_len is None:
+        return None
+    return min(cache_len, cfg.window or cache_len)
+
+
+def _xattn_cross(cfg, p, x, *, enc_out=None, cached_kv=None, enc_len=None,
+                 train=False):
     """Cross-attention sub-block of an ``xattn`` block: queries from x,
     keys and values from the encoder's output ``enc_out`` (full attention
     of the whole sequence, queries fewer than keys) or from the cache
-    (``cached_kv``: one decode step over every cached slot, plain).
-    Returns (x, (k, v))."""
-    B, S, _ = x.shape
+    (``cached_kv``: one decode step over every cached slot, of
+    ``enc_len``; split over "model" along its positions, a partial each
+    rank combines).  Returns (x, (k, v))."""
     H, hd = cfg.n_heads, cfg.hd
     h = rms_norm(x, p["normx"], cfg.norm_eps)
+    ax = tp_axis(p["x_wq"].shape[-1], H * hd)
     if cached_kv is None:
-        o, kv = _heads(cfg, p, h, enc_out, None,
-                       tp_axis(p["x_wq"].shape[-1], H * hd), prefix="x_",
+        o, kv = _heads(cfg, p, h, enc_out, None, ax, prefix="x_",
                        causal=False, window=None, train=train, rope_on=False)
         return x + o, kv
-    q = (h @ p["x_wq"]).reshape(B, S, H, hd)
+    q, ab = _decode_q(cfg, p, h, ax, prefix="x_")
     k, v = cached_kv
-    o = decode_attention(q, k, v, k.shape[1])
-    return x + o.reshape(B, S, -1) @ p["x_wo"], (k, v)
+    lo, n, split = _seq_layout(k, enc_len)
+    if split:
+        o = _combined(q, H, ab, ax, lambda qa: decode_attention(
+            qa, k, v, n, offset=lo))
+    else:
+        klo = _kv_lo(k, cfg.n_kv_heads)
+        o = decode_attention(q, _kv_for(k, *ab, H, cfg.n_kv_heads, klo),
+                             _kv_for(v, *ab, H, cfg.n_kv_heads, klo),
+                             k.shape[1])
+    return x + _wo(p, o, ax, "x_"), (k, v)
 
 
 def _mlp_res(cfg, p, x):
@@ -523,9 +642,12 @@ def _ffn_res(cfg, kind, p, x):
     return _mlp_res(cfg, p, x), None
 
 
-def _block_prefill(cfg, kind, p, x, positions, cache, enc_out=None):
+def _block_prefill(cfg, kind, p, x, positions, cache, enc_out=None,
+                   lens=(None, None)):
     """The prompt through one block; fills ``cache`` in place (an
-    ``xattn`` block's ``xk``/``xv`` from ``enc_out``)."""
+    ``xattn`` block's ``xk``/``xv`` from ``enc_out``): the positions and
+    kv heads its blocks hold, under a mesh (``lens``: the cache's and the
+    encoder context's lengths, for a cache split along its positions)."""
     if kind == "ssm":
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         o, (hs, conv) = mamba2_forward(cfg, p, h, return_state=True)
@@ -538,14 +660,20 @@ def _block_prefill(cfg, kind, p, x, positions, cache, enc_out=None):
         cache["h"].copy_(hs)
         cache["conv"].copy_(conv)
         return _mlp_res(cfg, p, x + o)
+    K = cfg.n_kv_heads
     if kind == "local_attn":
-        x, (k, v) = _attn_block(cfg, p, x, positions, window=cfg.window)
+        x, kv = _attn_block(cfg, p, x, positions, window=cfg.window)
         # ring buffer: keep the last W positions, slot = absolute pos % W
-        W = cache["k"].shape[1]
-        S = k.shape[1]
-        take = torch.arange(max(0, S - W), S, device=k.device)
-        cache["k"][:, take % W] = k[:, take].to(cache["k"].dtype)
-        cache["v"][:, take % W] = v[:, take].to(cache["v"].dtype)
+        lo, W, _ = _seq_layout(cache["k"], _ring_len(cfg, lens[0]))
+        S = kv[0].shape[1]
+        first = max(0, S - W)
+        s0 = first % W
+        n1 = min(S - first, W - s0)  # up to the ring's end, then from 0
+        for name, t in zip("kv", kv):
+            c = cache[name]
+            t = _kv_heads(t, c.shape[2], K)
+            _put(c, lo, s0, t[:, first:first + n1])
+            _put(c, lo, 0, t[:, first + n1:])
         return _mlp_res(cfg, p, x)
     x, kv = _attn_block(cfg, p, x, positions)
     names = (("ckv", "tckv"), ("kr", "tkr")) if cfg.attn_kind == "mla" \
@@ -554,22 +682,33 @@ def _block_prefill(cfg, kind, p, x, positions, cache, enc_out=None):
     Tt = cache[names[0][1]].shape[1]
     base = S - ((S - 1) % Tt + 1)  # the tail keeps 1..Tt positions
     for (main, tail), t in zip(names, kv):
-        cache[main][:, :base] = t[:, :base]
-        cache[tail][:, :S - base] = t[:, base:]
+        m = cache[main]
+        t_main = t_tail = t
+        if cfg.attn_kind != "mla":  # the tail holds every kv head
+            t_main, t_tail = _kv_heads(t, m.shape[2], K), _kv_heads(t, K, K)
+        _put(m, _seq_layout(m, lens[0])[0], 0, t_main[:, :base])
+        cache[tail][:, :S - base] = t_tail[:, base:]
     if kind == "xattn":
-        x, (xk, xv) = _xattn_cross(cfg, p, x, enc_out=enc_out)
-        cache["xk"][:, :xk.shape[1]] = xk
-        cache["xv"][:, :xv.shape[1]] = xv
+        x, kv = _xattn_cross(cfg, p, x, enc_out=enc_out)
+        n = lens[1] if lens[1] is not None else enc_out.shape[1]
+        for name, t in zip(("xk", "xv"), kv):
+            c = cache[name]
+            _put(c, _seq_layout(c, n)[0], 0, _kv_heads(t, c.shape[2], K))
     return _ffn_res(cfg, kind, p, x)[0]
 
 
-def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
+def _block_decode(cfg, kind, p, x, pos: int, positions, cache,
+                  lens=(None, None)):
     """One token (x: (B,1,D)) at absolute position ``pos`` through one
     block.  ``attn``, ``moe`` and ``xattn``: an O(1) write into the tail
     (MLA: the latent's); main is read only; an ``xattn`` block then
     attends the cached encoder output.  ``local_attn``: a write into ring
     slot pos % W.  ``ssm`` and ``rglru``: the state and the conv carry are
-    overwritten."""
+    overwritten.  Under a mesh on this rank's heads and cache blocks: the
+    new token's k and v are gathered to every kv head for the replicated
+    tail, and a cache split along its positions (``lens``: its and the
+    encoder context's lengths) is attended by every query head, each
+    rank's partial combined (the tail counted on model rank 0)."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind == "ssm":
         o, hs, conv = mamba2_decode_step(cfg, p, h, cache["h"], cache["conv"])
@@ -583,41 +722,108 @@ def _block_decode(cfg, kind, p, x, pos: int, positions, cache):
         cache["conv"].copy_(conv)
         return _mlp_res(cfg, p, x + o)
     if cfg.attn_kind == "mla":
+        lo, _, split = _seq_layout(cache["ckv"], lens[0])
         o, _, _ = mla_decode_two_tier(cfg, p, h, pos, cache["ckv"],
                                       cache["kr"], cache["tckv"],
-                                      cache["tkr"])
+                                      cache["tkr"],
+                                      offset=lo if split else None)
         return _ffn_res(cfg, kind, p, x + o)[0]
-    q, k, v = _qkv(cfg, p, h, positions)
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    ax = tp_axis(p["wq"].shape[-1], H * cfg.hd)
+    q, ab = _decode_q(cfg, p, h, ax)
+    k, v = _decode_kv(cfg, p, h, ax)
+    if _use_rope(cfg):
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     if kind == "local_attn":
-        W = cache["k"].shape[1]
-        cache["k"][:, pos % W] = k[:, 0]
-        cache["v"][:, pos % W] = v[:, 0]
+        ck, cv = cache["k"], cache["v"]
+        lo, W, split = _seq_layout(ck, _ring_len(cfg, lens[0]))
+        _put(ck, lo, pos % W, _kv_heads(k, ck.shape[2], K))
+        _put(cv, lo, pos % W, _kv_heads(v, cv.shape[2], K))
         # every resident slot is within the window by construction
-        o = decode_attention(q, cache["k"], cache["v"], min(pos + 1, W))
-        x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
-        return _mlp_res(cfg, p, x)
-    slot = pos % cache["tk"].shape[1]
-    cache["tk"][:, slot] = k[:, 0]
-    cache["tv"][:, slot] = v[:, 0]
-    o = decode_attention_two_tier(q, cache["k"], cache["v"], cache["tk"],
-                                  cache["tv"], pos)
-    x = x + o.reshape(x.shape[0], 1, -1) @ p["wo"]
+        n = min(pos + 1, W)
+        if split:
+            o = _combined(q, H, ab, ax, lambda qa: decode_attention(
+                qa, ck, cv, n, offset=lo))
+        else:
+            klo = _kv_lo(ck, K)
+            o = decode_attention(q, _kv_for(ck, *ab, H, K, klo),
+                                 _kv_for(cv, *ab, H, K, klo), n)
+        return _mlp_res(cfg, p, x + _wo(p, o, ax))
+    tk, tv, mk, mv = (cache[n] for n in ("tk", "tv", "k", "v"))
+    slot = pos % tk.shape[1]
+    tk[:, slot] = k[:, 0]
+    tv[:, slot] = v[:, 0]
+    lo, _, split = _seq_layout(mk, lens[0])
+    if split:
+        o = _combined(q, H, ab, ax, lambda qa: decode_attention_two_tier(
+            qa, mk, mv, tk, tv, pos, offset=lo,
+            with_tail=model_axis().j == 0))
+    else:
+        klo = _kv_lo(mk, K)
+        o = decode_attention_two_tier(
+            q, _kv_for(mk, *ab, H, K, klo), _kv_for(mv, *ab, H, K, klo),
+            _kv_for(tk, *ab, H, K), _kv_for(tv, *ab, H, K), pos)
+    x = x + _wo(p, o, ax)
     if kind == "xattn":
-        x = _xattn_cross(cfg, p, x, cached_kv=(cache["xk"], cache["xv"]))[0]
+        x = _xattn_cross(cfg, p, x, cached_kv=(cache["xk"], cache["xv"]),
+                         enc_len=lens[1])[0]
     return _ffn_res(cfg, kind, p, x)[0]
 
 
-def _layers(cfg, params, cache):
+def merge_tail(cache: dict, pos: int, *, cache_len: int | None = None
+               ) -> None:
+    """Before the decode step at ``pos``, a multiple of the tail's length
+    Tt: the full tail of every two-tier cache (``tk``/``tv``, MLA's
+    ``tckv``/``tkr``) is written into main at positions ``pos - Tt ..
+    pos - 1``, in place.  Under a mesh each rank writes what its block of
+    main holds of the replicated tail: its positions where the rules split
+    main along them (``cache_len``: main's length; they may straddle two
+    ranks' blocks), its kv heads where they split those."""
+    for k, t in cache.items():
+        leaf = k.split("/")[-1]
+        main_leaf = TAIL_TO_MAIN.get(leaf)
+        if main_leaf is None:
+            continue
+        tt = t.shape[2]  # (reps, B, Tt, ...)
+        if not (pos > 0 and pos % tt == 0):
+            return
+        main = cache[k[: -len(leaf)] + main_leaf]
+        if t.ndim == 5 and main.shape[3] != t.shape[3]:  # kv heads split
+            t = t[:, :, :, slice(*model_axis().block(t.shape[3]))]
+        lo, _ = cache_seq_block(main.shape[2], cache_len)
+        _put(main, lo, pos - tt, t, dim=2)
+
+
+# a two-tier cache's tail -> its main (an SSM or RG-LRU state is
+# overwritten every step and a local attention ring is written in place:
+# neither has a tail)
+TAIL_TO_MAIN = {"tk": "k", "tv": "v", "tckv": "ckv", "tkr": "kr"}
+
+
+def _layer(gp, prefix: str, layer: int, plans=None):
+    """Layer ``layer``'s parameters of the unbound stack ``gp`` (name ->
+    layers), under ``prefix``; with ``plans`` (under a mesh) each block
+    gathered by its plan first (FSDP, the router's experts)."""
+    p = {k: t[layer] for k, t in sub(gp, prefix).items()}
+    if plans:
+        p = {k: gather_block(t, plans[f"{prefix}/{k}"], current_mesh(),
+                             offset=1) for k, t in p.items()}
+    return p
+
+
+def _layers(cfg, params, cache, plans=None):
     """(kind, layer params, layer cache) of every block, in stack order: the
-    reference's scan over the stacked "layers" axis as a loop of views."""
+    reference's scan over the stacked "layers" axis as a loop of views
+    (``plans``: :func:`_layer`'s)."""
     for gi, (reps, pattern) in enumerate(cfg.groups()):
         gp = {k: t.unbind(0) for k, t in sub(params, f"g{gi}").items()}
         gc = {k: t.unbind(0) for k, t in sub(cache, f"g{gi}").items()}
+        gp = {f"g{gi}/{k}": t for k, t in gp.items()}
         for layer in range(reps):
             loop_mark(f"g{gi}", layer, reps)  # for a cost counter, if any
             for pj, kind in enumerate(pattern):
-                yield (kind,
-                       {k: t[layer] for k, t in sub(gp, f"p{pj}").items()},
+                yield (kind, _layer(gp, f"g{gi}/p{pj}", layer, plans),
                        {k: t[layer] for k, t in sub(gc, f"p{pj}").items()})
         loop_mark(f"g{gi}", reps, reps)
 
@@ -628,8 +834,8 @@ def _layers(cfg, params, cache):
 
 def _embed(cfg, params, tokens):
     """Token embeddings in the compute dtype.  Where ``embed/tok`` holds
-    this model rank's rows of the vocabulary (training under tensor
-    parallelism), each rank looks up the ids it holds, zeros the rest, and
+    this model rank's rows of the vocabulary (under tensor parallelism),
+    each rank looks up the ids it holds, zeros the rest, and
     the lookups are summed over "model"."""
     emb, ids = params["embed/tok"], tokens.reshape(-1)
     ax = tp_axis(emb.shape[0], cfg.vocab)
@@ -699,10 +905,11 @@ def _encode(cfg, params, frames, *, train: bool = False, plans=None):
                                  ("enc_attn",), x, positions, aux,
                                  plans=plans)
     else:
-        gp = {k: t.unbind(0) for k, t in sub(params, "enc/g0/p0").items()}
+        gp = {f"enc/g0/p0/{k}": t.unbind(0)
+              for k, t in sub(params, "enc/g0/p0").items()}
         for layer in range(cfg.enc_layers):
             loop_mark("enc/g0", layer, cfg.enc_layers)
-            p = {k: t[layer] for k, t in gp.items()}
+            p = _layer(gp, "enc/g0/p0", layer, plans)
             x = _mlp_res(cfg, p, _attn_block(cfg, p, x, positions,
                                              causal=False)[0])
         loop_mark("enc/g0", cfg.enc_layers, cfg.enc_layers)
@@ -728,6 +935,25 @@ def _prepare_inputs(cfg, params, batch, *, train: bool = False,
                           plans=plans)
         x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
     return x, positions, enc_out, img
+
+
+def _planner(specs):
+    """``plans(rules, mesh)``: :func:`~repro_torch.runtime.partition
+    .block_plans` of ``specs``, kept for the last (rules, mesh)."""
+    last: list = [None, None, None]
+
+    def plans(rules, mesh):
+        if last[0] is not rules or last[1] is not mesh:
+            last[:] = [rules, mesh, block_plans(specs, rules, mesh)]
+        return last[2]
+    return plans
+
+
+def _gather_top(specs, params, plans, mesh):
+    """The parameters outside the layer stacks gathered by their plans
+    (the stacks are gathered a layer at a time)."""
+    return {k: v if specs[k].axes[:1] == ("layers",) else
+            gather_block(v, plans[k], mesh) for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -840,12 +1066,7 @@ def make_loss_fn(cfg: ModelConfig):
     """
     _check_ported(cfg)
     specs = param_specs(cfg)
-    last: list = [None, None, None]  # (rules, mesh, plans) of the last call
-
-    def plans_for(rules, mesh):
-        if last[0] is not rules or last[1] is not mesh:
-            last[:] = [rules, mesh, block_plans(specs, rules, mesh)]
-        return last[2]
+    plans_for = _planner(specs)
 
     def loss_fn(params, batch):
         params = cast_params(cfg, params)
@@ -853,9 +1074,7 @@ def make_loss_fn(cfg: ModelConfig):
         plans = None
         if mesh is not None and is_train_rules(rules):
             plans = plans_for(rules, mesh)
-            params = {k: v if specs[k].axes[:1] == ("layers",) else
-                      gather_block(v, plans[k], mesh)
-                      for k, v in params.items()}
+            params = _gather_top(specs, params, plans, mesh)
         x, positions, enc_out, img = _prepare_inputs(cfg, params, batch,
                                                      train=True, plans=plans)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -888,7 +1107,18 @@ def make_loss_fn(cfg: ModelConfig):
 # Public factories
 # ---------------------------------------------------------------------------
 
-def make_prefill_fn(cfg: ModelConfig):
+def _serving(specs, plans_for, params):
+    """Under a mesh and rules: ``(params with the top-level blocks
+    gathered, plans)``; otherwise ``(params, None)``."""
+    rules, mesh = current_rules(), current_mesh()
+    if mesh is None or rules is None:
+        return params, None
+    plans = plans_for(rules, mesh)
+    return _gather_top(specs, params, plans, mesh), plans
+
+
+def make_prefill_fn(cfg: ModelConfig, *, cache_len: int | None = None,
+                    enc_len: int | None = None):
     """Returns prefill(params, batch, cache0) -> (last_logits, cache0).
 
     ``params`` are cast by :func:`cast_params`.  ``batch["inputs"]``:
@@ -897,37 +1127,59 @@ def make_prefill_fn(cfg: ModelConfig):
     encoder-decoder model's ``frames`` (B, S_enc, D) are encoded and
     cached for cross-attention.  ``cache0`` (zeros, sized by
     :func:`init_cache_specs`) is filled in place and returned.
+
+    Under ``use_rules(rules, mesh)`` (the serving rules) the parameters,
+    the batch and the cache are this rank's blocks (``explicit_spec``):
+    each layer's blocks are gathered by their plans (the ``/wsharded``
+    rules' FSDP, the router), attention, the MLPs, the SSM and RG-LRU
+    blocks run on this rank's heads and channels (the kernels on the
+    rank's shapes), and the logits returned are the rank's block of the
+    vocabulary.  ``cache_len`` and ``enc_len``, the cache's and the
+    encoder context's lengths, place a cache that the rules split along
+    its positions (the encoder's is the frames' by default).
     """
     _check_ported(cfg)
+    specs = param_specs(cfg)
+    plans_for = _planner(specs)
 
     @torch.no_grad()
     def prefill_fn(params, batch, cache0):
-        x, positions, enc_out, _ = _prepare_inputs(cfg, params, batch)
-        for kind, p, c in _layers(cfg, params, cache0):
-            x = _block_prefill(cfg, kind, p, x, positions, c, enc_out)
+        params, plans = _serving(specs, plans_for, params)
+        x, positions, enc_out, _ = _prepare_inputs(cfg, params, batch,
+                                                   plans=plans)
+        lens = (cache_len, enc_len)
+        for kind, p, c in _layers(cfg, params, cache0, plans):
+            x = _block_prefill(cfg, kind, p, x, positions, c, enc_out, lens)
         return _logits(cfg, params, x[:, -1:]), cache0
 
     return prefill_fn
 
 
-def make_decode_fn(cfg: ModelConfig):
+def make_decode_fn(cfg: ModelConfig, *, cache_len: int | None = None,
+                   enc_len: int | None = None):
     """Returns decode(params, cache, tokens (B,1), pos) -> (logits, cache).
 
     ``params`` are cast by :func:`cast_params`; ``pos`` is the absolute
     position of ``tokens`` (a Python int; a VLM's counts its patches); the
-    cache is written in place and returned.
+    cache is written in place and returned.  A full tail is merged into
+    main by :func:`merge_tail` before the step, by the caller.  Under a
+    mesh, as :func:`make_prefill_fn`: this rank's blocks in and out.
     """
     _check_ported(cfg)
+    specs = param_specs(cfg)
+    plans_for = _planner(specs)
 
     @torch.no_grad()
     def decode_fn(params, cache, tokens, pos: int):
+        params, plans = _serving(specs, plans_for, params)
         x = _embed(cfg, params, tokens)
         positions = torch.full((1,), pos, device=x.device)
         if cfg.is_encdec:
             x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(
                 x.dtype)
-        for kind, p, c in _layers(cfg, params, cache):
-            x = _block_decode(cfg, kind, p, x, pos, positions, c)
+        lens = (cache_len, enc_len)
+        for kind, p, c in _layers(cfg, params, cache, plans):
+            x = _block_decode(cfg, kind, p, x, pos, positions, c, lens)
         return _logits(cfg, params, x), cache
 
     return decode_fn

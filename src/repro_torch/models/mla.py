@@ -16,7 +16,10 @@ Under the training rules with tensor parallelism, :func:`mla_attention`
 splits ``wq_b``, ``wkv_b`` and ``wo`` by whole heads over "model" (the
 down-projections, norms and the shared rope key stay whole); where a
 rank's columns split a head, the up-projections are gathered over "model"
-and every head computed, ``wo``'s rows taking their columns.
+and every head computed, ``wo``'s rows taking their columns.  Serving
+under a mesh, prefill does the same, and the absorbed decode runs on the
+rank's heads (:func:`mla_decode_two_tier`), over a latent cache split
+along its positions a partial each rank combines.
 
 Params:
     wq_a (D, q_lora)        q_norm (q_lora,)        wq_b (q_lora, H*(dn+dr))
@@ -28,9 +31,11 @@ from __future__ import annotations
 
 import torch
 
-from ..runtime.partition import enter, gather, leave, tp_axis
+from ..runtime.collectives import flash_decode_psum
+from ..runtime.partition import enter, gather, leave, model_axis, tp_axis
 from ..runtime.sharding import note
-from .attention import blockwise_attention, prefill_attention
+from .attention import (blockwise_attention, prefill_attention,
+                        softmax_partial)
 from .layers import f32_einsum, rms_norm, rope
 
 __all__ = ["mla_project_qkv", "mla_attention", "mla_decode",
@@ -76,10 +81,9 @@ def mla_attention(cfg, p, x, positions, *, train: bool = False):
     differentiable :func:`blockwise_attention`; otherwise the kernel.
 
     A region over this model rank's heads where ``wq_b`` holds its block
-    (training under tensor parallelism; on ``UNIT`` otherwise, every
-    head): the latent, the query's down-projection and the rope key
-    computed whole, ``wq_b``/``wkv_b`` column-parallel and ``wo``
-    row-parallel."""
+    (under tensor parallelism; on ``UNIT`` otherwise, every head): the
+    latent, the query's down-projection and the rope key computed whole,
+    ``wq_b``/``wkv_b`` column-parallel and ``wo`` row-parallel."""
     B, S, _ = x.shape
     H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                      cfg.v_head_dim)
@@ -156,41 +160,101 @@ def mla_decode(cfg, p, x, pos: int, cache_ckv, cache_kr, length: int):
     return out, cache_ckv, cache_kr
 
 
-def mla_decode_two_tier(cfg, p, x, pos: int, main_ckv, main_kr, tckv, tkr):
+def _decode_heads(cfg, p, cq, positions, ax):
+    """The one token's query heads [a, b) of this model rank (every head
+    where its columns split one): the absorbed query q_lat (B,1,Hl,r)
+    float32, the rope query (B,1,Hl,dr), the heads' value up-projection
+    w_uv (r,Hl,dv) and (a, b).  ``wq_b`` and ``wkv_b`` hold the rank's
+    columns (or are whole) as in :func:`mla_attention`."""
+    H, dn, dr, dv, r = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
+                        cfg.v_head_dim, cfg.kv_lora_rank)
+    B = cq.shape[0]
+    q = enter(cq, ax) @ p["wq_b"]
+    w = p["wkv_b"]
+    kv_split = ax.split(w.shape[-1], H * (dn + dv))
+    w = w if kv_split else enter(w, ax)
+    if H % ax.n:  # this rank's columns split a head: every head here
+        note("attention/mla", f"{H} heads on model={ax.n}: the "
+             "up-projections gathered over 'model', every head computed on "
+             "each rank")
+        q = gather(q, -1, ax)
+        w = gather(w, -1, ax) if kv_split else w
+        a, b = 0, H
+    else:
+        a, b = ax.block(H)
+        if not kv_split:
+            w = w[..., a * (dn + dv):b * (dn + dv)]
+    q = q.reshape(B, 1, b - a, dn + dr)
+    qn, qr = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+    w = w.reshape(r, b - a, dn + dv)
+    return (f32_einsum("bshn,rhn->bshr", qn, w[..., :dn]), qr, w[..., dn:],
+            (a, b))
+
+
+def mla_decode_two_tier(cfg, p, x, pos: int, main_ckv, main_kr, tckv, tkr,
+                        *, offset: int | None = None):
     """Absorbed MLA decode over a two-tier latent cache.
 
     main_* (B,Tm,·) is read only; t* (B,Tt,·) is the append buffer, written
     in place at slot pos % Tt.  Invariant: positions [0, pos - pos % Tt) in
     main, the rest in the tail.  Returns (out, tckv, tkr).
+
+    On this model rank's heads where ``wq_b`` holds its block (serving
+    under a mesh; on ``UNIT`` otherwise, every head): the latent and the
+    rope key whole (the tail is replicated), the absorbed query, the value
+    up-projection and ``wo``'s rows on the rank's heads, the output summed
+    over "model".  With ``offset``, main is this rank's block of positions
+    ``offset ..`` of a latent cache split over "model": the absorbed and
+    rope queries are gathered to every head, each rank's online-softmax
+    partial over its positions (the tail counted on model rank 0) is
+    combined by ``flash_decode_psum``, and the rank keeps its heads.
     """
     B = x.shape[0]
-    H, dn, dv = cfg.n_heads, cfg.nope_head_dim, cfg.v_head_dim
+    H, dv = cfg.n_heads, cfg.v_head_dim
     Tm, Tt = main_ckv.shape[1], tckv.shape[1]
     n_tail = pos % Tt
     main_len = pos - n_tail
     positions = torch.full((1,), pos, device=x.device)
-    q, c_kv_new, k_r_new = mla_project_qkv(cfg, p, x, positions)
-    qn, qr = q[..., :dn], q[..., dn:]
+    ax = tp_axis(p["wq_b"].shape[-1], H * (cfg.nope_head_dim
+                                         + cfg.rope_head_dim))
+    cq, c_kv_new, k_r_new = _latent(cfg, p, x, positions)
+    q_lat, qr, w_uv, (a, b) = _decode_heads(cfg, p, cq, positions, ax)
     tckv[:, n_tail] = c_kv_new[:, 0]
     tkr[:, n_tail] = k_r_new[:, 0]
-    q_lat, w_uv = _absorbed(cfg, p, qn)
     q_lat = q_lat.to(main_ckv.dtype)
     qr_l = qr.to(main_kr.dtype)
 
-    def scores(ckv, kr):
+    def scores(q_lat, qr_l, ckv, kr):
         return (f32_einsum("bshr,btr->bhst", q_lat, ckv)
                 + f32_einsum("bshd,btd->bhst", qr_l, kr)) * _scale(cfg)
 
     dev = x.device
-    sm = torch.where(torch.arange(Tm, device=dev) < main_len,
-                     scores(main_ckv, main_kr), _NEG)   # (B,H,1,Tm)
-    st = torch.where(torch.arange(Tt, device=dev) <= n_tail,
-                     scores(tckv, tkr), _NEG)           # (B,H,1,Tt)
-    p_attn = torch.softmax(torch.cat([sm, st], dim=-1), dim=-1)
-    pm = p_attn[..., :Tm].to(main_ckv.dtype)
-    pt = p_attn[..., Tm:].to(tckv.dtype)
-    o_lat = (f32_einsum("bhst,btr->bshr", pm, main_ckv)
-             + f32_einsum("bhst,btr->bshr", pt, tckv))
+    if offset is not None:
+        if b - a < H:
+            q_lat, qr_l = gather(q_lat, 2, ax), gather(qr_l, 2, ax)
+        parts = [(main_ckv, main_kr, torch.arange(
+            offset, offset + Tm, device=dev) < main_len)]
+        if model_axis().j == 0:  # the replicated tail, counted once
+            parts.append((tckv, tkr, torch.arange(Tt, device=dev) <= n_tail))
+        num, den, m = softmax_partial(    # scores (B,H,1,t)
+            [(scores(q_lat, qr_l, ckv, kr), ckv, valid)
+             for ckv, kr, valid in parts], "bhst,btr->bshr")
+        o_lat = flash_decode_psum(num, den.transpose(1, 2),
+                                  m.transpose(1, 2), "model")[:, :, a:b]
+    else:
+        sm = torch.where(torch.arange(Tm, device=dev) < main_len,
+                         scores(q_lat, qr_l, main_ckv, main_kr), _NEG)
+        st = torch.where(torch.arange(Tt, device=dev) <= n_tail,
+                         scores(q_lat, qr_l, tckv, tkr), _NEG)
+        p_attn = torch.softmax(torch.cat([sm, st], dim=-1), dim=-1)
+        pm = p_attn[..., :Tm].to(main_ckv.dtype)
+        pt = p_attn[..., Tm:].to(tckv.dtype)
+        o_lat = (f32_einsum("bhst,btr->bshr", pm, main_ckv)
+                 + f32_einsum("bhst,btr->bshr", pt, tckv))
     o = f32_einsum("bshr,rhv->bshv", o_lat.to(w_uv.dtype), w_uv)
-    out = o.reshape(B, 1, H * dv).to(x.dtype) @ p["wo"]
-    return out, tckv, tkr
+    o = o.reshape(B, 1, (b - a) * dv).to(x.dtype)
+    wo = p["wo"]
+    if o.shape[-1] != wo.shape[0]:  # every head here: wo's columns
+        lo, hi = ax.block(H * dv)
+        o = o[..., lo:hi]
+    return leave(o @ wo, ax), tckv, tkr

@@ -29,9 +29,10 @@ autograd reductions: the tokens and gates that enter the experts sum their
 partial cotangents over "model", and nothing else does, so the router's
 share through the load-balance loss is counted once.
 
-In training under the tensor-parallel rules the shared experts ``ws_*``
-are column- and row-parallel over "model" (:func:`~.layers.mlp`), and the
-router arrives whole (the trainer gathers its block before the layer).
+Under the tensor-parallel rules (training and serving) the shared experts
+``ws_*`` are column- and row-parallel over "model" (:func:`~.layers.mlp`),
+and the router arrives whole (its ("fsdp", "experts") block is gathered
+before the layer).
 The dense dispatch under a mesh whose batch is sharded (``tp=False``:
 the experts whole on every rank) takes the load-balance loss's means over
 the whole batch, as the reference's partitioned program computes them.
@@ -123,8 +124,8 @@ def _moe_mlp_shard_map(cfg, p, x: torch.Tensor, mesh, *,
     """Explicit expert parallelism on this rank.  x: (B, S, D), this rank's
     shard of the batch over the data axes, replicated over "model"; the
     routed experts' weights ``we_*`` are this model rank's E/n experts (the
-    router whole; the shared experts whole, or in training under tensor
-    parallelism this rank's block).  Returns (y (B, S, D), aux)."""
+    router whole; the shared experts whole, or under tensor parallelism
+    this rank's block).  Returns (y (B, S, D), aux)."""
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     shape = mesh_shape(mesh)

@@ -18,11 +18,14 @@ Block structure (Mamba-2):
     in_proj -> [z | xBC | dt]; causal depthwise conv on xBC; SSD(x, dt, A, B, C)
     -> gated RMSNorm(y * silu(z)) -> out_proj; +D*x skip per head.
 
-In training under the tensor-parallel rules the fused ``in_proj``'s
-columns are split over "model" as one block of z | xBC | dt, which
-straddles the parts: its output is gathered over "model", and each rank
-runs its own heads of x, z and dt (B and C whole), the gated norm's sum of
-squares all-reduced, and ``out_proj`` row-parallel over its heads' rows.
+Under the tensor-parallel rules (training and serving) the fused
+``in_proj``'s columns are split over "model" as one block of z | xBC | dt,
+which straddles the parts: its output is gathered over "model", and each
+rank runs its own heads of x, z and dt (B and C whole), the gated norm's
+sum of squares all-reduced, and ``out_proj`` row-parallel over its heads'
+rows.  The decode state ``h`` is the rank's heads; the conv carry, which
+the reference's layout replicates, is every channel's, from the gathered
+projection.
 """
 
 from __future__ import annotations
@@ -31,10 +34,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..runtime.partition import (UNIT, enter, gather, leave, psum_region,
-                                 tp_axis)
+from ..runtime.partition import enter, gather, leave, psum_region, tp_axis
 from ..runtime.sharding import note
-from .layers import causal_conv1d, f32_einsum, rms_norm
+from .layers import causal_conv1d, conv_carry, f32_einsum, rms_norm
 
 __all__ = ["ssd_chunked", "ssd_step", "mamba2_forward", "mamba2_decode_step"]
 
@@ -157,20 +159,21 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
     (B,S,H,P) layout; with ``train`` it is :func:`ssd_chunked` at
     ``cfg.ssm_chunk``, which autograd differentiates.
 
-    In training under tensor parallelism (``out_proj`` holding this model
-    rank's rows) the block is a region over "model" on the rank's heads
-    [a, b): ``in_proj``'s block of columns is multiplied and gathered (or,
-    held whole, multiplied whole); the rank's heads of x, z and dt, and B
-    and C whole, go through the conv and the scan; the gated norm's
-    variance sums the ranks' squares; ``out_proj``'s rows take their
-    channels.  Where the heads do not divide over "model" every head is
-    computed here and ``out_proj``'s rows take their columns.  Otherwise
-    the region is ``UNIT``'s: every head, the plain computation."""
+    Under tensor parallelism (``out_proj`` holding this model rank's rows)
+    the block is a region over "model" on the rank's heads [a, b):
+    ``in_proj``'s block of columns is multiplied and gathered (or, held
+    whole, multiplied whole); the rank's heads of x, z and dt, and B and C
+    whole, go through the conv and the scan; the gated norm's variance
+    sums the ranks' squares; ``out_proj``'s rows take their channels.
+    Where the heads do not divide over "model" every head is computed here
+    and ``out_proj``'s rows take their columns.  Otherwise the region is
+    ``UNIT``'s: every head, the plain computation.  The returned state is
+    the rank's heads, and the conv carry every channel's."""
     B, S, D = x.shape
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
     d_in = cfg.d_inner
-    ax = tp_axis(p["out_proj"].shape[0], d_in) if train else UNIT
+    ax = tp_axis(p["out_proj"].shape[0], d_in)
     hin = enter(x, ax)
     w = p["in_proj"]
     if ax.split(w.shape[-1], 2 * d_in + 2 * G * N + H):
@@ -190,10 +193,14 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
         a, b = ax.block(H)
     c0, c1 = a * P, b * P
     conv_w = enter(p["conv_w"], ax)
+    new_conv = None
     if b - a < H:  # this rank's channels of x, then B and C
+        if return_state:  # the carry of every channel
+            new_conv = conv_carry(xBC, cfg.ssm_conv)
         xBC = torch.cat([xBC[..., c0:c1], xBC[..., d_in:]], dim=-1)
         conv_w = torch.cat([conv_w[:, c0:c1], conv_w[:, d_in:]], dim=-1)
-    xBC, new_conv = causal_conv1d(xBC, conv_w)
+    xBC, carry = causal_conv1d(xBC, conv_w)
+    new_conv = carry if new_conv is None else new_conv
     xBC = F.silu(xBC)
     nl = c1 - c0
     xs = xBC[..., :nl].reshape(B, S, b - a, P)
@@ -231,21 +238,48 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
 
 
 def mamba2_decode_step(cfg, p, x, h, conv_state):
-    """One-token step.  x: (B,1,D); h: (B,H,N,P); conv_state: (B,K-1,convdim)."""
+    """One-token step.  x: (B,1,D); h: (B,H,N,P); conv_state:
+    (B,K-1,convdim).  Under tensor parallelism the in_proj output is
+    gathered and the conv runs on every channel (its carry replicated),
+    then the step on this rank's heads ``h`` (B,Hl,N,P), the gated norm's
+    variance summed over "model" and ``out_proj`` row-parallel."""
     B = x.shape[0]
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
-    zxbcdt = x @ p["in_proj"]
+    H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_groups
+    d_in = cfg.d_inner
+    ax = tp_axis(p["out_proj"].shape[0], d_in)
+    hin = enter(x, ax)
+    w = p["in_proj"]
+    if ax.split(w.shape[-1], 2 * d_in + 2 * G * N + H):
+        zxbcdt = gather(hin @ w, -1, ax)
+    else:
+        zxbcdt = hin @ enter(w, ax)
     z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
-    xBC, conv_state = causal_conv1d(xBC, p["conv_w"], conv_state)
+    xBC, conv_state = causal_conv1d(xBC, enter(p["conv_w"], ax), conv_state)
     xBC = F.silu(xBC)
     xs, Bm, C = _split_xbc(cfg, xBC)
-    xs = xs.reshape(B, H, P)
-    Bm = _broadcast_groups(cfg, Bm)[:, 0]
-    C = _broadcast_groups(cfg, C)[:, 0]
-    dt = F.softplus(dt.float() + p["dt_bias"].float())[:, 0]
-    A = -torch.exp(p["A_log"].float())
+    a, b = (0, H) if H % ax.n else ax.block(H)
+    c0, c1 = a * P, b * P
+    xs = xs[..., c0:c1].reshape(B, b - a, P)
+    Bm = _broadcast_groups(cfg, Bm)[:, 0, a:b]
+    C = _broadcast_groups(cfg, C)[:, 0, a:b]
+    dt = F.softplus(dt[..., a:b].float()
+                    + enter(p["dt_bias"], ax)[a:b].float())[:, 0]
+    A = -torch.exp(enter(p["A_log"], ax)[a:b].float())
     y, h = ssd_step(h, xs, dt, A, Bm, C)
-    y = y + xs.float() * p["D"].float()[None, :, None]
-    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], h, conv_state
+    y = y + xs.float() * enter(p["D"], ax)[a:b].float()[None, :, None]
+    y = y.reshape(B, 1, c1 - c0).to(x.dtype)
+    y = y * F.silu(z[..., c0:c1])
+    scale = enter(p["norm"], ax)[c0:c1]
+    if b - a == H:
+        y = rms_norm(y, scale, cfg.norm_eps)
+    else:  # the variance over all d_inner channels, summed over "model"
+        yf = y.float()
+        var = psum_region(yf.square().sum(dim=-1, keepdim=True), ax) / d_in
+        y = (yf * torch.rsqrt(var + cfg.norm_eps)
+             * (1.0 + scale.float())).to(y.dtype)
+    wo = p["out_proj"]
+    if c1 - c0 != wo.shape[0]:
+        lo, hi = ax.block(d_in)
+        y = y[..., lo - c0:hi - c0]
+    return leave(y @ wo, ax), h, conv_state

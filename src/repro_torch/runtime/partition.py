@@ -1,20 +1,23 @@
-"""Tensor parallelism and FSDP in training: the explicit counterparts of
-what GSPMD inserts into the reference's step.
+"""Tensor parallelism and FSDP on a mesh: the explicit counterparts of
+what GSPMD inserts into the reference's train, prefill and decode steps.
 
-Under the training rules each rank holds the reference's block of every
-parameter (:func:`~.sharding.explicit_spec`, which is ``logical_to_spec``
-there): its "fsdp" dimension over the data axes (over every axis under
-``tp=False``), its tensor-parallel dimensions ("heads", "kv_heads", "qkv",
-"ff", "vocab", "state" and the routed experts' "experts") over "model".
-The step computes on those blocks:
+Under the training rules and under the serving rules (``serve_rules``,
+their ``/wsharded`` form included) each rank holds the reference's block of
+every parameter (:func:`~.sharding.explicit_spec`, which is
+``logical_to_spec``): its "fsdp" dimension over the data axes (over every
+axis under ``tp=False``; over "data" for the ``/wsharded`` serving rules,
+none for the others), its tensor-parallel dimensions ("heads", "kv_heads",
+"qkv", "ff", "vocab", "state" and the routed experts' "experts") over
+"model".  The step computes on those blocks:
 
 * FSDP.  Before a layer runs, :func:`gather_block` all-gathers each of its
   parameters over every mesh axis of its block but the tensor-parallel
   ones (:func:`gather_plan`): the router's "experts" too, as the
   expert-parallel MoE reads the whole router.  The model code calls it
-  inside each remat unit, so the backward gathers again instead of keeping
-  whole weights.  Its backward reduce-scatters the cotangent as a mean over
-  the gathered axes.
+  inside each remat unit in training, so the backward gathers again
+  instead of keeping whole weights; its backward reduce-scatters the
+  cotangent as a mean over the gathered axes.  Prefill and decode gather
+  each layer's blocks before the layer, with no autograd.
 * Tensor parallelism.  A module whose weights hold this rank's block over
   "model" runs on it: a *region* begins with :func:`enter` (the identity;
   backward, the sum of the model ranks' partial cotangents) and ends with
@@ -30,6 +33,10 @@ The step computes on those blocks:
   Each module has one forward: off the mesh, or where its weights are
   whole, it runs its region on :data:`UNIT` (:func:`tp_axis`), where every
   collective is skipped and the region is the plain computation.
+* A decode cache split over "model" along its positions ("cache_seq"
+  under ``serve_rules(kv_shard="seq")``): :func:`cache_seq_block` gives
+  this rank's positions, and attention over them is a partial that
+  :func:`~.collectives.flash_decode_psum` combines.
 
 Gradients.  The loss's cross-entropy sum enters its all-reduce over the
 batch axes with the data-parallel size as gradient scale
@@ -51,10 +58,10 @@ import torch.distributed as dist
 from .collectives import _all_gather, _reduce_scatter, psum, replicated
 from .sharding import (PartitionSpec, ShardingRules, batch_axes,
                        current_mesh, current_rules, explicit_spec,
-                       is_train_rules, mesh_coords, mesh_shape)
+                       mesh_coords, mesh_shape)
 
 __all__ = ["TP_LOGICAL", "ModelAxis", "UNIT", "model_axis", "tp_axis",
-           "tp_kept",
+           "tp_kept", "cache_seq_block",
            "gather_plan", "block_plans", "gather_block", "reduction_axes",
            "enter", "leave", "gather", "psum_region", "all_reduce_max"]
 
@@ -158,7 +165,8 @@ def gather_block(t: torch.Tensor, plan: Plan, mesh, *,
     """This rank's block ``t`` of a parameter, gathered along every
     dimension of ``plan`` (FSDP); ``offset``: leading dimensions of the
     full tensor that ``t`` lacks (1 for one layer of a stacked tensor).
-    Backward: the reduce-scatter as a mean over the gathered axes."""
+    Backward: the reduce-scatter as a mean over the gathered axes (with
+    gradients off, as in prefill and decode, the gathers alone)."""
     for dim, axes in plan:
         t = _Gather.apply(t, dim - offset, [mesh.get_group(a) for a in axes],
                           True)
@@ -193,10 +201,11 @@ UNIT = ModelAxis(None, 1, 0)
 
 
 def model_axis() -> ModelAxis | None:
-    """The mesh's "model" axis when the current rules are training rules
-    with tensor parallelism ("heads" over "model"), else None."""
+    """The mesh's "model" axis when the current rules have tensor
+    parallelism ("heads" over "model": the training rules but
+    ``tp=False``'s, and the serving rules), else None."""
     rules, mesh = current_rules(), current_mesh()
-    if not is_train_rules(rules) or mesh is None \
+    if rules is None or mesh is None \
             or rules.mesh_axes("heads") != "model":
         return None
     shape = mesh_shape(mesh)
@@ -213,6 +222,30 @@ def tp_axis(local: int, full: int) -> ModelAxis:
     computation on whole weights)."""
     ax = model_axis()
     return ax if ax is not None and ax.split(local, full) else UNIT
+
+
+def cache_seq_block(local: int, full: int | None) -> tuple[int, int]:
+    """[lo, hi) of the positions this rank holds of a cache's "cache_seq"
+    dimension of ``full`` positions, held with ``local``: its block over
+    "model" where the rules split it there (``serve_rules(kv_shard=
+    "seq")`` on a model axis of size > 1 that divides ``full``), else
+    every position.  ``full`` may be None only where the dimension is not
+    split: a block alone does not tell a split dimension from one that the
+    divisibility fallback left whole."""
+    rules, ax = current_rules(), model_axis()
+    if ax is None or ax.n == 1 or rules.mesh_axes("cache_seq") != "model":
+        return 0, local
+    if full is None:
+        raise ValueError(
+            "a cache split over 'model' along its positions: give the "
+            "prefill and decode factories the cache's length (cache_len, "
+            "enc_len)")
+    if local == full and full % ax.n:  # the divisibility fallback
+        return 0, full
+    if local * ax.n != full:
+        raise ValueError(f"a cache block of {local} positions is not this "
+                         f"rank's block of {full} on model={ax.n}")
+    return ax.block(full)
 
 
 def enter(x: torch.Tensor, ax: ModelAxis) -> torch.Tensor:

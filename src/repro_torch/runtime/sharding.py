@@ -19,20 +19,20 @@ itself, while here each rank holds its own block of every tensor and runs
 the model code on it, with ``torch.distributed`` collectives where GSPMD
 inserts them (:mod:`~repro_torch.runtime.partition`).
 :class:`NamedSharding` gives a rank its block (``local_slice``) and the
-block's shape (``shard_shape``).  Under the training rules
-:func:`explicit_spec` is :func:`logical_to_spec`: the trainer holds the
+block's shape (``shard_shape``).  :func:`explicit_spec` is
+:func:`logical_to_spec` under every table: the trainer holds the
 reference's block of every parameter, optimizer moment and batch (data
-and tensor parallelism, FSDP, the experts).  It records one kind of
-mapping in :func:`sharding_report`: an activation "seq" mapping, whose
-activations the trainer holds replicated -- the values do not change
-(sequence parallelism: ROADMAP A14d).  Under other rules (serving) it
-applies "batch" and the routed experts' "experts" only, and leaves every
-other mapping to an axis of size > 1 replicated, recorded in the style of
-the divisibility fallback (A14d).  :func:`shard` keeps the reference's
-contract (a no-op without a mesh, a rank check, the fallback record) and
-returns the local tensor unchanged: the reference's ``shard`` calls are
-GSPMD layout hints, with no counterpart when each rank already holds its
-block.
+and tensor parallelism, FSDP, the experts), and prefill and decode the
+reference's block of every served weight, cache entry, prompt and
+logit (tensor parallelism over "model", the KV cache over its kv heads
+or its positions, the ``/wsharded`` weights' FSDP).  It records one kind
+of mapping in :func:`sharding_report`: a training activation "seq"
+mapping, whose activations the trainer holds replicated -- the values do
+not change (sequence parallelism: ROADMAP A14d).  :func:`shard` keeps the
+reference's contract (a no-op without a mesh, a rank check, the fallback
+record) and returns the local tensor unchanged: the reference's ``shard``
+calls are GSPMD layout hints, with no counterpart when each rank already
+holds its block.
 """
 
 from __future__ import annotations
@@ -133,8 +133,9 @@ _REPORT: dict[str, list[str]] = {}
 
 
 def sharding_report() -> dict[str, list[str]]:
-    """Divisibility fallbacks, and the mappings :func:`explicit_spec` left
-    unapplied, recorded since process start (context -> messages)."""
+    """Divisibility fallbacks, the mappings :func:`explicit_spec` left
+    unapplied and the gathers of :func:`note`, recorded since process
+    start (context -> messages)."""
     return _REPORT
 
 
@@ -237,59 +238,28 @@ def spec_axes(spec: PartitionSpec) -> tuple[str, ...]:
     return tuple(a for part in spec for a in _as_tuple(part))
 
 
-def _applied(axes: Sequence[str | None], i: int) -> bool:
-    """Whether serving applies the mapping of ``axes[i]``: "batch", and
-    "experts" where it leads a tensor (the routed experts' weights, under a
-    stacked "layers" axis or not)."""
-    if axes[i] == "batch":
-        return True
-    lead = next((j for j, a in enumerate(axes) if a != "layers"), None)
-    return axes[i] == "experts" and i == lead
-
-
 def explicit_spec(axes: Sequence[str | None], shape: Sequence[int],
                   rules: ShardingRules | None = None, mesh=None,
                   context: str = "") -> PartitionSpec:
-    """The spec each rank's block follows.  Under the training rules,
-    :func:`logical_to_spec`'s, every mapping applied; a "seq" mapping to
-    axes of size > 1 is recorded (the trainer holds those activations
-    replicated: ROADMAP A14d).  Under other rules only "batch" and the
-    routed experts' "experts"; every other mapping to mesh axes of size > 1
-    is left replicated and recorded in :func:`sharding_report` under
-    ``context``."""
+    """The spec each rank's block follows: :func:`logical_to_spec`'s,
+    every mapping applied.  Under the training rules a "seq" mapping to
+    axes of size > 1 is recorded in :func:`sharding_report` under
+    ``context`` (the trainer holds those activations replicated: ROADMAP
+    A14d)."""
     rules = rules if rules is not None else current_rules()
     mesh = mesh if mesh is not None else current_mesh()
     spec = logical_to_spec(axes, shape, rules, mesh, context)
-    if mesh is None:
+    if mesh is None or not is_train_rules(rules):
         return spec
-    if is_train_rules(rules):
-        for i, part in enumerate(spec):
-            if axes[i] == "seq" and part is not None \
-                    and _axis_size(mesh, part) > 1:
-                _record_fallback(
-                    context or rules.name,
-                    f"axis 'seq' dim {shape[i]} -> {_as_tuple(part)}="
-                    f"{_axis_size(mesh, part)} not applied to activations "
-                    "(sequence parallelism is ROADMAP A14d); replicated")
-        return spec
-    out = []
     for i, part in enumerate(spec):
-        if part is None or _applied(axes, i):
-            out.append(part)
-            continue
-        m_t, size = _as_tuple(part), _axis_size(mesh, part)
-        if size > 1:
-            why = ("the expert-parallel MoE reads the whole router"
-                   if axes[i] == "experts" else
-                   "tensor parallelism in serving is ROADMAP A14d")
+        if axes[i] == "seq" and part is not None \
+                and _axis_size(mesh, part) > 1:
             _record_fallback(
                 context or rules.name,
-                f"axis {axes[i]!r} dim {shape[i]} -> {m_t}={size} not "
-                f"applied ({why}); replicated")
-        out.append(None)
-    while out and out[-1] is None:
-        out.pop()
-    return P(*out)
+                f"axis 'seq' dim {shape[i]} -> {_as_tuple(part)}="
+                f"{_axis_size(mesh, part)} not applied to activations "
+                "(sequence parallelism is ROADMAP A14d); replicated")
+    return spec
 
 
 def batch_axes(mesh, rules: ShardingRules | None = None) -> tuple[str, ...]:

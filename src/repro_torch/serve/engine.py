@@ -23,7 +23,7 @@ from ..convert import (exact_float32, resolve_device, tensor_from_stored,
 from ..core.comm import Communicator
 from ..core.offload import WindowedPyTree
 from ..models import (cast_params, init_cache_specs, make_decode_fn,
-                      make_prefill_fn)
+                      make_prefill_fn, merge_tail)
 from ..models.config import ModelConfig
 
 __all__ = ["Engine", "SessionStore"]
@@ -76,11 +76,6 @@ class Engine:
     place.  ``enc_len``: an encoder-decoder model's encoder context, the
     frames every prefill takes (the cross-attention cache's length)."""
 
-    # two-tier KV cache (MLA: its latent cache): merge the append tail into
-    # main every Tt steps (an SSM or RG-LRU state is overwritten every step
-    # and a local attention ring is written in place: neither has a tail)
-    _TAIL_TO_MAIN = {"tk": "k", "tv": "v", "tckv": "ckv", "tkr": "kr"}
-
     def __init__(self, cfg: ModelConfig, params: dict, *, batch: int,
                  max_len: int, enc_len: int = 0,
                  session: SessionStore | None = None,
@@ -106,27 +101,14 @@ class Engine:
         self.generated: list[np.ndarray] = []
         self.session = session
 
-    def _tail_len(self) -> int | None:
-        for k, v in self.cache_specs.items():
-            if k.split("/")[-1] in self._TAIL_TO_MAIN:
-                return v.shape[2]  # (reps, B, Tt, ...)
-        return None
-
     def _maybe_merge(self) -> None:
-        """Before the step at a multiple of Tt, the full tail moves to
-        main[pos - Tt : pos]."""
-        tt = self._tail_len()
-        if not (tt and self.pos > 0 and self.pos % tt == 0):
-            return
-        base = self.pos - tt
-        for k, t in self.cache.items():
-            leaf = k.split("/")[-1]
-            main_leaf = self._TAIL_TO_MAIN.get(leaf)
-            if main_leaf is not None:
-                self.cache[k[: -len(leaf)] + main_leaf][:, :, base:self.pos] = t
+        """Before the step at a multiple of Tt, the full tail of a two-tier
+        KV cache (MLA: its latent cache) moves to main[pos - Tt : pos]
+        (:func:`~repro_torch.models.lm.merge_tail`)."""
+        merge_tail(self.cache, self.pos)
 
     def _tokens(self, tokens, length: int | None = None) -> torch.Tensor:
-        """Token ids from the caller as a (batch, n) int64 tensor on the
+        """Token ids from the caller as a (batch, n) int32 tensor on the
         device, checked on the host first (an index out of range would be
         a device fault on the card)."""
         a = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
@@ -137,7 +119,7 @@ class Engine:
             raise ValueError(f"tokens must be ({self.batch}, n), got {a.shape}")
         if a.size and (a.min() < 0 or a.max() >= self.cfg.vocab):
             raise ValueError(f"token ids must be in [0, {self.cfg.vocab})")
-        return torch.from_numpy(a.astype(np.int64)).to(self.device)
+        return torch.from_numpy(a.astype(np.int32)).to(self.device)
 
     def _embeddings(self, batch_inputs: dict, key: str,
                     length: int) -> torch.Tensor:

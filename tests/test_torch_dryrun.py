@@ -567,6 +567,34 @@ def test_held_bytes_equal_state_bytes_on_every_train_cell(shape, override):
     assert cells == len(ARCHS)
 
 
+SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (2, 16, 16), (2, 4), (2, 2, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_held_bytes_equal_state_bytes_on_every_serve_cell(shape, override):
+    """On every prefill and decode cell of the production and override
+    meshes the bytes the port's program holds on a device (its cast
+    weights', cache's and token ids' blocks, and decode's position:
+    ``explicit_state_bytes_per_device``) equal the reference's analytic
+    ``state_bytes_per_device``, exactly: prefill and decode hold the
+    reference's block of every tensor under ``serving_rules``.  Until
+    serving's tensor parallelism they were 3.7-27x larger."""
+    override(shape)
+    mp = len(shape) == 3
+    cells = 0
+    with dr.fake_world(math.prod(shape)):
+        for a in sorted(ARCHS):
+            for s in SERVE_SHAPES:
+                try:
+                    cell = dr.build_cell(a, s, multi_pod=mp)
+                except dr.SkipCell:
+                    continue
+                assert cell.held_bytes() == cell.state_bytes, (a, s, shape)
+                cells += 1
+    assert cells == 2 * len(ARCHS) + 2
+
+
 def _attention_flops(cfg, shape, rows) -> int:
     """Every (q block, kv block) tile of the reference's scan over S
     positions: 2·(d + dv) FLOP a head and pair of positions."""
@@ -611,22 +639,31 @@ def test_train_step_with_attention_skips_the_masked_tiles(background,
     assert 0.85 < port / ref < 0.97, (port, ref, port / ref)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen2-72b"])
-def test_tensor_parallel_flops_fall_by_the_model_axis(arch, override):
-    """train_4k on the 2x4 override mesh against 8x1: a quarter of the
+TP_FLOP_CELLS = [("mamba2-2.7b", "train_4k"), ("qwen2-72b", "train_4k"),
+                 ("mamba2-2.7b", "prefill_32k"), ("qwen2-72b", "prefill_32k")]
+
+
+@pytest.mark.parametrize("arch,shape_name", TP_FLOP_CELLS, ids=[
+    a if s == "train_4k" else f"{a}-{s}" for a, s in TP_FLOP_CELLS])
+def test_tensor_parallel_flops_fall_by_the_model_axis(arch, shape_name,
+                                                      override):
+    """A cell on the 2x4 override mesh against 8x1: a quarter of the
     rows a device on 8x1 is the whole of a model group's rows on 2x4, and
-    tensor parallelism splits every product of the step over the four
-    model ranks, so the port's product FLOPs a device are within 5% of
-    its own on 8x1.  When this file was written: mamba2-2.7b 2.92972e15
+    tensor parallelism splits every product of the step (the prefill's
+    attention kernel too, on each rank's heads) over the four model
+    ranks, so the port's product FLOPs a device are within 5% of its own
+    on 8x1.  When this file was written: train_4k mamba2-2.7b 2.92972e15
     against 2.92972e15 (the reference's on 2x4: 2.93127e15); qwen2-72b
     7.30417e16 against 7.30417e16 (the reference's: 7.51732e16; its
-    attention differentiates every tile).  ``scripts/dryrun_tp_flops.py``
-    prints the reference's."""
+    attention differentiates every tile); prefill_32k mamba2-2.7b
+    6.74139e14 and qwen2-72b 1.84058e16, equal on both meshes.
+    ``scripts/dryrun_tp_flops.py`` prints the reference's train_4k
+    FLOPs."""
     flops = {}
     for shape in ((8, 1), (2, 4)):
         override(shape)
         with dr.fake_world(8):
-            flops[shape] = dr.build_cell(arch, "train_4k", multi_pod=False
+            flops[shape] = dr.build_cell(arch, shape_name, multi_pod=False
                                          ).trace().terms["products"]
     ratio = flops[2, 4] / flops[8, 1]
     assert abs(ratio - 1) < 0.05, (arch, flops, ratio)
@@ -638,8 +675,8 @@ def test_reference_mini_cells_through_port_cli(arch, shape, mp, background):
     """The reference's ``test_mini_dryrun_cell`` cells and its skip rule
     through the port's CLI on 8 fake ranks: status ``ok`` (``skip`` for
     qwen2-72b long_500k), FLOPs > 0 and state bytes equal to the
-    reference's; on a train cell the bytes the program holds equal them
-    too, and no mapping is left unapplied."""
+    reference's; the bytes the program holds equal them too, and no
+    mapping is left unapplied."""
     rec = background.record(arch, shape, mp)
     mesh = "2x2x2" if mp else "2x4"
     ref = background.reference()["state"][f"{mesh}/{arch}/{shape}"]
@@ -648,12 +685,11 @@ def test_reference_mini_cells_through_port_cli(arch, shape, mp, background):
         return
     assert rec["state_bytes_per_device"] == ref["state_bytes_per_device"]
     assert rec["status"] == "ok"
-    if shape == "train_4k":
-        assert rec["explicit_state_bytes_per_device"] \
-            == rec["state_bytes_per_device"]
-        assert "not applied" not in json.dumps(
-            {k: v for k, v in rec["sharding_report"].items()
-             if k != "activations"})
+    assert rec["explicit_state_bytes_per_device"] \
+        == rec["state_bytes_per_device"]
+    assert "not applied" not in json.dumps(
+        {k: v for k, v in rec["sharding_report"].items()
+         if k != "activations"})
     assert rec["flops_per_device"] > 0
     assert rec["explicit_state_bytes_per_device"] > 0
     if mp and shape == "train_4k":

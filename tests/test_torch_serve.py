@@ -32,6 +32,7 @@ import repro_torch.core as tcore
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy, tree_from_numpy
 from repro_torch.models import init_cache_specs, init_params, param_specs
+from repro_torch.models.lm import TAIL_TO_MAIN
 from repro_torch.serve import Engine, SessionStore
 
 ARCH = "internlm2-1.8b"
@@ -286,7 +287,7 @@ def test_mamba2_engine_kill_and_resume_is_exact(tmp_path):
                          specs, factor="0.5")
     eng = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
                  device="cpu")
-    assert eng._tail_len() is None
+    assert not any(k.split("/")[-1] in TAIL_TO_MAIN for k in eng.cache_specs)
     out_full = eng.generate({"inputs": toks}, steps)
 
     eng2 = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
@@ -408,7 +409,7 @@ def test_recurrentgemma_engine_kill_and_resume_is_exact(tmp_path):
                          specs, factor="0.5")
     eng = Engine(cfg, params, batch=B, max_len=MAX_LEN * 2, session=store,
                  device="cpu")
-    assert eng._tail_len() is None
+    assert not any(k.split("/")[-1] in TAIL_TO_MAIN for k in eng.cache_specs)
     assert eng.cache["g0/p2/k"].shape[2] == cfg.window == 32
     out_full = eng.generate({"inputs": toks}, steps)
     final = {k: v.clone() for k, v in eng.cache.items()}
@@ -526,7 +527,8 @@ def test_moe_engine_kill_and_resume_is_exact(tmp_path, arch):
                          init_cache_specs(cfg, B, MAX_LEN), factor="0.5")
     eng = Engine(cfg, params, batch=B, max_len=MAX_LEN, session=store,
                  device="cpu")
-    assert eng._tail_len() == cfg.decode_tail
+    assert {v.shape[2] for k, v in eng.cache_specs.items()  # (reps, B, Tt, ..)
+            if k.split("/")[-1] in TAIL_TO_MAIN} == {cfg.decode_tail}
     out_full = eng.generate({"inputs": toks}, steps)
     final = {k: v.clone() for k, v in eng.cache.items()}
     if cfg.attn_kind == "mla":

@@ -8,7 +8,8 @@ messages for every ``param_specs`` and ``init_cache_specs`` entry of every
 arch in ``ARCHS``, under train and serve rules, on mesh shapes (16, 16),
 (2, 16, 16), (2, 4) and (2, 2, 2) -- through an object with only a
 ``shape`` mapping, since both functions read only the size of each mesh
-axis.  Then the port's own: ``explicit_spec`` and what it records,
+axis.  Then the port's own: ``explicit_spec`` (``logical_to_spec`` under
+the training and the serving tables) and what it records,
 ``NamedSharding``'s blocks, ``shard``'s contract, the mesh factory's
 refusals and ``use_rules``.
 """
@@ -24,7 +25,8 @@ from repro.configs import get_config as ref_config
 from repro.models import init_cache_specs as ref_cache_specs
 from repro.models import param_specs as ref_param_specs
 from repro.runtime import sharding as ref
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, OFFLOAD_ARCHS, get_config
+from repro_torch.launch.dryrun import serving_rules
 from repro_torch.models import init_cache_specs, param_specs
 from repro_torch.runtime import sharding as port
 
@@ -162,11 +164,13 @@ def test_explicit_spec_equals_logical_to_spec_under_train_rules(
 
 
 def test_explicit_spec_under_serve_rules_applies_batch_and_experts_only():
-    """Under the serving rules on a (2, 4) mesh, the routed experts'
-    weights keep "experts" over "model" and the batch keeps the data
-    axes; every other mapping to an axis of size > 1 is left replicated
-    and recorded, naming A14d (the router's "experts" with its own
-    reason)."""
+    """Under the serving rules on a (2, 4) mesh every mapping is applied,
+    not the batch and the routed experts only: each of deepseek-v2's
+    parameters keeps ``logical_to_spec``'s spec (its tensor-parallel
+    dimensions over "model", the router's "experts" too), the batch keeps
+    the data axes, and nothing is recorded beyond the divisibility
+    fallbacks; a mapping to an axis of size 1 is no change, and is not
+    recorded."""
     cfg = get_config("deepseek-v2-236b", smoke=True)
     mesh = _shape_mesh((2, 4))
     rules = port.serve_rules()
@@ -176,21 +180,57 @@ def test_explicit_spec_under_serve_rules_applies_batch_and_experts_only():
     report = dict(port.sharding_report())
     port.sharding_report().clear()
     for k, spec in specs.items():
+        s = param_specs(cfg)[k]
+        assert spec == port.logical_to_spec(s.axes, s.shape, rules, mesh), k
         leaf = k.split("/")[-1]
-        want = (None, "model") if leaf.startswith("we_") else ()
-        assert tuple(spec) == want, (k, spec)
-    for k, msgs in report.items():
-        for m in msgs:
-            assert m.endswith("; replicated"), m
-            assert ("A14d" in m) != ("router" in m), m
-    assert any("'experts'" in m for m in report["g1/p0/router"])
+        if leaf.startswith("we_"):
+            assert tuple(spec) == (None, "model"), (k, spec)
+    assert tuple(specs["g1/p0/router"]) == (None, None, "model")
+    assert tuple(specs["embed/tok"]) == ("model",)
+    for msgs in report.values():
+        assert all("not divisible" in m for m in msgs), msgs
     assert tuple(port.explicit_spec((None, "batch", None), (1, 8, 3),
                                     rules, mesh)) == (None, "data")
-    # a mapping to an axis of size 1 is no change, and is not recorded
     one = SimpleNamespace(shape={"data": 1, "model": 1})
     assert tuple(port.explicit_spec(("heads", "ff"), (4, 4), rules,
-                                    one)) == ()
+                                    one)) == ("model",)
     assert port.sharding_report() == {}
+
+
+@pytest.mark.parametrize("multi_pod,kv_shard,wsharded", list(
+    itertools.product((False, True), ("heads", "seq"), (False, True))))
+def test_explicit_spec_equals_logical_to_spec_under_serve_rules(
+        multi_pod, kv_shard, wsharded):
+    """Under ``serve_rules(multi_pod, kv_shard=)`` (and its ``/wsharded``
+    form, "fsdp" over "data"), on each mesh shape, ``explicit_spec`` is
+    ``logical_to_spec`` for every parameter, cache entry and batch tensor
+    of every arch: prefill and decode hold the reference's blocks.  It
+    records nothing beyond ``logical_to_spec``'s fallbacks."""
+    from repro_torch.configs import SHAPES, batch_specs
+    # the dry-run's rules for an offload arch are the /wsharded ones
+    rules = serving_rules(OFFLOAD_ARCHS[0] if wsharded else "gemma-7b",
+                          multi_pod, kv_shard)
+    assert rules.name.endswith("/wsharded") == wsharded
+    for shape in MESH_SHAPES:
+        if len(shape) != (3 if multi_pod else 2):
+            continue
+        mesh = _shape_mesh(shape)
+        for arch in ARCHS:
+            cfg = get_config(arch)
+            entries = {ctx: (s.axes, s.shape) for ctx, s in _specs(
+                cfg, param_specs, init_cache_specs).items()}
+            entries.update({f"batch/{k}": (s.axes, s.shape) for k, s in
+                            batch_specs(cfg, SHAPES["prefill_32k"]).items()})
+            for ctx, (axes, shp) in entries.items():
+                port.sharding_report().clear()
+                want = port.logical_to_spec(axes, shp, rules, mesh, ctx)
+                fallbacks = {k: list(v) for k, v in
+                             port.sharding_report().items()}
+                port.sharding_report().clear()
+                got = port.explicit_spec(axes, shp, rules, mesh, ctx)
+                assert got == want, (arch, ctx, got, want)
+                assert port.sharding_report() == fallbacks, (arch, ctx)
+    port.sharding_report().clear()
 
 
 @pytest.mark.parametrize("spec", [port.PartitionSpec(("data", "model")),
