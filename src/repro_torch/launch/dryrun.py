@@ -2,12 +2,17 @@
 
 The counterpart of ``repro.launch.dryrun``.  The reference lowers and
 compiles each cell's step on 512 fake host devices and reads the compiled,
-partitioned program.  Here one process stands for rank 0 of the 256- or
+partitioned program.  Here one process stands for one rank of the 256- or
 512-card mesh over a ``fake`` process group (its collectives send
-nothing; :func:`fake_world`), builds the program the port runs on each
-card -- rank 0's block of every tensor (``explicit_spec``) under the
-cell's rules -- from ``meta`` tensors (shapes and dtypes, nothing
-allocated), and runs it under an :class:`~repro_torch.perf.OpCounter`.
+nothing; :func:`fake_world`), builds the program the port runs on that
+card -- its block of every tensor (``explicit_spec``) under the cell's
+rules -- from ``meta`` tensors (shapes and dtypes, nothing allocated),
+and runs it under an :class:`~repro_torch.perf.OpCounter`.  The traced
+rank is the heaviest (:func:`traced_rank`, in the record's
+``traced_coords``): rank 0 but on a train cell, where the last block of
+"model" (coordinate 0 on every other axis), whose positions attend the
+most keys where the rules split the sequence over "model" (causal
+attention).
 Kernels follow the card's route: a meta tensor goes to the CUDA kernel's
 wrapper, which counts the launch that a CUDA tensor of that dtype would
 make (``kernels.ops``).  No GPU is needed, as the reference needs no TPU.
@@ -82,15 +87,16 @@ from torch.utils._pytree import tree_leaves
 
 from ..perf import CostReport, OpCounter, extrapolate, storage_bytes
 from ..runtime.sharding import (NamedSharding, ShardingRules, explicit_spec,
-                                fresh_report, logical_to_spec, mesh_shape,
-                                serve_rules, train_rules, use_rules)
+                                fresh_report, logical_to_spec, mesh_coords,
+                                mesh_shape, serve_rules, train_rules,
+                                use_rules)
 from ..train import AdamWConfig, TrainConfig, Trainer, init_opt_state
 from .mesh import make_production_mesh, production_mesh_shape
 
 __all__ = ["KV_SHARD", "TRAIN_MICROBATCHES", "TRAIN_NO_TP", "Cell",
            "SkipCell", "build_cell", "depth_loops", "at_depth", "fake_world",
            "held_state_bytes", "main", "run_cell", "serving_rules",
-           "trace_program", "world_size"]
+           "trace_program", "traced_rank", "world_size"]
 
 # per-arch gradient-accumulation microbatches for train_4k (the reference's)
 TRAIN_MICROBATCHES = {
@@ -146,12 +152,12 @@ def serving_rules(arch: str, multi_pod: bool,
 
 
 @contextlib.contextmanager
-def fake_world(size: int):
+def fake_world(size: int, rank: int = 0):
     """A ``fake`` default process group of ``size`` ranks with this process
-    as rank 0, the stand-in for a mesh of cards; destroyed on exit."""
+    as ``rank``, the stand-in for a mesh of cards; destroyed on exit."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=size)
     try:
         yield
@@ -163,6 +169,17 @@ def world_size(multi_pod: bool) -> int:
     """The fake world's size: ``REPRO_DRYRUN_DEVICES``, or the mesh's."""
     n = os.environ.get("REPRO_DRYRUN_DEVICES")
     return int(n) if n else math.prod(production_mesh_shape(multi_pod)[0])
+
+
+def traced_rank(shape_name: str, multi_pod: bool) -> int:
+    """The rank a cell traces: on a train cell the last block of "model"
+    (the mesh's last axis, row-major: coordinate 0 on the others), the
+    heaviest where the sequence is split over "model" (its positions
+    attend every key); rank 0 on a serve cell (it attends the decode
+    tail)."""
+    if SHAPES[shape_name].kind != "train":
+        return 0
+    return production_mesh_shape(multi_pod)[0][-1] - 1
 
 
 # -- the loops of a program ---------------------------------------------------
@@ -241,9 +258,6 @@ def _train_program(cfg, shape: Shape, mesh, rules, *, microbatches: int,
         batch = {k: _alloc(_block((None,) + s.axes, (m, rows) + s.shape[1:],
                                   rules, mesh, f"batch/{k}"), s.dtype, device)
                  for k, s in batch_specs(cfg, shape).items()}
-        if mesh is not None:  # the residual stream's "seq", as the trainer
-            _block((None, "batch", "seq"), (m, rows, shape.seq), rules, mesh,
-                   "activations")
         opt = None
         if not offload:
             opt = init_opt_state(params)
@@ -522,6 +536,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         "mesh": mesh_name,
         "status": "ok",
         "n_devices": n_devices,
+        "traced_coords": mesh_coords(cell.mesh),
         "trace_s": round(trace_s, 2),
         "memory_analysis": {**rep.memory, "generated_code_bytes": None},
         "flops_per_device": rep.flops,
@@ -572,23 +587,23 @@ def main(argv=None):
                  tp=not args.no_tp)
     failures = []
     for mp in meshes:
-        with fake_world(world_size(mp)):
-            for a in archs:
-                for s in shapes:
-                    mesh_name = _mesh_name(mp)
-                    cell_id = f"{a}__{s}" + (f"__{args.tag}" if args.tag
-                                             else "")
-                    path = f"{args.out}/{mesh_name}/{cell_id}.json"
-                    if args.skip_existing and os.path.exists(path):
-                        print(f"[cached] {cell_id} ({mesh_name})", flush=True)
-                        continue
-                    try:
+        for a in archs:
+            for s in shapes:
+                mesh_name = _mesh_name(mp)
+                cell_id = f"{a}__{s}" + (f"__{args.tag}" if args.tag
+                                         else "")
+                path = f"{args.out}/{mesh_name}/{cell_id}.json"
+                if args.skip_existing and os.path.exists(path):
+                    print(f"[cached] {cell_id} ({mesh_name})", flush=True)
+                    continue
+                try:
+                    with fake_world(world_size(mp), traced_rank(s, mp)):
                         run_cell(a, s, multi_pod=mp, out_dir=args.out,
                                  tag=args.tag, **knobs)
-                    except Exception:
-                        failures.append((a, s, mp))
-                        print(f"[FAIL] {a} {s} multi_pod={mp}", flush=True)
-                        traceback.print_exc()
+                except Exception:
+                    failures.append((a, s, mp))
+                    print(f"[FAIL] {a} {s} multi_pod={mp}", flush=True)
+                    traceback.print_exc()
     if failures:
         raise SystemExit(f"{len(failures)} cells failed: {failures}")
     print("dry-run complete", flush=True)

@@ -11,8 +11,8 @@ outer data-parallel dimension (the gradient mean crosses it once a step).
 
 A mesh on ``cuda`` needs the NCCL backend and one on the CPU gloo: nothing
 falls back from the card, and a ``cuda`` mesh with no GPU raises.  The
-dry-run (``launch.dryrun``) stands one process for rank 0 of a whole mesh
-of cards: a ``cpu`` mesh also takes a ``fake`` process group, whose
+dry-run (``launch.dryrun``) stands one process for one rank of a whole
+mesh of cards: a ``cpu`` mesh also takes a ``fake`` process group, whose
 collectives send nothing.
 """
 

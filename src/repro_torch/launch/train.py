@@ -38,11 +38,12 @@ environment/flags, and every mode runs the *same* training code:
   sets its shape) and ``train_rules(multi_pod)``, and trains inside
   ``use_rules``: each rank holds the reference's block of every
   parameter, moment and batch (``Trainer``'s mesh: data and tensor
-  parallelism, the experts, FSDP).  After the run rank 0 prints
-  ``sharding_report()`` (the divisibility fallbacks, the "model" gathers
-  where a block splits what the math needs whole, and the mappings left
-  replicated) and ``rank 0 state_bytes: N``, the bytes of the parameters,
-  moments and batch it held in a step.  Each process is also a window
+  parallelism, the experts, FSDP; the sequence's split over "model" where
+  the rules map the activations' "seq").  After the run rank 0 prints
+  ``sharding_report()`` (the divisibility fallbacks, left replicated, and
+  the "model" gathers where a block splits what the math needs whole or a
+  module reads every position) and ``rank 0 state_bytes: N``, the bytes
+  of the parameters, moments and batch it held in a step.  Each process is also a window
   rank (``REPRO_RANK``/``REPRO_NRANKS`` follow
   ``RANK``/``WORLD_SIZE`` unless they are set; the ``ranklocal``
   transport unless ``--transport`` or ``REPRO_TRANSPORT`` names

@@ -20,7 +20,10 @@ Under the tensor-parallel rules (training and serving) ``wx``/``wy`` and
 the gates' ``w_i``/``w_r`` are column-parallel over "model" and ``wo``
 row-parallel: each rank runs the recurrence (and the decode step) on its
 channels, whose state and conv carry are its blocks of the cache, and its
-gate columns read the whole conv output, gathered over "model".
+gate columns read the whole conv output, gathered over "model".  In
+training on a stream split along its positions (sequence parallelism)
+the region's entry gathers them: the conv and the recurrence run on the
+whole sequence of the rank's channels.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..runtime.partition import enter, gather, leave, tp_axis
+from ..runtime.partition import UNIT, enter, gather, leave, tp_axis, whole
 from ..runtime.sharding import note
 from .layers import causal_conv1d, gelu_tanh
 
@@ -94,25 +97,27 @@ def rg_lru_step(p, x_t, h, *, gate_x=None):
     return h[:, None, :], h
 
 
-def griffin_forward(cfg, p, x, *, return_state=False, train=False):
+def griffin_forward(cfg, p, x, *, return_state=False, train=False, sq=UNIT):
     """Full-sequence recurrent block.  x: (B,S,D) -> (B,S,D); with
     ``return_state`` also ``(h_last (B,W) f32, conv_state)``, the decode
     carry; ``train`` runs the recurrence through :func:`linear_scan`.
     Under tensor parallelism (``wx`` holding this model rank's columns) a
     region over "model" on the rank's channels [c0, c1) of the recurrence,
     its state and conv carry those channels'; otherwise ``UNIT``'s, every
-    channel."""
-    ax = tp_axis(p["wx"].shape[-1], cfg.lru)
+    channel.  ``sq``: the axis ``x`` is split over along its positions,
+    which the region's boundaries gather and reduce-scatter (sequence
+    parallelism)."""
+    ax = tp_axis(p["wx"].shape[-1], cfg.lru, sq)
     c0, c1 = ax.block(cfg.lru)
     hin = enter(x, ax)
     y_branch = gelu_tanh(hin @ p["wy"])
     r, new_conv = causal_conv1d(hin @ p["wx"],
-                                enter(p["conv_w"], ax)[:, c0:c1])
+                                whole(p["conv_w"], ax)[:, c0:c1])
     if ax.n > 1:
         note("rglru/gates", f"the gates' columns on model={ax.n} read every "
              "channel: the conv output gathered over 'model'")
     gp = {"w_i": p["w_i"], "w_r": p["w_r"],
-          **{k: enter(p[k], ax)[c0:c1] for k in ("b_i", "b_r", "lam")}}
+          **{k: whole(p[k], ax)[c0:c1] for k in ("b_i", "b_r", "lam")}}
     r_out, h_last = rg_lru(gp, r, train=train, gate_x=gather(r, -1, ax))
     out = leave((y_branch.float() * r_out).to(x.dtype) @ p["wo"], ax)
     if return_state:
@@ -129,10 +134,10 @@ def griffin_decode_step(cfg, p, x, h, conv_state):
     hin = enter(x, ax)
     y_branch = gelu_tanh(hin @ p["wy"])
     r = hin @ p["wx"]
-    r, conv_state = causal_conv1d(r, enter(p["conv_w"], ax)[:, c0:c1],
+    r, conv_state = causal_conv1d(r, whole(p["conv_w"], ax)[:, c0:c1],
                                   conv_state)
     gp = {"w_i": p["w_i"], "w_r": p["w_r"],
-          **{k: enter(p[k], ax)[c0:c1] for k in ("b_i", "b_r", "lam")}}
+          **{k: whole(p[k], ax)[c0:c1] for k in ("b_i", "b_r", "lam")}}
     r_out, h = rg_lru_step(gp, r, h, gate_x=gather(r, -1, ax))
     out = leave((y_branch.float() * r_out).to(x.dtype) @ p["wo"], ax)
     return out, h, conv_state

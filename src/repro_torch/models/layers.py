@@ -12,7 +12,10 @@ table (both of its stacks), in float32 like the reference's.
 
 Under the tensor-parallel rules (training and serving) :func:`mlp` is
 the reference's partition of it: ``wi``/``wg`` column-parallel and ``wo``
-row-parallel over "model" (:mod:`~repro_torch.runtime.partition`).
+row-parallel over "model" (:mod:`~repro_torch.runtime.partition`); on a
+stream split along its positions its region gathers them at its entry and
+reduce-scatters at its exit (sequence parallelism), and without tensor
+parallelism it runs on the rank's positions.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..runtime.partition import UNIT, enter, leave, tp_axis
+from ..runtime.partition import (UNIT, enter, leave, seq_gather, seq_scatter,
+                                 sequence_parallel, tp_axis)
 
 __all__ = ["rms_norm", "rope", "sinusoidal_positions", "gelu_tanh",
            "apply_act", "mlp", "f32_einsum", "causal_conv1d", "conv_carry"]
@@ -103,12 +107,18 @@ def apply_act(h: torch.Tensor, g: torch.Tensor | None,
 
 
 def mlp(params, x: torch.Tensor, act: str, *,
-        d_ff: int | None = None) -> torch.Tensor:
+        d_ff: int | None = None, sq=UNIT) -> torch.Tensor:
     """(Gated) feed-forward block; params: wi, wo [, wg] [, bi, bo].  When
     ``wi`` holds this model rank's block of ``d_ff`` columns (under tensor
     parallelism), a region: ``wi``/``wg`` column-parallel,
-    ``wo`` row-parallel, the partial products summed over "model"."""
-    ax = UNIT if d_ff is None else tp_axis(params["wi"].shape[-1], d_ff)
+    ``wo`` row-parallel, the partial products summed over "model".  ``sq``:
+    the axis ``x`` is split over along its positions (a region's
+    boundaries then gather and reduce-scatter them; whole weights under
+    sequence parallelism run on the whole sequence)."""
+    ax = UNIT if d_ff is None else tp_axis(params["wi"].shape[-1], d_ff, sq)
+    if ax.n == 1 and sequence_parallel(sq):
+        return seq_scatter(mlp(params, seq_gather(x, sq), act, d_ff=d_ff),
+                           sq)
     x = enter(x, ax)
     h = x @ params["wi"]
     if "bi" in params:

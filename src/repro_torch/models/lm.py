@@ -42,7 +42,19 @@ does not hold, or whose query columns split a head, gathers the
 projections over "model" and takes what it needs), the embedding looks
 up this rank's vocabulary rows and sums over "model", and the
 cross-entropy is vocab-parallel: its logsumexp from an all-reduced max
-and sum, the target logit from a masked sum.  Under the serving rules
+and sum, the target logit from a masked sum.  Where the training rules
+map the activations' "seq" (``train_rules(seq_shard=True)``, multi-pod
+``tp=False``), the decoder's stream and the encoder's are split along
+their positions over "model" (:func:`_prepare_inputs`): each rank
+embeds, carries and computes its block of positions (global positions
+for RoPE and Whisper's sinusoids; a VLM's patches are the first blocks'
+rows).  With tensor parallelism each region gathers the positions at its
+entry and reduce-scatters at its exit (the embedding's sum too, the
+head's entry gathers every position for the vocab-parallel CE); without
+it attention gathers the keys and values over the positions and each
+rank's queries attend from their offset, and the CE of the rank's text
+rows is summed over "model".  A Mamba-2 or RG-LRU scan outside a region
+and the MoE's dispatch run on the gathered sequence.  Under the serving rules
 prefill and decode run the same regions on each rank's blocks (the
 ``/wsharded`` rules' FSDP blocks gathered a layer at a time), the cache
 being the rank's block too: its kv heads (``serve_rules(kv_shard=
@@ -90,18 +102,23 @@ order does not matter to the softmax.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..perf.op_analysis import loop_mark
 from ..runtime.collectives import axis_groups, flash_decode_psum, psum
-from ..runtime.partition import (all_reduce_max, block_plans,
+from ..runtime.partition import (UNIT, all_reduce_max, block_plans,
                                  cache_seq_block, enter, gather,
-                                 gather_block, leave, model_axis, tp_axis)
+                                 gather_block, leave, model_axis,
+                                 seq_gather, seq_param, seq_scatter,
+                                 sequence_parallel, stream_axis, tp_axis,
+                                 whole)
 from ..runtime.sharding import (batch_axes, current_mesh, current_rules,
                                 is_train_rules, mesh_shape, note, use_rules)
 from .attention import (blockwise_attention, decode_attention,
@@ -381,27 +398,60 @@ def _use_rope(cfg: ModelConfig) -> bool:
     return cfg.family != "audio"
 
 
-def _attend(q, k, v, *, causal: bool, window=None, train: bool = False):
+def _attend(q, k, v, *, causal: bool, window=None, train: bool = False,
+            q_offset: int = 0):
     """Attention of a whole sequence from position 0: the differentiable
-    online-softmax scan in training, the prefill kernel otherwise."""
+    online-softmax scan in training (``q_offset``: the position of the
+    first query, where they are a rank's block of them), the prefill
+    kernel otherwise."""
     if train:
-        return blockwise_attention(q, k, v, causal=causal, window=window)
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     return prefill_attention(q, k, v, causal=causal, window=window)
 
 
+def _note_every_position(what: str, sq) -> None:
+    note(what, f"the stream gathered over 'model' along its positions "
+         f"(model={sq.n}): every position computed on each rank")
+
+
+def _on_every_position(fn, h, sq, what: str):
+    """``fn(h_all, positions)`` on the whole sequence of ``h``, this rank's
+    block of a stream split over ``sq`` along its positions, and this
+    rank's block of the result: a module that reads every position (a
+    scan, the MoE's dispatch; under sequence parallelism one whose weights
+    are whole).  Recorded once under ``what``."""
+    _note_every_position(what, sq)
+    h = seq_gather(h, sq)
+    return seq_scatter(fn(h, torch.arange(h.shape[1], device=h.device)),
+                       sq)
+
+
 def _attn_block(cfg, p, x, positions, *, causal=True, window=None,
-                train=False):
+                train=False, sq=UNIT):
     """Self-attention of a whole sequence (causal but in the encoder;
     within ``window``, if given); returns (x, (k, v)), or for MLA (x,
-    (c_kv, k_rope))."""
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    (c_kv, k_rope)).  ``sq``: the axis ``x`` is split over along its
+    positions (training; ``positions`` are the rank's)."""
+    h = rms_norm(x, seq_param(p["norm1"], sq), cfg.norm_eps)
     if cfg.attn_kind == "mla":
-        o, cache = mla_attention(cfg, p, h, positions, train=train)
+        full = cfg.n_heads * (cfg.nope_head_dim + cfg.rope_head_dim)
+        if sequence_parallel(sq) \
+                and tp_axis(p["wq_b"].shape[-1], full).n == 1:
+            return x + _on_every_position(lambda hh, pos: mla_attention(
+                cfg, p, hh, pos, train=train)[0], h, sq,
+                "attention/mla"), None
+        o, cache = mla_attention(cfg, p, h, positions, train=train, sq=sq)
         return x + o, cache
-    o, kv = _heads(cfg, p, h, h, positions,
-                   tp_axis(p["wq"].shape[-1], cfg.n_heads * cfg.hd),
-                   causal=causal, window=window, train=train,
-                   rope_on=_use_rope(cfg))
+    ax = tp_axis(p["wq"].shape[-1], cfg.n_heads * cfg.hd, sq)
+    if ax.n == 1 and sequence_parallel(sq):
+        return x + _on_every_position(lambda hh, pos: _heads(
+            cfg, p, hh, hh, pos, ax, causal=causal, window=window,
+            train=train, rope_on=_use_rope(cfg))[0], h, sq,
+            "attention/self"), None
+    o, kv = _heads(cfg, p, h, h, positions, ax, causal=causal,
+                   window=window, train=train, rope_on=_use_rope(cfg),
+                   sq=sq)
     return x + o, kv
 
 
@@ -414,8 +464,8 @@ def _proj(x, p, name, bias, full: int, ax):
     if ax.split(w.shape[-1], full):
         y = x @ w
         return (y if b is None else y + b), True
-    y = x @ enter(w, ax)
-    return (y if b is None else y + enter(b, ax)), False
+    y = x @ whole(w, ax)
+    return (y if b is None else y + whole(b, ax)), False
 
 
 def _kv_for(t, a: int, b: int, H: int, K: int, klo: int = 0):
@@ -449,7 +499,7 @@ def _wo(p, o, ax, prefix=""):
 
 
 def _heads(cfg, p, h, src, positions, ax, *, prefix="", causal, window,
-           train, rope_on):
+           train, rope_on, sq=UNIT, src_sq=None):
     """Attention of a whole sequence on this model rank's query heads (on
     :data:`~repro_torch.runtime.partition.UNIT`, every head: the plain
     computation): queries from ``h``, keys and values from ``src`` (``h``
@@ -462,13 +512,26 @@ def _heads(cfg, p, h, src, positions, ax, *, prefix="", causal, window,
     ``wo``'s rows take their columns of the result.  Returns (out, (k,
     v)): the keys and values for the cache (RoPE applied; outside
     training), every kv head or, where this rank's kv columns are its
-    block of whole kv heads, that block."""
-    B, S, _ = h.shape
-    T = src.shape[1]
+    block of whole kv heads, that block.
+
+    ``sq`` and ``src_sq`` (by default ``sq``): the axes ``h`` and ``src``
+    are split over along their positions (``positions``: ``h``'s).  In a
+    region (sequence parallelism) its entry gathers the positions; without
+    one (token parallelism) the rank's queries attend every position's
+    keys and values, gathered over the positions."""
+    src_sq = sq if src_sq is None else src_sq
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     bias = cfg.qkv_bias and not prefix
     hq = enter(h, ax)
-    hk = hq if src is h else enter(src, ax)
+    hk = hq if src is h else enter(src, dataclasses.replace(
+        ax, seq=src_sq.n > 1) if ax.n > 1 else ax)
+    B, S, _ = hq.shape
+    T = hk.shape[1]
+    q_offset = 0
+    if ax.seq:  # every position, gathered at the region's entry
+        positions = torch.arange(S, device=hq.device)
+    elif sq.n > 1:
+        q_offset = sq.block(S * sq.n)[0]
     q, _ = _proj(hq, p, prefix + "wq", bias and "bq", H * hd, ax)
     k, k_split = _proj(hk, p, prefix + "wk", bias and "bk", K * hd, ax)
     v, v_split = _proj(hk, p, prefix + "wv", bias and "bv", K * hd, ax)
@@ -500,10 +563,15 @@ def _heads(cfg, p, h, src, positions, ax, *, prefix="", causal, window,
                 kc if train else rope(kc, positions, cfg.rope_theta))
             k = kr
         kv = kc, vc
+    if ax.n == 1 and src_sq.n > 1:  # token parallelism: every key
+        note(ctx, f"k and v gathered over 'model' along the positions "
+             f"(model={src_sq.n}): each rank's queries attend every key")
+        k, v = gather(k, 1, src_sq), gather(v, 1, src_sq)
     q = q.reshape(B, S, b - a, hd)
     if rope_on:
         q = rope(q, positions, cfg.rope_theta)
-    o = _attend(q, k, v, causal=causal, window=window, train=train)
+    o = _attend(q, k, v, causal=causal, window=window, train=train,
+                q_offset=q_offset)
     return _wo(p, o, ax, prefix), kv
 
 
@@ -599,19 +667,28 @@ def _ring_len(cfg, cache_len: int | None) -> int | None:
 
 
 def _xattn_cross(cfg, p, x, *, enc_out=None, cached_kv=None, enc_len=None,
-                 train=False):
+                 train=False, sq=UNIT, enc_sq=UNIT):
     """Cross-attention sub-block of an ``xattn`` block: queries from x,
     keys and values from the encoder's output ``enc_out`` (full attention
     of the whole sequence, queries fewer than keys) or from the cache
     (``cached_kv``: one decode step over every cached slot, of
     ``enc_len``; split over "model" along its positions, a partial each
-    rank combines).  Returns (x, (k, v))."""
+    rank combines).  Returns (x, (k, v)).  ``sq`` and ``enc_sq``: the
+    axes ``x`` and ``enc_out`` are split over along their positions
+    (training)."""
     H, hd = cfg.n_heads, cfg.hd
-    h = rms_norm(x, p["normx"], cfg.norm_eps)
-    ax = tp_axis(p["x_wq"].shape[-1], H * hd)
+    h = rms_norm(x, seq_param(p["normx"], sq), cfg.norm_eps)
+    ax = tp_axis(p["x_wq"].shape[-1], H * hd, sq)
     if cached_kv is None:
+        if ax.n == 1 and sequence_parallel(sq):
+            enc = seq_gather(enc_out, enc_sq)
+            return x + _on_every_position(lambda hh, _: _heads(
+                cfg, p, hh, enc, None, ax, prefix="x_", causal=False,
+                window=None, train=train, rope_on=False)[0], h, sq,
+                "attention/x_"), None
         o, kv = _heads(cfg, p, h, enc_out, None, ax, prefix="x_",
-                       causal=False, window=None, train=train, rope_on=False)
+                       causal=False, window=None, train=train, rope_on=False,
+                       sq=sq, src_sq=enc_sq)
         return x + o, kv
     q, ab = _decode_q(cfg, p, h, ax, prefix="x_")
     k, v = cached_kv
@@ -627,19 +704,26 @@ def _xattn_cross(cfg, p, x, *, enc_out=None, cached_kv=None, enc_len=None,
     return x + _wo(p, o, ax, "x_"), (k, v)
 
 
-def _mlp_res(cfg, p, x):
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+def _mlp_res(cfg, p, x, sq=UNIT):
+    h = rms_norm(x, seq_param(p["norm2"], sq), cfg.norm_eps)
     pp = {k[4:]: v for k, v in p.items() if k.startswith("mlp_")}
-    return x + mlp(pp, h, cfg.act, d_ff=cfg.d_ff)
+    return x + mlp(pp, h, cfg.act, d_ff=cfg.d_ff, sq=sq)
 
 
-def _ffn_res(cfg, kind, p, x):
+def _ffn_res(cfg, kind, p, x, sq=UNIT):
     """The block's feed-forward half: the routed MLP of a ``moe`` block
-    (returns its aux loss too), the dense MLP otherwise (aux None)."""
+    (returns its aux loss too; on every position of a stream split over
+    ``sq``, as the reference's dispatch reads the data shard's tokens),
+    the dense MLP otherwise (aux None)."""
     if kind == "moe":
-        y, aux = moe_mlp(cfg, p, rms_norm(x, p["norm2"], cfg.norm_eps))
-        return x + y, aux
-    return _mlp_res(cfg, p, x), None
+        h = rms_norm(x, seq_param(p["norm2"], sq), cfg.norm_eps)
+        if sq.n == 1:
+            y, aux = moe_mlp(cfg, p, h)
+            return x + y, aux
+        _note_every_position("moe/dispatch", sq)
+        y, aux = moe_mlp(cfg, p, seq_gather(h, sq))
+        return x + seq_scatter(y, sq), aux
+    return _mlp_res(cfg, p, x, sq), None
 
 
 def _block_prefill(cfg, kind, p, x, positions, cache, enc_out=None,
@@ -832,37 +916,72 @@ def _layers(cfg, params, cache, plans=None):
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def _embed(cfg, params, tokens):
+def _embed(cfg, params, tokens, *, sq=UNIT, lead: int = 0):
     """Token embeddings in the compute dtype.  Where ``embed/tok`` holds
     this model rank's rows of the vocabulary (under tensor parallelism),
     each rank looks up the ids it holds, zeros the rest, and
-    the lookups are summed over "model"."""
-    emb, ids = params["embed/tok"], tokens.reshape(-1)
-    ax = tp_axis(emb.shape[0], cfg.vocab)
+    the lookups are summed over "model".
+
+    ``sq``: the axis the stream is split over along its positions, whose
+    first ``lead`` positions are not text (a VLM's patches): the
+    embeddings of the text rows of this rank's block of positions.  Under
+    sequence parallelism the rank's vocabulary rows are looked up for
+    every text position and the sum over "model" is reduce-scattered to
+    the rank's positions."""
+    emb = params["embed/tok"]
+    ax = tp_axis(emb.shape[0], cfg.vocab, sq)
+    lo, hi = sq.block(lead + tokens.shape[1])
+    if sq.n > 1 and not ax.seq:  # the text rows of this rank's positions
+        a = max(lo, lead) - lead
+        tokens = tokens[:, a:max(a, hi - lead)]
+        emb = seq_param(emb, sq)
+    ids = tokens.reshape(-1)
     if ax.n > 1:
-        lo, hi = ax.block(cfg.vocab)
-        ok = (ids >= lo) & (ids < hi)
+        vlo, vhi = ax.block(cfg.vocab)
+        ok = (ids >= vlo) & (ids < vhi)
         # index_select: its backward is deterministic on the card
-        x = emb.index_select(0, torch.where(ok, ids - lo, 0))
-        x = leave(torch.where(ok[:, None], x, torch.zeros(
-            (), dtype=x.dtype, device=x.device)), ax)
+        x = emb.index_select(0, torch.where(ok, ids - vlo, 0))
+        x = torch.where(ok[:, None], x, torch.zeros(
+            (), dtype=x.dtype, device=x.device))
+        if ax.seq:  # every text position's, reduce-scattered to the rank's
+            x = F.pad(x.reshape(*tokens.shape, -1), (0, 0, lead, 0))
+            x = leave(x, ax)[:, max(lead - lo, 0):]
+        else:
+            x = leave(x, ax).reshape(*tokens.shape, x.shape[-1])
     else:
         # index_select: its backward is deterministic on the card under
         # torch.use_deterministic_algorithms (indexing's need not be)
-        x = emb.index_select(0, ids)
-    x = x.reshape(*tokens.shape, -1).to(getattr(torch, cfg.dtype))
+        x = emb.index_select(0, ids).reshape(*tokens.shape, emb.shape[-1])
+    x = x.to(getattr(torch, cfg.dtype))
     if cfg.scale_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
-def _logits(cfg, params, x):
-    """Logits of the final-normed ``x``: over this model rank's block of
-    the vocabulary where the head holds one (``x`` enters a region)."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+def _head(cfg, params, sq=UNIT):
+    """The output head (the tied embedding's transpose, or ``lm_head``)
+    and the axis its region runs over (``sq``: the stream's)."""
     head = (params["embed/tok"].T if cfg.tie_embeddings
             else params["lm_head"])
-    x = enter(x, tp_axis(head.shape[-1], cfg.vocab))
+    return head, tp_axis(head.shape[-1], cfg.vocab, sq)
+
+
+def _logits(cfg, params, x, *, sq=UNIT, lead: int = 0):
+    """Logits of the final-normed ``x`` past its first ``lead`` positions
+    (a VLM's patches): over this model rank's block of the vocabulary
+    where the head holds one (``x`` enters a region).  ``sq``: the axis
+    ``x`` is split over along its positions (``x`` the rank's block):
+    under sequence parallelism the region's entry gathers them, and the
+    logits are every text position's; otherwise the rank's text rows'."""
+    head, ax = _head(cfg, params, sq)
+    norm = seq_param(params["final_norm"], sq)
+    if ax.seq:  # normed on the rank's positions, gathered at the entry
+        x = enter(rms_norm(x, norm, cfg.norm_eps), ax)[:, lead:]
+    else:
+        lo = sq.block(x.shape[1] * sq.n)[0]
+        x = enter(rms_norm(x[:, max(lead - lo, 0):], norm, cfg.norm_eps),
+                  ax)
+        head = seq_param(head, sq)
     logits = x @ head.to(x.dtype)
     if cfg.logit_softcap > 0:
         c = cfg.logit_softcap
@@ -890,20 +1009,23 @@ def _ce_terms(cfg, logits, tgt):
     return lse, leave(tl, ax)
 
 
-def _encode(cfg, params, frames, *, train: bool = False, plans=None):
+def _encode(cfg, params, frames, *, train: bool = False, plans=None,
+            sq=UNIT):
     """Whisper's encoder over the stubbed frame embeddings (B, S_enc, D):
     sinusoidal positions, ``enc_layers`` blocks of full self-attention
     and MLP, then ``enc_norm``.  ``train``: the differentiable path, each
-    layer a remat unit (``plans``: the blocks' gathers, under a mesh);
-    otherwise the attention kernel."""
-    x = frames.to(getattr(torch, cfg.dtype))
-    positions = torch.arange(x.shape[1], device=x.device)
+    layer a remat unit (``plans``: the blocks' gathers, under a mesh;
+    ``sq``: the axis the frames' positions are split over, the output
+    then the rank's block of them); otherwise the attention kernel."""
+    lo, hi = sq.block(frames.shape[1])
+    x = frames[:, lo:hi].to(getattr(torch, cfg.dtype))
+    positions = torch.arange(lo, hi, device=x.device)
     x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
     if train:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         x, _ = _scan_group_train(cfg, params, "enc/g0", cfg.enc_layers,
                                  ("enc_attn",), x, positions, aux,
-                                 plans=plans)
+                                 plans=plans, sq=sq)
     else:
         gp = {f"enc/g0/p0/{k}": t.unbind(0)
               for k, t in sub(params, "enc/g0/p0").items()}
@@ -913,28 +1035,43 @@ def _encode(cfg, params, frames, *, train: bool = False, plans=None):
             x = _mlp_res(cfg, p, _attn_block(cfg, p, x, positions,
                                              causal=False)[0])
         loop_mark("enc/g0", cfg.enc_layers, cfg.enc_layers)
-    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+    return rms_norm(x, seq_param(params["enc_norm"], sq), cfg.norm_eps)
 
 
 def _prepare_inputs(cfg, params, batch, *, train: bool = False,
                     plans=None):
-    """The decoder's input sequence: (x, positions, enc_out, img).  A VLM
-    puts the projected patches (``batch["patches"]``, (B, img, D)) before
-    the text and returns their count ``img`` (0 otherwise); an
-    encoder-decoder model encodes ``batch["frames"]`` (``enc_out``, None
-    otherwise) and adds sinusoidal positions to the text."""
-    x = _embed(cfg, params, batch["inputs"])
-    enc_out, img = None, 0
-    if cfg.frontend == "vlm_stub":
-        patches = batch["patches"].to(x.dtype) @ params["mm_proj"].to(x.dtype)
+    """The decoder's input sequence: (x, positions, enc_out, img, sq,
+    enc_sq).  A VLM puts the projected patches (``batch["patches"]``, (B,
+    img, D)) before the text and returns their count ``img`` (0
+    otherwise); an encoder-decoder model encodes ``batch["frames"]``
+    (``enc_out``, None otherwise) and adds sinusoidal positions to the
+    text.  In training, where the rules map the activations' "seq"
+    (:func:`~repro_torch.runtime.partition.stream_axis`), the decoder's
+    stream and the encoder's are split over ``sq`` and ``enc_sq`` along
+    their positions: ``x``, ``positions`` and ``enc_out`` are this rank's
+    blocks of them (the patches' rows, the text's and the frames' of its
+    positions); otherwise both are :data:`UNIT`."""
+    tokens = batch["inputs"]
+    img = batch["patches"].shape[1] if cfg.frontend == "vlm_stub" else 0
+    n = img + tokens.shape[1]
+    sq = stream_axis(n) if train else UNIT
+    lo, hi = sq.block(n)
+    x = _embed(cfg, params, tokens, sq=sq, lead=img)
+    if img:
+        patches = batch["patches"][:, lo:max(lo, min(hi, img))]
+        patches = patches.to(x.dtype) @ seq_param(
+            params["mm_proj"], sq).to(x.dtype)
         x = torch.cat([patches, x], dim=1)
-        img = patches.shape[1]
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(lo, hi, device=x.device)
+    enc_out, enc_sq = None, UNIT
     if cfg.is_encdec:
-        enc_out = _encode(cfg, params, batch["frames"], train=train,
-                          plans=plans)
+        frames = batch["frames"]
+        if train:
+            enc_sq = stream_axis(frames.shape[1], "activations/encoder")
+        enc_out = _encode(cfg, params, frames, train=train, plans=plans,
+                          sq=enc_sq)
         x = x + sinusoidal_positions(positions, cfg.d_model)[None].to(x.dtype)
-    return x, positions, enc_out, img
+    return x, positions, enc_out, img, sq, enc_sq
 
 
 def _planner(specs):
@@ -960,24 +1097,36 @@ def _gather_top(specs, params, plans, mesh):
 # Training forward (every kind)
 # ---------------------------------------------------------------------------
 
-def _block_train(cfg, kind, p, x, positions, aux, enc_out=None):
+def _block_train(cfg, kind, p, x, positions, aux, enc_out=None, sq=UNIT,
+                 enc_sq=UNIT):
     """Full-sequence block application in training (the encoder's blocks
     too): the reference's ``_block_train``; a ``moe`` block adds its
     load-balance loss to ``aux``.  Returns (x, aux).  Only differentiable
-    plain paths: never a kernel of ``ops``."""
-    if kind == "ssm":
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        return x + mamba2_forward(cfg, p, h, train=True), aux
-    if kind == "rglru":
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        return _mlp_res(cfg, p, x + griffin_forward(cfg, p, h,
-                                                    train=True)), aux
+    plain paths: never a kernel of ``ops``.  ``sq`` and ``enc_sq``: the
+    axes ``x`` and ``enc_out`` are split over along their positions
+    (``positions``: ``x``'s): each module runs on the rank's positions,
+    in a sequence-parallel region where its weights hold the rank's
+    block, and an SSM or RG-LRU scan without one on the whole sequence
+    (the recurrence carries its state from the first position)."""
+    if kind in ("ssm", "rglru"):
+        h = rms_norm(x, seq_param(p["norm1"], sq), cfg.norm_eps)
+        fn, ax = ((mamba2_forward, tp_axis(p["out_proj"].shape[0],
+                                           cfg.d_inner))
+                  if kind == "ssm" else
+                  (griffin_forward, tp_axis(p["wx"].shape[-1], cfg.lru)))
+        if sq.n > 1 and ax.n == 1:
+            o = _on_every_position(lambda hh, _: fn(cfg, p, hh, train=True),
+                                   h, sq, f"{kind}/scan")
+        else:
+            o = fn(cfg, p, h, train=True, sq=sq)
+        return (x + o if kind == "ssm" else _mlp_res(cfg, p, x + o, sq)), aux
     window = cfg.window if kind == "local_attn" else None
     x = _attn_block(cfg, p, x, positions, causal=kind != "enc_attn",
-                    window=window, train=True)[0]
+                    window=window, train=True, sq=sq)[0]
     if kind == "xattn":
-        x = _xattn_cross(cfg, p, x, enc_out=enc_out, train=True)[0]
-    x, a = _ffn_res(cfg, kind, p, x)
+        x = _xattn_cross(cfg, p, x, enc_out=enc_out, train=True, sq=sq,
+                         enc_sq=enc_sq)[0]
+    x, a = _ffn_res(cfg, kind, p, x, sq)
     return x, aux if a is None else aux + a
 
 
@@ -1007,12 +1156,13 @@ def _remat(cfg: ModelConfig, fn):
 
 
 def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
-                      enc_out=None, plans=None):
+                      enc_out=None, plans=None, sq=UNIT, enc_sq=UNIT):
     """The reference's scan over the stacked layers of ``group`` (``g{gi}``,
     or the encoder's ``enc/g0``), as a loop; each layer is one remat unit,
     which first gathers its parameters' blocks by ``plans`` (name ->
     :func:`~repro_torch.runtime.partition.gather_plan`; under a mesh), so
-    the backward gathers them again.  Returns (x, aux)."""
+    the backward gathers them again (``sq``, ``enc_sq``: as
+    :func:`_block_train`'s).  Returns (x, aux)."""
     # each stacked tensor unbound once: its gradient is one stack of the
     # layers' gradients, where indexing would add a zero-padded copy of the
     # whole stack per layer (a cost quadratic in the depth)
@@ -1029,7 +1179,7 @@ def _scan_group_train(cfg, params, group, reps, pattern, x, positions, aux,
                                 for k, t in layer_params.items()}
             for pj, kind in enumerate(pattern):
                 x, aux = _block_train(cfg, kind, sub(layer_params, f"p{pj}"),
-                                      x, positions, aux, enc_out)
+                                      x, positions, aux, enc_out, sq, enc_sq)
         return x, aux
 
     body = _remat(cfg, body)
@@ -1075,14 +1225,22 @@ def make_loss_fn(cfg: ModelConfig):
         if mesh is not None and is_train_rules(rules):
             plans = plans_for(rules, mesh)
             params = _gather_top(specs, params, plans, mesh)
-        x, positions, enc_out, img = _prepare_inputs(cfg, params, batch,
-                                                     train=True, plans=plans)
+        x, positions, enc_out, img, sq, enc_sq = _prepare_inputs(
+            cfg, params, batch, train=True, plans=plans)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for gi, (reps, pattern) in enumerate(cfg.groups()):
             x, aux = _scan_group_train(cfg, params, f"g{gi}", reps, pattern,
-                                       x, positions, aux, enc_out, plans)
-        logits = _logits(cfg, params, x[:, img:])
+                                       x, positions, aux, enc_out, plans, sq,
+                                       enc_sq)
+        logits = _logits(cfg, params, x, sq=sq, lead=img)
         targets = batch["targets"]
+        # the CE's rows: every text position, or the rank's where the
+        # stream is split and the head's region does not gather it
+        split = sq.n > 1 and not _head(cfg, params, sq)[1].seq
+        if split:
+            lo, hi = sq.block(img + targets.shape[1])
+            a = max(lo, img) - img
+            targets = targets[:, a:max(a, hi - img)]
         mask = (targets >= 0).float()
         tgt = torch.clamp(targets, min=0).long()
         lse, tl = _ce_terms(cfg, logits, tgt)
@@ -1091,9 +1249,13 @@ def make_loss_fn(cfg: ModelConfig):
         mesh = current_mesh()
         if mesh is not None:
             axes = batch_axes(mesh)
-            n_dp = math.prod(mesh_shape(mesh)[a] for a in axes)
-            ce_sum = psum(ce_sum, axis_groups(mesh, axes), grad_scale=n_dp)
-            ntok = psum(ntok, axis_groups(mesh, axes))
+            groups = axis_groups(mesh, axes)
+            scale = math.prod(mesh_shape(mesh)[a] for a in axes)
+            if split:  # summed over the positions' axis too
+                groups.append(sq.group)
+                scale *= 1 if sequence_parallel(sq) else sq.n
+            ce_sum = psum(ce_sum, groups, grad_scale=scale)
+            ntok = psum(ntok, groups)
         ntok = torch.clamp(ntok, min=1.0)
         loss = ce_sum / ntok
         if cfg.n_experts:
@@ -1145,8 +1307,8 @@ def make_prefill_fn(cfg: ModelConfig, *, cache_len: int | None = None,
     @torch.no_grad()
     def prefill_fn(params, batch, cache0):
         params, plans = _serving(specs, plans_for, params)
-        x, positions, enc_out, _ = _prepare_inputs(cfg, params, batch,
-                                                   plans=plans)
+        x, positions, enc_out, *_ = _prepare_inputs(cfg, params, batch,
+                                                    plans=plans)
         lens = (cache_len, enc_len)
         for kind, p, c in _layers(cfg, params, cache0, plans):
             x = _block_prefill(cfg, kind, p, x, positions, c, enc_out, lens)

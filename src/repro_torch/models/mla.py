@@ -19,7 +19,10 @@ rank's columns split a head, the up-projections are gathered over "model"
 and every head computed, ``wo``'s rows taking their columns.  Serving
 under a mesh, prefill does the same, and the absorbed decode runs on the
 rank's heads (:func:`mla_decode_two_tier`), over a latent cache split
-along its positions a partial each rank combines.
+along its positions a partial each rank combines.  In training on a
+stream split along its positions :func:`mla_attention` computes the
+latent on the rank's positions and gathers it (into a region, or, without
+tensor parallelism, for the rank's queries to attend every key).
 
 Params:
     wq_a (D, q_lora)        q_norm (q_lora,)        wq_b (q_lora, H*(dn+dr))
@@ -32,7 +35,8 @@ from __future__ import annotations
 import torch
 
 from ..runtime.collectives import flash_decode_psum
-from ..runtime.partition import enter, gather, leave, model_axis, tp_axis
+from ..runtime.partition import (UNIT, enter, gather, leave, model_axis,
+                                 seq_param, tp_axis, whole)
 from ..runtime.sharding import note
 from .attention import (blockwise_attention, prefill_attention,
                         softmax_partial)
@@ -75,7 +79,11 @@ def mla_project_qkv(cfg, p, x, positions):
     return torch.cat([qn, qr], dim=-1), c_kv, k_r
 
 
-def mla_attention(cfg, p, x, positions, *, train: bool = False):
+# the parameters of the latent, the query's down-projection and the rope key
+_LATENT = ("wq_a", "q_norm", "wkv_a", "kv_norm")
+
+
+def mla_attention(cfg, p, x, positions, *, train: bool = False, sq=UNIT):
     """Causal attention of a whole sequence from position 0.  Returns
     (out (B,S,D), (c_kv, k_rope)) for the cache write.  ``train``: the
     differentiable :func:`blockwise_attention`; otherwise the kernel.
@@ -83,16 +91,35 @@ def mla_attention(cfg, p, x, positions, *, train: bool = False):
     A region over this model rank's heads where ``wq_b`` holds its block
     (under tensor parallelism; on ``UNIT`` otherwise, every head): the
     latent, the query's down-projection and the rope key computed whole,
-    ``wq_b``/``wkv_b`` column-parallel and ``wo`` row-parallel."""
-    B, S, _ = x.shape
+    ``wq_b``/``wkv_b`` column-parallel and ``wo`` row-parallel.
+
+    ``sq``: the axis ``x`` is split over along its positions (training;
+    ``positions`` are the rank's).  The latent, the query's
+    down-projection and the rope key are computed on the rank's positions
+    (their parameters' gradients summed over the ranks under sequence
+    parallelism); the region's entry gathers them over the positions, or,
+    without tensor parallelism, the latent and the rope key are gathered
+    and the rank's queries attend every position."""
     H, dn, dr, dv = (cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim,
                      cfg.v_head_dim)
-    ax = tp_axis(p["wq_b"].shape[-1], H * (dn + dr))
+    ax = tp_axis(p["wq_b"].shape[-1], H * (dn + dr), sq)
+    if sq.n > 1:
+        p = {**p, **{k: seq_param(p[k], sq) for k in _LATENT}}
     cq, c_kv, k_r = _latent(cfg, p, x, positions)
-    q = enter(cq, ax) @ p["wq_b"]
+    q_offset = 0
+    if ax.seq:  # every position, gathered at the region's entry
+        positions = torch.arange(x.shape[1] * ax.n, device=x.device)
+    elif sq.n > 1:  # token parallelism: the rank's queries, every key
+        note("attention/mla", f"the latent and the rope key gathered over "
+             f"'model' along the positions (model={sq.n})")
+        q_offset = sq.block(x.shape[1] * sq.n)[0]
+        c_kv, k_r = gather(c_kv, 1, sq), gather(k_r, 1, sq)
+    cq, c_kv, k_r = enter(cq, ax), enter(c_kv, ax), enter(k_r, ax)
+    B, S, T = cq.shape[0], cq.shape[1], c_kv.shape[1]
+    q = cq @ p["wq_b"]
     w = p["wkv_b"]
     kv_split = ax.split(w.shape[-1], H * (dn + dv))
-    kv = enter(c_kv, ax) @ (w if kv_split else enter(w, ax))
+    kv = c_kv @ (w if kv_split else whole(w, ax))
     if H % ax.n:  # this rank's columns split a head: every head here
         note("attention/mla", f"{H} heads on model={ax.n}: the "
              "up-projections gathered over 'model', every head computed on "
@@ -108,12 +135,15 @@ def mla_attention(cfg, p, x, positions, *, train: bool = False):
     q = q.reshape(B, S, Hl, dn + dr)
     q = torch.cat([q[..., :dn], rope(q[..., dn:], positions,
                                      cfg.rope_theta)], dim=-1)
-    kv = kv.reshape(B, S, Hl, dn + dv)
+    kv = kv.reshape(B, T, Hl, dn + dv)
     kn, v = kv[..., :dn], kv[..., dn:]
-    k_full = torch.cat(
-        [kn, enter(k_r, ax)[:, :, None, :].expand(B, S, Hl, dr)], dim=-1)
-    attend = blockwise_attention if train else prefill_attention
-    out = attend(q, k_full, v, causal=True, scale=_scale(cfg))
+    k_full = torch.cat([kn, k_r[:, :, None, :].expand(B, T, Hl, dr)],
+                       dim=-1)
+    if train:
+        out = blockwise_attention(q, k_full, v, causal=True,
+                                  scale=_scale(cfg), q_offset=q_offset)
+    else:
+        out = prefill_attention(q, k_full, v, causal=True, scale=_scale(cfg))
     out = out.reshape(B, S, Hl * dv)
     wo = p["wo"]
     if out.shape[-1] != wo.shape[0]:  # every head here: wo's columns
@@ -172,7 +202,7 @@ def _decode_heads(cfg, p, cq, positions, ax):
     q = enter(cq, ax) @ p["wq_b"]
     w = p["wkv_b"]
     kv_split = ax.split(w.shape[-1], H * (dn + dv))
-    w = w if kv_split else enter(w, ax)
+    w = w if kv_split else whole(w, ax)
     if H % ax.n:  # this rank's columns split a head: every head here
         note("attention/mla", f"{H} heads on model={ax.n}: the "
              "up-projections gathered over 'model', every head computed on "

@@ -36,6 +36,9 @@ before the layer).
 The dense dispatch under a mesh whose batch is sharded (``tp=False``:
 the experts whole on every rank) takes the load-balance loss's means over
 the whole batch, as the reference's partitioned program computes them.
+Where training splits the sequence over "model", the caller gathers the
+positions first (``lm._ffn_res``): both paths take every position of the
+rank's rows, as the reference's dispatch takes the data shard's tokens.
 """
 
 from __future__ import annotations

@@ -25,7 +25,9 @@ rank runs its own heads of x, z and dt (B and C whole), the gated norm's
 sum of squares all-reduced, and ``out_proj`` row-parallel over its heads'
 rows.  The decode state ``h`` is the rank's heads; the conv carry, which
 the reference's layout replicates, is every channel's, from the gathered
-projection.
+projection.  In training on a stream split along its positions
+(sequence parallelism) the region's entry gathers them, so the conv and
+the scan run on the whole sequence of the rank's heads.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from ..runtime.partition import enter, gather, leave, psum_region, tp_axis
+from ..runtime.partition import (UNIT, enter, gather, leave, psum_region,
+                                 tp_axis, whole)
 from ..runtime.sharding import note
 from .layers import causal_conv1d, conv_carry, f32_einsum, rms_norm
 
@@ -151,7 +154,7 @@ def _broadcast_groups(cfg, t):
     return t.reshape(B, S, H, N)
 
 
-def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
+def mamba2_forward(cfg, p, x, *, return_state=False, train=False, sq=UNIT):
     """Full-sequence Mamba-2 block.  x: (B,S,D) -> (B,S,D); with
     ``return_state`` also ``(h_last (B,H,N,P) f32, conv_state)``, the
     decode carry.  The scan is the ``ssd_scan`` kernel, which reads x, Bm
@@ -168,13 +171,15 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
     Where the heads do not divide over "model" every head is computed here
     and ``out_proj``'s rows take their columns.  Otherwise the region is
     ``UNIT``'s: every head, the plain computation.  The returned state is
-    the rank's heads, and the conv carry every channel's."""
-    B, S, D = x.shape
+    the rank's heads, and the conv carry every channel's.  ``sq``: the
+    axis ``x`` is split over along its positions, which the region's
+    boundaries gather and reduce-scatter (sequence parallelism)."""
     H, P, N, G = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
     d_in = cfg.d_inner
-    ax = tp_axis(p["out_proj"].shape[0], d_in)
+    ax = tp_axis(p["out_proj"].shape[0], d_in, sq)
     hin = enter(x, ax)
+    B, S, D = hin.shape
     w = p["in_proj"]
     if ax.split(w.shape[-1], 2 * d_in + 2 * G * N + H):
         if ax.n > 1:
@@ -183,7 +188,7 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
                  "'model'")
         zxbcdt = gather(hin @ w, -1, ax)
     else:
-        zxbcdt = hin @ enter(w, ax)
+        zxbcdt = hin @ whole(w, ax)
     z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
     if H % ax.n:
         note("ssm/heads", f"{H} heads on model={ax.n}: every head computed "
@@ -192,7 +197,7 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
     else:
         a, b = ax.block(H)
     c0, c1 = a * P, b * P
-    conv_w = enter(p["conv_w"], ax)
+    conv_w = whole(p["conv_w"], ax)
     new_conv = None
     if b - a < H:  # this rank's channels of x, then B and C
         if return_state:  # the carry of every channel
@@ -207,8 +212,8 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
     Bm = _broadcast_groups(cfg, xBC[..., nl:nl + G * N])[:, :, a:b]
     C = _broadcast_groups(cfg, xBC[..., nl + G * N:])[:, :, a:b]
     dt = F.softplus(dt[..., a:b].float()
-                    + enter(p["dt_bias"], ax)[a:b].float())
-    A = -torch.exp(enter(p["A_log"], ax)[a:b].float())
+                    + whole(p["dt_bias"], ax)[a:b].float())
+    A = -torch.exp(whole(p["A_log"], ax)[a:b].float())
     if train:
         y, h_last = ssd_chunked(xs, dt, A, Bm, C, chunk=cfg.ssm_chunk)
     else:
@@ -216,10 +221,10 @@ def mamba2_forward(cfg, p, x, *, return_state=False, train=False):
                                  Bm.transpose(1, 2), C.transpose(1, 2),
                                  return_state=True)
         y = y.transpose(1, 2)                               # (B,S,H,P)
-    y = y + xs.float() * enter(p["D"], ax)[a:b].float()[None, None, :, None]
+    y = y + xs.float() * whole(p["D"], ax)[a:b].float()[None, None, :, None]
     y = y.reshape(B, S, nl).to(x.dtype)
     y = y * F.silu(z[..., c0:c1])
-    scale = enter(p["norm"], ax)[c0:c1]
+    scale = whole(p["norm"], ax)[c0:c1]
     if b - a == H:  # every channel here: the gated norm as it is
         y = rms_norm(y, scale, cfg.norm_eps)
     else:  # the variance over all d_inner channels, summed over "model"
@@ -253,9 +258,9 @@ def mamba2_decode_step(cfg, p, x, h, conv_state):
     if ax.split(w.shape[-1], 2 * d_in + 2 * G * N + H):
         zxbcdt = gather(hin @ w, -1, ax)
     else:
-        zxbcdt = hin @ enter(w, ax)
+        zxbcdt = hin @ whole(w, ax)
     z, xBC, dt = _split_zxbcdt(cfg, zxbcdt)
-    xBC, conv_state = causal_conv1d(xBC, enter(p["conv_w"], ax), conv_state)
+    xBC, conv_state = causal_conv1d(xBC, whole(p["conv_w"], ax), conv_state)
     xBC = F.silu(xBC)
     xs, Bm, C = _split_xbc(cfg, xBC)
     a, b = (0, H) if H % ax.n else ax.block(H)
@@ -264,13 +269,13 @@ def mamba2_decode_step(cfg, p, x, h, conv_state):
     Bm = _broadcast_groups(cfg, Bm)[:, 0, a:b]
     C = _broadcast_groups(cfg, C)[:, 0, a:b]
     dt = F.softplus(dt[..., a:b].float()
-                    + enter(p["dt_bias"], ax)[a:b].float())[:, 0]
-    A = -torch.exp(enter(p["A_log"], ax)[a:b].float())
+                    + whole(p["dt_bias"], ax)[a:b].float())[:, 0]
+    A = -torch.exp(whole(p["A_log"], ax)[a:b].float())
     y, h = ssd_step(h, xs, dt, A, Bm, C)
-    y = y + xs.float() * enter(p["D"], ax)[a:b].float()[None, :, None]
+    y = y + xs.float() * whole(p["D"], ax)[a:b].float()[None, :, None]
     y = y.reshape(B, 1, c1 - c0).to(x.dtype)
     y = y * F.silu(z[..., c0:c1])
-    scale = enter(p["norm"], ax)[c0:c1]
+    scale = whole(p["norm"], ax)[c0:c1]
     if b - a == H:
         y = rms_norm(y, scale, cfg.norm_eps)
     else:  # the variance over all d_inner channels, summed over "model"

@@ -25,10 +25,10 @@ reference's block of every parameter, optimizer moment and batch (data
 and tensor parallelism, FSDP, the experts), and prefill and decode the
 reference's block of every served weight, cache entry, prompt and
 logit (tensor parallelism over "model", the KV cache over its kv heads
-or its positions, the ``/wsharded`` weights' FSDP).  It records one kind
-of mapping in :func:`sharding_report`: a training activation "seq"
-mapping, whose activations the trainer holds replicated -- the values do
-not change (sequence parallelism: ROADMAP A14d).  :func:`shard` keeps the
+or its positions, the ``/wsharded`` weights' FSDP), and the training step
+splits the residual stream along its positions where the rules map the
+activations' "seq" (sequence and token parallelism,
+:func:`~repro_torch.runtime.partition.stream_axis`).  :func:`shard` keeps the
 reference's contract (a no-op without a mesh, a rank check, the fallback
 record) and returns the local tensor unchanged: the reference's ``shard``
 calls are GSPMD layout hints, with no counterpart when each rank already
@@ -48,7 +48,7 @@ __all__ = [
     "use_rules", "current_rules", "current_mesh", "shard", "logical_to_spec",
     "explicit_spec", "train_rules", "serve_rules", "sharding_report",
     "named_sharding", "mesh_shape", "mesh_coords", "batch_axes",
-    "fresh_report", "is_train_rules", "note", "spec_axes",
+    "fresh_report", "is_train_rules", "note", "spec_axes", "token_axes",
 ]
 
 # The logical axis vocabulary used across the model zoo.
@@ -133,9 +133,8 @@ _REPORT: dict[str, list[str]] = {}
 
 
 def sharding_report() -> dict[str, list[str]]:
-    """Divisibility fallbacks, the mappings :func:`explicit_spec` left
-    unapplied and the gathers of :func:`note`, recorded since process
-    start (context -> messages)."""
+    """Divisibility fallbacks and the gathers of :func:`note`, recorded
+    since process start (context -> messages)."""
     return _REPORT
 
 
@@ -241,25 +240,10 @@ def spec_axes(spec: PartitionSpec) -> tuple[str, ...]:
 def explicit_spec(axes: Sequence[str | None], shape: Sequence[int],
                   rules: ShardingRules | None = None, mesh=None,
                   context: str = "") -> PartitionSpec:
-    """The spec each rank's block follows: :func:`logical_to_spec`'s,
-    every mapping applied.  Under the training rules a "seq" mapping to
-    axes of size > 1 is recorded in :func:`sharding_report` under
-    ``context`` (the trainer holds those activations replicated: ROADMAP
-    A14d)."""
-    rules = rules if rules is not None else current_rules()
-    mesh = mesh if mesh is not None else current_mesh()
-    spec = logical_to_spec(axes, shape, rules, mesh, context)
-    if mesh is None or not is_train_rules(rules):
-        return spec
-    for i, part in enumerate(spec):
-        if axes[i] == "seq" and part is not None \
-                and _axis_size(mesh, part) > 1:
-            _record_fallback(
-                context or rules.name,
-                f"axis 'seq' dim {shape[i]} -> {_as_tuple(part)}="
-                f"{_axis_size(mesh, part)} not applied to activations "
-                "(sequence parallelism is ROADMAP A14d); replicated")
-    return spec
+    """The spec each rank's block follows: :func:`logical_to_spec`'s, every
+    mapping applied (the training activations' "seq" too: the step splits
+    the residual stream along its positions)."""
+    return logical_to_spec(axes, shape, rules, mesh, context)
 
 
 def batch_axes(mesh, rules: ShardingRules | None = None) -> tuple[str, ...]:
@@ -269,6 +253,20 @@ def batch_axes(mesh, rules: ShardingRules | None = None) -> tuple[str, ...]:
     rules = rules if rules is not None else current_rules()
     want = (_as_tuple(rules.mesh_axes("batch")) if rules is not None
             else ("pod", "data"))
+    return tuple(a for a in mesh_shape(mesh) if a in want)
+
+
+def token_axes(mesh, rules: ShardingRules | None = None) -> tuple[str, ...]:
+    """The mesh axes a training step's tokens are split over, over which
+    the trainer averages each gradient: the batch axes, and the axis the
+    rules map the activations' "seq" onto where it is not tensor
+    parallelism's (multi-pod ``tp=False``: token parallelism, a rank's
+    gradient its tokens' part), in the mesh's order."""
+    rules = rules if rules is not None else current_rules()
+    want = set(batch_axes(mesh, rules))
+    if is_train_rules(rules):
+        tp = set(_as_tuple(rules.mesh_axes("heads")))
+        want |= set(_as_tuple(rules.mesh_axes("seq"))) - tp
     return tuple(a for a in mesh_shape(mesh) if a in want)
 
 

@@ -37,10 +37,14 @@ and the experts over "model", FSDP over the data axes, or over every axis
 under ``tp=False``).  It makes its block one tensor at a time from the
 seeded initialisation, takes its rows of each global batch (row-major
 over the batch axes), and computes the step on its blocks
-(:mod:`~repro_torch.runtime.partition`).  Each gradient is then averaged
-per tensor: an FSDP block's gather already reduce-scattered it as a mean
-over its gathered axes, and the mean over the batch axes left ("pod")
-follows; a tensor held whole over the batch axes goes through
+(:mod:`~repro_torch.runtime.partition`); where the rules map the
+activations' "seq", the model takes the rank's positions of those rows
+(sequence parallelism beside tensor parallelism, token parallelism
+without it).  Each gradient is then averaged per tensor over the token
+axes (``token_axes``: the batch axes, and the sequence's axis under
+token parallelism): an FSDP block's gather already reduce-scattered it
+as a mean over its gathered axes, and the mean over the token axes left
+("pod") follows; a tensor held whole over them goes through
 ``hierarchical_pmean``.  The global norm sums each tensor's squares over
 exactly the axes its block spans, and int8 compression takes each whole
 tensor's scale (an all-reduce max over the same axes).  Each rank
@@ -69,9 +73,9 @@ from ..runtime.collectives import axis_groups, hierarchical_pmean
 from ..runtime.compress import compress_with_feedback, init_error_feedback
 from ..runtime.fault import HeartbeatMonitor, StragglerDetector
 from ..runtime.partition import gather_plan, reduction_axes
-from ..runtime.sharding import (NamedSharding, batch_axes, explicit_spec,
+from ..runtime.sharding import (NamedSharding, explicit_spec,
                                 is_train_rules, mesh_shape, spec_axes,
-                                train_rules, use_rules)
+                                token_axes, train_rules, use_rules)
 from .offload_opt import OutOfCoreAdamW
 from .optimizer import (_f32, AdamWConfig, adamw_update, global_norm,
                         init_opt_state)
@@ -158,9 +162,9 @@ class Trainer:
 
     def local_batch(self, batch: dict[str, np.ndarray]) -> dict:
         """This rank's rows of a global batch (leading microbatch axis, then
-        the batch axis): the whole batch without a mesh.  The residual
-        stream's "seq" mapping, where the rules make one, is recorded: its
-        activations are held replicated."""
+        the batch axis): the whole batch without a mesh.  Each row keeps
+        every position: where the rules map "seq", the model takes the
+        rank's positions of them."""
         if self.mesh is None:
             return batch
         out = {}
@@ -169,26 +173,26 @@ class Trainer:
             spec = explicit_spec(axes, v.shape, self.rules, self.mesh,
                                  context=f"batch/{k}")
             out[k] = NamedSharding(self.mesh, spec).local_slice(v)
-        explicit_spec((None, "batch", "seq"), batch["inputs"].shape,
-                      self.rules, self.mesh, context="activations")
         return out
 
     def _data_mean(self, grads: dict) -> dict:
-        """The mean over the batch axes of gradients held whole over them:
+        """The mean over the token axes of gradients held whole over them:
         one float32 buffer in sorted key order, padded to a multiple of the
         "data" axis' size, through ``hierarchical_pmean`` (inner "data",
-        outer the other batch axis, if any)."""
+        outer the first other token axis, if any), then an all-reduce mean
+        over each further one (token parallelism's "model")."""
         keys = sorted(grads)
         flat = torch.cat([grads[k].reshape(-1) for k in keys])
         n_in = mesh_shape(self.mesh)["data"]
         pad = -flat.numel() % n_in
         if pad:
             flat = torch.cat([flat, flat.new_zeros(pad)])
-        outer = [a for a in batch_axes(self.mesh, self.rules) if a != "data"]
-        if len(outer) > 1:
-            raise NotImplementedError(f"batch axes {outer + ['data']}")
+        outer = [a for a in token_axes(self.mesh, self.rules) if a != "data"]
         flat = hierarchical_pmean(flat, "data", outer[0] if outer else None,
                                   self.mesh)
+        for g in axis_groups(self.mesh, outer[1:]):
+            torch.distributed.all_reduce(flat, group=g)
+            flat = flat / torch.distributed.get_world_size(g)
         out, at = {}, 0
         for k in keys:
             n = grads[k].numel()
@@ -197,10 +201,10 @@ class Trainer:
         return out
 
     def _reduce_grads(self, grads: dict) -> dict:
-        """Each gradient's mean over the batch axes: a tensor the step does
+        """Each gradient's mean over the token axes: a tensor the step does
         not gather through :meth:`_data_mean`; an FSDP block, whose gather's
         backward already took the mean over its gathered axes, over the
-        batch axes left (one all-reduce per set of them, the tensors in
+        token axes left (one all-reduce per set of them, the tensors in
         sorted key order)."""
         whole, left, out = {}, {}, {}
         for k in sorted(grads):
@@ -232,7 +236,7 @@ class Trainer:
         axis (tensors on the trainer's device): summed in float32 from zero, then divided by
         ``tcfg.microbatches`` (a true division, as the reference's).  Under
         a mesh, ``batch`` is this rank's rows, the loss the global one and
-        the gradients their mean over the batch axes."""
+        the gradients their mean over the token axes."""
         if self.mesh is not None:
             with use_rules(self.rules, self.mesh):
                 loss, grads = self._loss_and_grads(params, batch)

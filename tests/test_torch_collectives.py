@@ -11,7 +11,13 @@ under ``PartitionSpec(mesh axes)``.  The two all-to-alls and the dispatch
 are held bit for bit, the means and ``flash_decode_psum`` at 1e-6; the
 all-to-all round trip is the identity, and ``flash_decode_psum`` also
 equals an unsharded softmax.  The gradient-carrying reductions (``psum``,
-``pmean``, ``replicated``) are held on their own.
+``pmean``, ``replicated``) are held on their own, and so are the
+sequence's collectives (``runtime.partition``): a region's ``enter`` and
+``leave`` on a stream split along its positions (sequence parallelism,
+``train_rules(seq_shard=True)``) and ``seq_gather``/``seq_scatter`` under
+it and under token parallelism (multi-pod ``tp=False``), forward and
+backward, on model axes of 2 and 4 ranks, against a single-process
+reckoning from every rank's inputs.
 
 ``run_ranks`` starts the ranks the way ``torch.distributed.run`` does
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``), each process
@@ -48,6 +54,15 @@ PMEAN_AXES = {"2x2": [("data", None), ("model", "data")],
               "2x1x2": [("data", "pod"), ("model", "pod")]}
 E, CAP, D, T, K = 4, 2, 5, 6, 2
 RANK_TIMEOUT = 120
+# the sequence's collectives: name -> (mesh shape, axes, train_rules
+# keywords); the model axis has 2 or 4 ranks
+SEQ_MESHES = {
+    "sp2": ((2, 2), ("data", "model"), {"seq_shard": True}),
+    "sp4": ((1, 4), ("data", "model"), {"seq_shard": True}),
+    "tok2": ((2, 1, 2), ("pod", "data", "model"), {"tp": False}),
+    "tok4": ((1, 1, 4), ("pod", "data", "model"), {"tp": False}),
+}
+SEQ_B, SEQ_S, SEQ_D = 2, 8, 3
 
 
 def _free_port() -> int:
@@ -142,7 +157,10 @@ def _inputs() -> dict[str, np.ndarray]:
         num.append(p @ v[r // 2, (r % 2) * 16:(r % 2 + 1) * 16])
         den.append(p.sum(-1))
         m.append(mloc)
+    seq = {k: rng.standard_normal((4, SEQ_B, SEQ_S, SEQ_D)).astype(
+        np.float32) for k in ("seq_c", "seq_p", "seq_g")}
     return {
+        **seq, "seq_x": seq["seq_c"][0] * 2,
         "x": rng.standard_normal((4, 16)).astype(np.float32),
         "buf": rng.standard_normal((4, E, CAP, D)).astype(np.float32),
         "xf": rng.standard_normal((4, T, D)).astype(np.float32),
@@ -203,7 +221,9 @@ def collectives_worker(directory: str) -> None:
     r = dist.get_rank()
     inp = {k: torch.from_numpy(v[r]) for k, v in
            np.load(Path(directory) / "inputs.npz").items()
-           if k not in ("scores", "v")}
+           if k not in ("scores", "v", "seq_x")}
+    seq_x = torch.from_numpy(np.load(Path(directory) / "inputs.npz")[
+        "seq_x"])
     out = {}
     for name, (shape, axes) in MESHES.items():
         mesh = make_mesh(shape, axes, device="cpu")
@@ -230,9 +250,52 @@ def collectives_worker(directory: str) -> None:
         (g_z,) = torch.autograd.grad((z * inp["x"]).sum(), x)
         out[f"{name}/reductions"] = y.detach()
         out[f"{name}/grad_y"], out[f"{name}/grad_z"] = g_y, g_z
+    out.update(_seq_collectives(seq_x, inp))
     torch.save({k: v.numpy() for k, v in out.items()},
                Path(directory) / f"rank{r}.pt")
     dist.destroy_process_group()
+
+
+def _seq_collectives(x, inp) -> dict:
+    """This rank's outputs and input gradients of the sequence's
+    collectives on each of ``SEQ_MESHES``: ``x`` the whole (B, S, D)
+    stream, every rank's; the cotangents ``seq_c`` (of whole-sequence
+    outputs) and ``seq_g`` (this rank's positions of it), the partials
+    ``seq_p``, this rank's."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import partition as pt
+    from repro_torch.runtime.sharding import (fresh_report, train_rules,
+                                              use_rules)
+    out = {}
+    for name, (shape, axes, kw) in SEQ_MESHES.items():
+        mesh = make_mesh(shape, axes, device="cpu")
+        with use_rules(train_rules(len(axes) == 3, **kw), mesh):
+            with fresh_report() as report:  # a length that does not divide
+                whole = pt.stream_axis(SEQ_S + 1)
+            out[f"{name}/fallback"] = torch.tensor([whole.n, report == {
+                "activations": [f"axis 'seq' dim {SEQ_S + 1} not divisible "
+                                f"by ('model',)={shape[-1]}; replicated"]}])
+            sq = pt.stream_axis(SEQ_S)
+            lo, hi = sq.block(SEQ_S)
+            block = x[:, lo:hi]
+            cot = inp["seq_g"][:, lo:hi]
+            cases = {"seq_gather": (lambda t: pt.seq_gather(t, sq), block,
+                                    inp["seq_c"]),
+                     "seq_scatter": (lambda t: pt.seq_scatter(t, sq), x,
+                                     cot)}
+            if pt.model_axis() is not None:  # a region's boundaries
+                ax = pt.tp_axis(1, sq.n, sq)
+                cases["enter"] = (lambda t: pt.enter(t, ax), block,
+                                  inp["seq_c"])
+                cases["leave"] = (lambda t: pt.leave(t, ax), inp["seq_p"],
+                                  cot)
+            for case, (fn, t, c) in cases.items():
+                t = t.clone().requires_grad_(True)
+                y = fn(t)
+                (g,) = torch.autograd.grad(y, t, c)
+                out[f"{name}/{case}"], out[f"{name}/{case}_grad"] = \
+                    y.detach(), g
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -319,3 +382,71 @@ def test_gradient_carrying_reductions(results, mesh):
                                    rtol=1e-6)
         np.testing.assert_allclose(port[r][f"{mesh}/grad_z"],
                                    x[r] + x[mates[0]], rtol=1e-6)
+
+
+def _seq_ranks(name: str, r: int) -> tuple[int, list[int], slice]:
+    """Rank r's coordinate on the model axis of ``SEQ_MESHES[name]``, the
+    ranks of its model group in model order, and its block of the
+    positions."""
+    n = SEQ_MESHES[name][0][-1]
+    j, size = r % n, SEQ_S // n
+    return j, [r - j + i for i in range(n)], slice(j * size,
+                                                   (j + 1) * size)
+
+
+SEQ_CASES = [(m, c) for m in SEQ_MESHES for c in
+             ("seq_gather", "seq_scatter")
+             + (("enter", "leave") if m.startswith("sp") else ())]
+
+
+@pytest.mark.parametrize("mesh,case", SEQ_CASES,
+                         ids=[f"{m}-{c}" for m, c in SEQ_CASES])
+def test_sequence_collectives(results, mesh, case):
+    """Forward and backward of the sequence's collectives against the
+    reckoning from every rank's inputs: a region's ``enter`` all-gathers
+    the positions (backward: the sum of the group's cotangents, this
+    rank's positions) and ``leave`` reduce-scatters the group's partials
+    (backward: the all-gather of the positions' cotangents);
+    ``seq_gather`` all-gathers them, its backward this rank's positions of
+    its own cotangent under sequence parallelism (a replicated
+    computation's) and the sum's under token parallelism (each rank's
+    part); ``seq_scatter`` keeps this rank's positions, its backward the
+    all-gather of the ranks' cotangents under sequence parallelism and
+    its own in place, zeros elsewhere, under token parallelism."""
+    inp, _, port = results
+    x, c, p, g = (inp[k] for k in ("seq_x", "seq_c", "seq_p", "seq_g"))
+    sp = mesh.startswith("sp")
+    for r in range(4):
+        j, group, blk = _seq_ranks(mesh, r)
+        gathered = np.concatenate(
+            [g[i][:, _seq_ranks(mesh, i)[2]] for i in group], axis=1)
+        if case in ("enter", "seq_gather"):
+            want = x
+            if case == "seq_gather" and sp:
+                want_grad = c[r][:, blk]
+            else:
+                want_grad = sum(c[i] for i in group)[:, blk]
+        elif case == "leave":
+            want, want_grad = sum(p[i] for i in group)[:, blk], gathered
+        else:  # seq_scatter
+            want = x[:, blk]
+            if sp:
+                want_grad = gathered
+            else:
+                want_grad = np.zeros_like(x)
+                want_grad[:, blk] = g[r][:, blk]
+        got = port[r][f"{mesh}/{case}"]
+        assert got.shape == want.shape, (r, got.shape, want.shape)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(port[r][f"{mesh}/{case}_grad"],
+                                   want_grad, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mesh", list(SEQ_MESHES))
+def test_sequence_divisibility_fallback(results, mesh):
+    """A stream whose length does not divide by the model axis stays whole
+    (``stream_axis`` is ``UNIT``) and the report says so, as
+    ``logical_to_spec``'s fallback."""
+    _, _, port = results
+    for r in range(4):
+        assert port[r][f"{mesh}/fallback"].tolist() == [1, 1]

@@ -64,6 +64,16 @@ MINI_CELLS = [("internlm2-1.8b", "train_4k", False),
               ("mamba2-2.7b", "long_500k", False),
               ("internlm2-1.8b", "train_4k", True),
               ("qwen2-72b", "long_500k", False)]  # the skip rule
+# the TRAIN_NO_TP archs' train_4k on the 2x2x2 override (multi-pod
+# tp=False: the sequence over "model"), compiled by the reference too
+NO_TP_CELLS = ("internlm2-1.8b", "whisper-base")
+# more cells through the port's CLI: (arch, shape, multi_pod, tag) -> its
+# extra arguments
+CLI_CELLS = {(a, s, mp, ""): [] for a, s, mp in MINI_CELLS}
+CLI_CELLS.update({
+    ("whisper-base", "train_4k", True, ""): [],
+    ("internlm2-20b", "train_4k", False, "sp"): ["--seq-shard"],
+})
 
 _REFERENCE = r'''
 import json, os, sys
@@ -112,6 +122,16 @@ for a, s in FLOP_CELLS:
         c = jax.jit(step, in_shardings=in_sh,
                     out_shardings=out_sh).lower(*args).compile()
     out["flops"][f"{a}/{s}"] = ha.analyze_hlo(c.as_text()).flops
+MESH[True] = (2, 2, 2)
+out["no_tp"] = {}
+for a in NO_TP_CELLS:
+    step, args, in_sh, out_sh, rules, mesh, meta = rd.build_cell(
+        a, "train_4k", multi_pod=True)
+    with use_rules(rules, mesh), mesh:
+        c = jax.jit(step, in_shardings=in_sh,
+                    out_shardings=out_sh).lower(*args).compile()
+    out["no_tp"][a] = {"flops": ha.analyze_hlo(c.as_text()).flops,
+                       "temp": c.memory_analysis().temp_size_in_bytes}
 print(json.dumps(out))
 '''
 
@@ -123,20 +143,21 @@ class _Background:
     def __init__(self, tmp):
         env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu")
         cells = list(FLOP_CELLS) + [ATTENTION_CELL]
-        code = f"PAIRS = {PAIRS!r}\nFLOP_CELLS = {cells!r}\n" + _REFERENCE
+        code = (f"PAIRS = {PAIRS!r}\nFLOP_CELLS = {cells!r}\n"
+                f"NO_TP_CELLS = {NO_TP_CELLS!r}\n" + _REFERENCE)
         self.ref = subprocess.Popen([sys.executable, "-c", code], env=env,
                                     cwd=REPO, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
         self.cli = {}
-        for arch, shape, mp in MINI_CELLS:
-            out = os.path.join(tmp, f"{arch}_{shape}_{mp}")
+        for (arch, shape, mp, tag), extra in CLI_CELLS.items():
+            out = os.path.join(tmp, f"{arch}_{shape}_{mp}_{tag}")
             cenv = dict(env, REPRO_DRYRUN_DEVICES="8",
                         REPRO_MESH_OVERRIDE="2x2x2" if mp else "2x4")
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", shape, "--out", out]
+                   "--arch", arch, "--shape", shape, "--out", out, *extra]
             if mp:
                 cmd.append("--multi-pod")
-            self.cli[(arch, shape, mp)] = (out, subprocess.Popen(
+            self.cli[(arch, shape, mp, tag)] = (out, subprocess.Popen(
                 cmd, env=cenv, cwd=REPO, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True))
         self._ref = None
@@ -148,8 +169,8 @@ class _Background:
             self._ref = json.loads(out.strip().splitlines()[-1])
         return self._ref
 
-    def record(self, arch, shape, mp) -> dict:
-        out, proc = self.cli[(arch, shape, mp)]
+    def record(self, arch, shape, mp, tag="") -> dict:
+        out, proc = self.cli[(arch, shape, mp, tag)]
         _, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, err[-3000:]
         mesh = "pod2x16x16" if mp else "pod16x16"
@@ -695,3 +716,46 @@ def test_reference_mini_cells_through_port_cli(arch, shape, mp, background):
     if mp and shape == "train_4k":
         assert rec["collectives"]["all-reduce"]["count"] > 0
     assert np.isfinite(rec["traffic_bytes_per_device"])
+
+
+@pytest.mark.parametrize("arch", NO_TP_CELLS)
+def test_token_parallel_cells_within_the_reference(arch, background):
+    """The ``TRAIN_NO_TP`` archs' train_4k on the 2x2x2 override through
+    the port's CLI (multi-pod ``tp=False``: the batch over "pod" and
+    "data", each rank's positions over "model"; the traced rank the last
+    block of "model", whose queries attend every key) against the
+    reference's compiled cell: the port's products and reductions a
+    device at most the reference's, its peak temporary bytes at most 1.25
+    times the reference's.  When this file was written: internlm2-1.8b
+    1.997e15 against 2.474e15 and 235.6 against 292.2 GB (3.783e15 and
+    469.5 GB while the port held the whole sequence on each model rank);
+    whisper-base 1.401e14 against 2.231e14 and 125.4 against 240.2 GB
+    (2.669e14)."""
+    rec = background.record(arch, "train_4k", True)
+    ref = background.reference()["no_tp"][arch]
+    terms = rec["flop_terms"]
+    assert rec["traced_coords"] == {"pod": 0, "data": 0, "model": 1}
+    assert terms["products"] + terms["reductions"] <= ref["flops"], \
+        (terms, ref)
+    assert rec["memory_analysis"]["temp_bytes"] <= 1.25 * ref["temp"], \
+        (rec["memory_analysis"], ref)
+    assert "activations" not in rec["sharding_report"]
+
+
+def test_sequence_parallel_cell_lowers_the_peak(background, override):
+    """internlm2-20b train_4k on the 2x4 override under
+    ``train_rules(seq_shard=True)`` (its CLI's ``--seq-shard``) against
+    the same cell without: the residual stream is split over "model"
+    between the tensor-parallel regions (Megatron's sequence
+    parallelism), so the peak temporary bytes a device fall and the
+    products stay within 1%.  When this file was written: 213.6 against
+    347.6 GB, products 2.03967e16 on both."""
+    sp = background.record("internlm2-20b", "train_4k", False, "sp")
+    override((2, 4))
+    with dr.fake_world(8, dr.traced_rank("train_4k", False)):
+        plain = dr.build_cell("internlm2-20b", "train_4k",
+                              multi_pod=False).trace()
+    assert sp["memory_analysis"]["temp_bytes"] \
+        < 0.75 * plain.memory["temp_bytes"]
+    assert abs(sp["flop_terms"]["products"] / plain.terms["products"]
+               - 1) < 0.01

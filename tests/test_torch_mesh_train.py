@@ -7,20 +7,26 @@ Four gloo ranks run ``repro_torch.launch.train.main`` with ``--mesh
 ``torch.distributed.run`` sets them) on a (2, 2) ``("data", "model")`` mesh
 (``REPRO_MESH_OVERRIDE=2x2``) and a (2, 1, 2) ``("pod", "data", "model")``
 one (``--multi-pod``, ``2x1x2``), each mesh's runs (``RUNS``: an arch and
-its rules, ``train_rules`` with tensor parallelism or with ``tp=False``,
-the launcher's ``train_rules`` patched in the rank) in one set of
-processes, at the smoke configs in float32,
+its rules, ``train_rules`` with tensor parallelism ("tp"), with
+``seq_shard=True`` beside it ("sp") or with ``tp=False`` ("no_tp"), the
+launcher's ``train_rules`` patched in the rank) in one set of processes,
+at the smoke configs in float32,
 the MoE's capacity factor raised to E/k so that no assignment drops.  On
 2x2 under tensor parallelism: internlm2 (dense GQA), deepseek-v2 (MLA and
 the expert-parallel MoE), mamba2 (the fused ``in_proj`` block straddles
 z | xBC | dt), recurrentgemma (its one kv head splits over "model"; the
 RG-LRU gates read the gathered conv output) and whisper (the encoder and
-cross-attention); ``tp=False`` (the batch over both axes, FSDP over both)
-for internlm2 and whisper; on 2x1x2 internlm2 and deepseek-v2, and
-internlm2 under ``tp=False`` (the batch over "pod" and "data", FSDP over
-all three axes, the activations' "seq" mapping held replicated over
-"model").  Every
-rank holds the reference's block of every parameter, moment and batch.
+cross-attention); under sequence parallelism (the residual stream split
+along its positions over "model" between the regions) internlm2,
+deepseek-v2 (the MoE on the gathered positions), mamba2, recurrentgemma
+and llava (the patch prefix's rows in the first rank's block);
+``tp=False`` (the batch over both axes, FSDP over both) for internlm2 and
+whisper; on 2x1x2 internlm2 and deepseek-v2, and internlm2 and whisper
+under ``tp=False`` (the batch over "pod" and "data", FSDP over all three
+axes, token parallelism: each rank's positions over "model", the keys
+and values gathered).  Every
+rank holds the reference's block of every parameter, moment and batch,
+and every block's input is its rows of its positions.
 The batch's rows mask 0, 1, 5 and 9 leading targets, so the data shards
 mask different numbers.  Each rank records the loss's ``ce`` metric, its
 parameters and gradients after every step (``make_loss_fn``,
@@ -80,37 +86,49 @@ from test_torch_collectives import (MESHES, ROOT,  # noqa: F401
                                     finish_reference, one_thread, run_ranks,
                                     start_reference)
 
-# mesh -> the (arch, tp) runs its ranks train, in order
+# the runs of the sequence's split over "model"
+SEQ_SPLIT = {
+    "2x2": (("internlm2-1.8b", "sp"), ("deepseek-v2-236b", "sp"),
+            ("mamba2-2.7b", "sp"), ("recurrentgemma-2b", "sp"),
+            ("llava-next-mistral-7b", "sp")),
+    "2x1x2": (("internlm2-1.8b", "no_tp"), ("whisper-base", "no_tp")),
+}
+# mesh -> the (arch, rules) runs its ranks train, in order: rules "tp"
+# (train_rules), "sp" (seq_shard=True) or "no_tp" (tp=False)
 RUNS = {
-    "2x2": (("internlm2-1.8b", True), ("deepseek-v2-236b", True),
-            ("mamba2-2.7b", True), ("recurrentgemma-2b", True),
-            ("whisper-base", True), ("internlm2-1.8b", False),
-            ("whisper-base", False)),
-    "2x1x2": (("internlm2-1.8b", True), ("deepseek-v2-236b", True),
-              ("internlm2-1.8b", False)),
+    "2x2": (("internlm2-1.8b", "tp"), ("deepseek-v2-236b", "tp"),
+            ("mamba2-2.7b", "tp"), ("recurrentgemma-2b", "tp"),
+            ("whisper-base", "tp"), ("internlm2-1.8b", "no_tp"),
+            ("whisper-base", "no_tp")) + SEQ_SPLIT["2x2"],
+    "2x1x2": (("internlm2-1.8b", "tp"), ("deepseek-v2-236b", "tp"),
+              ("internlm2-1.8b", "no_tp"), ("whisper-base", "no_tp")),
 }
 # the runs held to the JAX package's first step
 REFERENCE_RUNS = {
-    "2x2": (("internlm2-1.8b", True), ("deepseek-v2-236b", True),
-            ("mamba2-2.7b", True), ("recurrentgemma-2b", True),
-            ("internlm2-1.8b", False), ("whisper-base", False)),
+    "2x2": (("internlm2-1.8b", "tp"), ("deepseek-v2-236b", "tp"),
+            ("mamba2-2.7b", "tp"), ("recurrentgemma-2b", "tp"),
+            ("internlm2-1.8b", "no_tp"), ("whisper-base", "no_tp"))
+    + SEQ_SPLIT["2x2"],
     "2x1x2": RUNS["2x1x2"],
 }
 # the runs stopped after 2 steps and resumed
-RESUMED = {"2x2": (("deepseek-v2-236b", True), ("mamba2-2.7b", True),
-                   ("internlm2-1.8b", False)),
+RESUMED = {"2x2": (("deepseek-v2-236b", "tp"), ("mamba2-2.7b", "tp"),
+                   ("internlm2-1.8b", "no_tp")) + SEQ_SPLIT["2x2"],
            "2x1x2": RUNS["2x1x2"]}
-COMPRESSED = ("internlm2-1.8b", True)  # on 2x2
-# (mesh, arch, tp, kind) -> the parameters whose free-running reckoning
+COMPRESSED = ("internlm2-1.8b", "tp")  # on 2x2
+# (mesh, arch, rules, kind) -> the parameters whose free-running reckoning
 # drifts past TOL from the ranks' (_check_reckoning); PERF.md has the
 # readings
 FREE_DRIFT = {
-    ("2x2", "mamba2-2.7b", True, "whole"): {"g0/p0/dt_bias"},
-    ("2x2", "recurrentgemma-2b", True, "whole"): {
+    ("2x2", "mamba2-2.7b", "tp", "whole"): {"g0/p0/dt_bias"},
+    ("2x2", "mamba2-2.7b", "sp", "whole"): {"g0/p0/dt_bias"},
+    ("2x2", "recurrentgemma-2b", "tp", "whole"): {
         "g0/p0/b_r", "g0/p0/norm2", "g0/p1/b_i", "g0/p1/norm1"},
-    ("2x2", "whisper-base", True, "whole"): {"embed/tok", "g0/p0/wq"},
-    ("2x2", "internlm2-1.8b", False, "whole"): {"g0/p0/norm1"},
-    ("2x2", "internlm2-1.8b", True, "compressed"): {
+    ("2x2", "recurrentgemma-2b", "sp", "whole"): {
+        "g0/p0/b_r", "g0/p0/norm2", "g0/p1/b_i", "g0/p1/norm1"},
+    ("2x2", "whisper-base", "tp", "whole"): {"embed/tok", "g0/p0/wq"},
+    ("2x2", "internlm2-1.8b", "no_tp", "whole"): {"g0/p0/norm1"},
+    ("2x2", "internlm2-1.8b", "tp", "compressed"): {
         "g0/p0/mlp_wg", "g0/p0/mlp_wi", "g0/p0/mlp_wo"},
 }
 STEPS, BATCH, SEQ = 4, 4, 16
@@ -119,7 +137,12 @@ TOL = 1e-5
 
 
 def _id(run) -> str:
-    return f"{run[0]}-{'tp' if run[1] else 'no_tp'}"
+    return f"{run[0]}-{run[1]}"
+
+
+def rules_kw(rules: str) -> dict:
+    """``train_rules``' keywords for a run's rules."""
+    return {"tp": rules != "no_tp", "seq_shard": rules == "sp"}
 
 
 def config(name: str, *, smoke: bool = False):
@@ -155,6 +178,7 @@ def train_worker(arg) -> None:
     import torch.distributed as dist
 
     import repro_torch.launch.train as launch
+    import repro_torch.models.lm as lm
     import repro_torch.train.loop as loop
 
     dist.init_process_group("gloo")
@@ -179,6 +203,11 @@ def train_worker(arg) -> None:
         return out
 
     loss_and_grads = loop.Trainer.loss_and_grads
+    block_train = lm._block_train
+
+    def recording_block_train(cfg, kind, p, x, *args):
+        rec["block_in"].add(tuple(x.shape))
+        return block_train(cfg, kind, p, x, *args)
 
     def recording_loss_and_grads(self, params, batch):
         loss, grads = loss_and_grads(self, params, batch)
@@ -202,10 +231,11 @@ def train_worker(arg) -> None:
     loop.make_loss_fn, loop.adamw_update = recording_loss_fn, recording_update
     loop.Trainer.run = stoppable_run
     loop.Trainer.loss_and_grads = recording_loss_and_grads
+    lm._block_train = recording_block_train
     launch.get_config, launch.SyntheticLM = config, masked_lm()
     train_rules = launch.train_rules
-    launch.train_rules = lambda multi_pod=False: train_rules(multi_pod,
-                                                             tp=tp)
+    launch.train_rules = lambda multi_pod=False: train_rules(
+        multi_pod, **rules_kw(rules))
     out = {}
     common = ["--mesh", "--smoke", "--device", "cpu", "--batch", str(BATCH),
               "--seq", str(SEQ), "--probe-interval", "0.2"]
@@ -213,23 +243,24 @@ def train_worker(arg) -> None:
         common.append("--multi-pod")
 
     def main(argv, ckpt):
-        rec.update(loss=[], ce=[], params=[], gnorm=[], grads=[])
+        rec.update(loss=[], ce=[], params=[], gnorm=[], grads=[],
+                   block_in=set())
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
             assert launch.main(argv + ["--ckpt-dir", ckpt]) == 0
         return {**rec, "stdout": text.getvalue()}
 
-    for arch, tp in RUNS[mesh]:
+    for arch, rules in RUNS[mesh]:
         argv = common + ["--arch", arch, "--steps", str(STEPS),
                          "--ckpt-every", "2"]
-        base = f"{directory}/{_id((arch, tp))}"
+        base = f"{directory}/{_id((arch, rules))}"
         stop_after = None
-        out[arch, tp, "whole"] = main(argv, f"{base}/a")
-        if (arch, tp) in RESUMED[mesh]:
+        out[arch, rules, "whole"] = main(argv, f"{base}/a")
+        if (arch, rules) in RESUMED[mesh]:
             for name, stop_after in (("stopped", 2), ("resumed", None)):
-                out[arch, tp, name] = main(argv, f"{base}/b")
+                out[arch, rules, name] = main(argv, f"{base}/b")
     # offload mode: the out-of-core AdamW walks this rank's own blocks
-    stop_after, tp = None, True
+    stop_after, rules = None, "tp"
     out["offload"] = main(common + ["--arch", "deepseek-v2-236b", "--steps",
                                     "2", "--mode", "offload"],
                           f"{directory}/offload")
@@ -310,9 +341,9 @@ def _check_reckoning(mesh, results, run, *, kind="whole",
     from repro_torch.runtime.compress import (compress_with_feedback,
                                               init_error_feedback)
     from repro_torch.train import AdamWConfig, adamw_update, init_opt_state
-    arch, tp = run
+    arch, rules = run
     cfg = config(arch, smoke=True)
-    n_dp = _n_dp(mesh, tp)
+    n_dp = _n_dp(mesh, rules)
     res = [{(*run, "whole"): rec[(*run, kind)]} for rec in results]
     params = init_params(param_specs(cfg), 0, device="cpu")
     opt = AdamWConfig(lr=3e-4, warmup_steps=max(1, STEPS // 10),
@@ -395,8 +426,9 @@ inp = dict(np.load(sys.argv[1]))
 # reference's shard() (with_sharding_constraint) refuses
 mesh = jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes))
 out = {}
-for arch, tp in runs:
-    rules = train_rules(len(axes) == 3, tp=tp)
+for arch, kind in runs:
+    rules = train_rules(len(axes) == 3, tp=kind != "no_tp",
+                        seq_shard=kind == "sp")
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
                               param_dtype="float32")
     if cfg.n_experts:
@@ -417,7 +449,7 @@ for arch, tp in runs:
     with use_rules(rules, mesh):
         loss, metrics, grads, gnorm = jax.jit(step)(
             params, {k: v[0] for k, v in batch.items()})
-    key = f"{arch}/{tp}"
+    key = f"{arch}/{kind}"
     out[f"{key}/ce"] = np.asarray(metrics["ce"])
     out[f"{key}/loss"] = np.asarray(loss)
     out[f"{key}/gnorm"] = np.asarray(gnorm)
@@ -435,7 +467,7 @@ def _coords(mesh: str, rank: int) -> dict[str, int]:
     return out
 
 
-def _specs(mesh: str, arch: str, tp: bool) -> dict:
+def _specs(mesh: str, arch: str, rules: str) -> dict:
     """Each parameter's full shape and its block's ``NamedSharding`` under
     ``logical_to_spec`` with the run's rules, on a shape-only mesh."""
     from repro_torch.models import param_specs
@@ -443,9 +475,9 @@ def _specs(mesh: str, arch: str, tp: bool) -> dict:
                                               train_rules)
     shape, axes = MESHES[mesh]
     m = SimpleNamespace(shape=dict(zip(axes, shape)))
-    rules = train_rules(len(axes) == 3, tp=tp)
+    table = train_rules(len(axes) == 3, **rules_kw(rules))
     return {k: (s.shape, NamedSharding(m, logical_to_spec(
-        s.axes, s.shape, rules, m))) for k, s in
+        s.axes, s.shape, table, m))) for k, s in
         param_specs(config(arch, smoke=True)).items()}
 
 
@@ -471,11 +503,11 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / max(1e-12, float(b.abs().max())))
 
 
-def _n_dp(mesh: str, tp: bool) -> int:
+def _n_dp(mesh: str, rules: str) -> int:
     """The data-parallel size: the batch over ("data",) or ("pod",
     "data"), or over ("data", "model") on 2x2 without tensor
     parallelism."""
-    return 4 if mesh == "2x2" and not tp else 2
+    return 4 if mesh == "2x2" and rules == "no_tp" else 2
 
 
 CASES = [(mesh, run) for mesh in RUNS for run in RUNS[mesh]]
@@ -591,23 +623,30 @@ def test_mesh_offload_mode_trains_each_block(ranks, mesh):
 @pytest.mark.parametrize("mesh", list(MESHES))
 def test_mesh_prints_the_sharding_report(ranks, mesh):
     """Rank 0 prints the mesh and ``sharding_report()`` after each run: no
-    mapping of the training rules is left unapplied but the activations'
-    "seq" (multi-pod ``tp=False``, naming A14d), and on 2x2 the gathers
-    over "model" where a block splits what the math needs whole are named
-    once each (mamba2's fused projection, recurrentgemma's one kv head and
-    its RG-LRU gates)."""
+    mapping of the training rules is left unapplied (the activations'
+    "seq" of multi-pod ``tp=False`` and ``seq_shard=True`` splits the
+    stream, 16 and 24 positions dividing by 2: no fallback under
+    "activations"), and each gather over "model" of what the reference's
+    layout keeps sharded is named once: on 2x2 mamba2's fused projection,
+    recurrentgemma's one kv head and its RG-LRU gates, and under sequence
+    parallelism the MoE's dispatch on every position; on 2x1x2 (token
+    parallelism) the keys and values over the positions, in
+    self-attention and in whisper's cross-attention."""
     mesh, results, _ = ranks(mesh)
     runs = RUNS[mesh]
     text = results[0][(*runs[-1], "whole")]["stdout"]
     line = next(ln for ln in text.splitlines() if "sharding_report" in ln)
-    assert "(gloo), rules train" in line and "A14c" not in line
+    assert "(gloo), rules train" in line and "A14" not in line
     report = json.loads(line.split("replicated): ", 1)[1])
-    assert "not applied" not in json.dumps(
-        {k: v for k, v in report.items() if k != "activations"})
+    assert "not applied" not in json.dumps(report)
+    assert "activations" not in report
+    every = ("the stream gathered over 'model' along its positions "
+             "(model=2): every position computed on each rank")
     if mesh == "2x1x2":
-        assert report["activations"] == [
-            "axis 'seq' dim 16 -> ('model',)=2 not applied to activations "
-            "(sequence parallelism is ROADMAP A14d); replicated"]
+        positions = ("k and v gathered over 'model' along the positions "
+                     "(model=2): each rank's queries attend every key")
+        assert report["attention/self"] == [positions]
+        assert report["attention/x_"] == [positions]
     if mesh == "2x2":
         assert report["ssm/in_proj"] == [
             "in_proj's z | xBC | dt block on model=2 straddles its parts: "
@@ -618,8 +657,29 @@ def test_mesh_prints_the_sharding_report(ranks, mesh):
         assert list(report["rglru/gates"]) == [
             "the gates' columns on model=2 read every channel: the conv "
             "output gathered over 'model'"]
+        assert report["moe/dispatch"] == [every]
     for rec in results[1:]:
         assert "sharding_report" not in rec[(*runs[-1], "whole")]["stdout"]
+
+
+SPLIT_CASES = [(mesh, run) for mesh in SEQ_SPLIT for run in SEQ_SPLIT[mesh]]
+
+
+@pytest.mark.parametrize("mesh,run", SPLIT_CASES,
+                         ids=[f"{m}-{_id(r)}" for m, r in SPLIT_CASES])
+def test_mesh_blocks_take_the_ranks_positions(ranks, mesh, run):
+    """Under ``seq_shard=True`` and multi-pod ``tp=False`` every block's
+    input on every rank (``_block_train``'s stream, the encoder's too) is
+    its rows of its block of the positions, (rows, S/m, D): no rank holds
+    the whole sequence of the residual stream.  (A VLM's stream of SEQ
+    positions is its 8 patches and 8 text tokens: the patches are the
+    first rank's block, the text the second's.)"""
+    mesh, results, _ = ranks(mesh)
+    cfg = config(run[0], smoke=True)
+    want = {(BATCH // _n_dp(mesh, run[1]), SEQ // 2, cfg.d_model)}
+    for rec in results:
+        for kind in ("whole", "resumed"):
+            assert rec[(*run, kind)]["block_in"] == want, (kind, want)
 
 
 @pytest.fixture(scope="module")

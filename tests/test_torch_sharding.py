@@ -125,9 +125,10 @@ def test_explicit_spec_equals_logical_to_spec_under_train_rules(
     """Under every ``train_rules(multi_pod, tp=, fsdp=)`` table (and with
     ``seq_shard``), on each mesh shape, ``explicit_spec`` is
     ``logical_to_spec`` for every parameter, batch tensor and activation
-    of every arch: the trainer holds the reference's blocks.  What it adds
-    to the report is only the activation "seq" mapping to axes of size >
-    1 (held replicated, naming A14d)."""
+    of every arch: the trainer holds the reference's blocks, and the step
+    splits the residual stream where "seq" maps to an axis.  It adds
+    nothing to the report: every mapping is applied (no "seq" mapping is
+    left replicated since sequence and token parallelism)."""
     for shape, seq_shard in itertools.product(MESH_SHAPES, (False, True)):
         if len(shape) != (3 if multi_pod else 2):
             continue
@@ -151,15 +152,10 @@ def test_explicit_spec_equals_logical_to_spec_under_train_rules(
                 assert got == want, (arch, ctx, got, want)
                 added = [m for m in report.get(ctx, [])
                          if m not in fallbacks.get(ctx, [])]
-                if seq is not None and "seq" in axes \
-                        and mesh.shape[seq] > 1:
-                    assert added == [
-                        f"axis 'seq' dim 4096 -> ('model',)="
-                        f"{mesh.shape[seq]} not applied to activations "
-                        "(sequence parallelism is ROADMAP A14d); "
-                        "replicated"], (ctx, added)
-                else:
-                    assert added == [], (arch, ctx, added)
+                assert added == [], (arch, ctx, added)
+                if seq is not None and "seq" in axes:
+                    assert got[axes.index("seq")] == (
+                        seq if 4096 % mesh.shape[seq] == 0 else None)
     port.sharding_report().clear()
 
 
